@@ -1,0 +1,149 @@
+"""GQA attention for the dense decoder (torch counterpart of the dense
+parts of ``repro/models/attention.py``): projections, RoPE, the O(S^2)
+prefill attention, the per-row-position decode tick and the KV cache
+definitions.
+
+The decode tick has two implementations selected by ``impl``:
+``"plain"`` scatters the new K/V row into the cache and runs the plain
+decode attention (the parity oracle); ``"kernel"`` calls
+``kernels.ops.decode_attention_fused``, which writes the row and attends in
+one CUDA launch (and takes the same plain version on CPU tensors).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.decode_attention import (NEG_INF,
+                                                  decode_attention_plain)
+from repro_torch.models.common import (ParamDef, ParamDefs, Params,
+                                       apply_rope, softcap)
+
+DECODE_IMPLS = ("plain", "kernel")
+
+
+def attn_param_defs(cfg: ModelConfig) -> ParamDefs:
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs: ParamDefs = {
+        "wq": ParamDef((D, H, hd), ("qkv_in", "heads", "head_dim")),
+        "wk": ParamDef((D, K, hd), ("qkv_in", "kv_heads", "head_dim")),
+        "wv": ParamDef((D, K, hd), ("qkv_in", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, D), ("heads", "head_dim", "qkv_in")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, hd), ("heads", "head_dim"), init="zeros")
+        defs["bk"] = ParamDef((K, hd), ("kv_heads", "head_dim"), init="zeros")
+        defs["bv"] = ParamDef((K, hd), ("kv_heads", "head_dim"), init="zeros")
+    return defs
+
+
+def _mask_bias(q_pos, k_pos, *, window: int) -> torch.Tensor:
+    """Additive causal mask bias (0 or NEG_INF). q_pos (Sq,), k_pos (Skv,);
+    ``window`` <= 0 means global."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def naive_attention(q, k, v, *, window=0, logit_cap=0.0) -> torch.Tensor:
+    """O(S^2)-memory causal attention for prefill. q (B,Sq,H,hd); k/v
+    (B,Skv,K,hd).  Its products go to ``torch.einsum``, as the JAX package
+    leaves them to XLA."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    qr = q.reshape(B, Sq, K, G, hd).float() * hd ** -0.5
+    logits = torch.einsum("bskgh,btkh->bskgt", qr, k.float())
+    logits = softcap(logits, logit_cap)
+    bias = _mask_bias(torch.arange(Sq, device=q.device),
+                      torch.arange(Skv, device=q.device), window=window)
+    logits = logits + bias[None, :, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bskgt,btkh->bskgh", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k, v, *, pos, window=0, logit_cap=0.0):
+    """Single-new-token attention with PER-ROW cache positions (serving).
+
+    q: (B, 1, H, hd); k/v: (B, L, K, hd) full cache buffers; pos: (B,)
+    int — row b attends key indices <= pos[b] (and inside its local window
+    when ``window`` > 0).  Rows are independent: stale KV of freed slots
+    or not-yet-written positions cannot leak into a live sequence."""
+    return decode_attention_plain(q[:, 0], k, v, pos, window,
+                                  logit_cap=logit_cap)[:, None]
+
+
+def attention_block(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                    # (B, S, D)
+    *,
+    rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope_tables
+    window: int = 0,
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: (B,L,K,hd)
+    cache_pos: Optional[torch.Tensor] = None,         # decode: (B,) int
+    return_kv: bool = False,
+    impl: str = "plain",
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One attention op incl. projections, RoPE (``rope_cs`` = the
+    positions' ``rope_tables``, None without RoPE) and cache handling.
+
+    Prefill (``cache is None``): causal O(S^2) attention over the prompt;
+    with ``return_kv`` the computed k/v come back as the cache.  Decode
+    (``cache_pos`` a (B,) vector, S == 1): row b writes its k/v at its own
+    position ``cache_pos[b]`` — IN PLACE in ``cache`` (the JAX package
+    returned new buffers) — and attends its own prefix."""
+    B, S, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].reshape(D, K * hd)).reshape(B, S, K, hd)
+    v = (x @ p["wv"].reshape(D, K * hd)).reshape(B, S, K, hd)
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if rope_cs is not None:
+        q = apply_rope(q, *rope_cs)
+        k = apply_rope(k, *rope_cs)
+
+    if cache is not None:
+        if cache_pos is None or cache_pos.ndim != 1 or S != 1:
+            raise ValueError("decode takes one token per row and a (B,) "
+                             "vector of cache positions")
+        ck, cv = cache["k"], cache["v"]
+        nk, nv = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        if impl == "kernel":
+            out = kernel_ops.decode_attention_fused(
+                q[:, 0], ck, cv, nk, nv, cache_pos, window,
+                logit_cap=cfg.attn_softcap)[:, None]
+        elif impl == "plain":
+            rows = torch.arange(B, device=x.device)
+            ck[rows, cache_pos] = nk
+            cv[rows, cache_pos] = nv
+            out = decode_attention(q, ck, cv, pos=cache_pos, window=window,
+                                   logit_cap=cfg.attn_softcap)
+        else:
+            raise ValueError(f"decode impl {impl!r} not in {DECODE_IMPLS}")
+        new_cache = cache
+    else:
+        out = naive_attention(q, k, v, window=window,
+                              logit_cap=cfg.attn_softcap)
+        new_cache = {"k": k, "v": v} if return_kv else None
+    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+    return y, new_cache
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
+               layers: int) -> ParamDefs:
+    """KV cache ParamDefs (stacked over layers)."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (layers, batch, max_len, K, hd)
+    axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamDef(shape, axes, init="zeros"),
+        "v": ParamDef(shape, axes, init="zeros"),
+    }

@@ -1,0 +1,482 @@
+"""Device-resident continuous-batching serve engine (torch counterpart of
+the dense-family ``Engine`` / ``EngineReference`` of
+``repro/serve/engine.py``).
+
+Per-slot decode state — last token, write position, active flag,
+remaining budget, temperature — lives in (slots,) device tensors.  The
+state machine:
+
+  admit  (host, at sync points): free slots x queued requests -> ONE
+         batched prefill of the admitted prompts (right-padded to the next
+         power of two, capped at max_len); the prompt KV is scattered into
+         the assigned cache rows and every other row keeps its bits.  Each
+         admitted row's first token is sampled from its last prompt
+         position's logits.
+  decode (device, K ticks): a Python loop of ``ticks_per_sync`` ticks with
+         no host sync inside; each tick decodes every slot at its own
+         position (inactive slots too, at ``clip(pos, 0, max_len-1)``),
+         samples, advances budgets and masks finished slots — a finished
+         row emits -1 and stops changing its state.
+  drain  (host, every K ticks): ONE transfer brings back the (K, slots)
+         tokens, finish flags and finite-logit flags; outputs append,
+         finished slots free, new requests admit.
+
+The decode tick's attention and sampling are selected by ``attn_impl`` and
+``sample_impl``: ``"kernel"`` (default) goes through the CUDA kernels of
+``kernels/ops.py``, ``"plain"`` through their plain PyTorch versions.  On
+CPU tensors the kernel wrappers take the plain versions themselves.
+
+``EngineReference`` is the per-tick oracle: per-token prefill through
+``decode_step``, one host round-trip per tick, sampling in Python.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.sampling import fused_sample_plain
+from repro_torch.models.api import (Model, UnsupportedFamilyError,
+                                    serve_families)
+from repro_torch.serve.resilience import (DONE, FAILED, PENDING, QUEUED,
+                                          RUNNING, TERMINAL_STATES,
+                                          check_request)
+
+IMPLS = ("plain", "kernel")
+
+
+@dataclasses.dataclass
+class Request:
+    """One serve request, carrying its own latency record.
+
+    Tick-domain semantics (as in the JAX package): ``engine.ticks`` counts
+    completed decode ticks; a request admitted at tick ``T`` has
+    ``admit_tick = first_token_tick = T``; decode token ``i >= 1`` is
+    emitted at tick ``T + i - 1``.  Wall-clock stamps
+    (``time.perf_counter``) are taken when the host observes the event.
+    """
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    done_tick: Optional[int] = None
+    submit_tick: Optional[int] = None
+    submit_time: Optional[float] = None
+    admit_tick: Optional[int] = None
+    admit_time: Optional[float] = None
+    first_token_tick: Optional[int] = None
+    first_token_time: Optional[float] = None
+    done_time: Optional[float] = None
+    state: str = PENDING
+    reason: Optional[str] = None      # why FAILED
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in TERMINAL_STATES
+
+    def _mark_admitted(self, tick: int, now: float) -> None:
+        self.state = RUNNING
+        self.admit_tick = self.first_token_tick = tick
+        self.admit_time = self.first_token_time = now
+
+    def _finalize(self, state: str, tick: int, now: float,
+                  reason: Optional[str] = None) -> None:
+        """Enter a terminal state exactly once (later calls are no-ops)."""
+        if self.terminal:
+            return
+        self.state = state
+        self.reason = reason
+        self.done = state == DONE
+        self.done_tick = tick
+        self.done_time = now
+
+    def _mark_done(self, tick: int, now: float) -> None:
+        self._finalize(DONE, tick, now)
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _soft_submit(engine, req: Request) -> bool:
+    """Queue ``req``; a malformed request ends FAILED with the validation
+    message as its reason instead of raising.  Returns True iff queued."""
+    now = time.perf_counter()
+    try:
+        check_request(req, engine.max_len)
+    except ValueError as e:
+        req._finalize(FAILED, engine.ticks, now, reason=str(e))
+        return False
+    req.submit_tick = engine.ticks
+    req.submit_time = now
+    req.state = QUEUED
+    engine._queue.append(req)
+    return True
+
+
+def _drain_until_done(engine, max_ticks: int) -> int:
+    """Step until queue and slots are empty or the tick budget is spent.
+    A window runs only if all its ``ticks_per_sync`` ticks fit in
+    ``max_ticks``.  Returns the number of unfinished requests."""
+    start = engine.ticks
+    k = engine.ticks_per_sync
+    while engine._queue or any(r is not None for r in engine.slot_req):
+        if engine.ticks - start + k > max_ticks:
+            break
+        if engine.step() == 0 and not engine._queue:
+            break
+    return len(engine._queue) + sum(r is not None for r in engine.slot_req)
+
+
+def _check_model(model: Model, device: DeviceLike, name: str):
+    if "dense" not in model.serve_modes:
+        raise UnsupportedFamilyError(model.cfg.family,
+                                     serve_families("dense"), name)
+    dev = resolve_device(device)
+    if dev.type != model.device.type:
+        raise ValueError(f"{name} on {dev} but the model is on "
+                         f"{model.device}")
+    return model.device
+
+
+class Engine:
+    """Fused continuous-batching engine (see module docstring).
+
+    ``ticks_per_sync`` (K) is the drain cadence: larger K amortizes host
+    round-trips over more decode ticks but delays slot reuse to window
+    boundaries.  Temperature draws use two key words per sampling call
+    from the engine's ``torch.Generator`` (seeded by ``seed``); they
+    differ from ``jax.random``'s, so across frameworks only greedy tokens
+    agree.
+    """
+
+    def __init__(self, model: Model, params, *, slots: int, max_len: int,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 ticks_per_sync: int = 8, attn_impl: str = "kernel",
+                 sample_impl: str = "kernel", device: DeviceLike = None):
+        self.device = _check_model(model, device, "Engine")
+        if attn_impl not in IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {IMPLS}")
+        if sample_impl not in IMPLS:
+            raise ValueError(f"sample_impl {sample_impl!r} not in {IMPLS}")
+        if int(ticks_per_sync) < 1:
+            raise ValueError("ticks_per_sync must be >= 1")
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.seed = seed
+        self.ticks_per_sync = int(ticks_per_sync)
+        self.attn_impl = attn_impl
+        self.sample_impl = sample_impl
+        self._banks = model.state_banks()
+        self.reset()
+
+    # ---- state ----------------------------------------------------------
+    def reset(self) -> None:
+        """Clear cache, slot state, queue and counters."""
+        dev = self.device
+        self.cache = self.model.init_cache(self.slots, self.max_len)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(self.seed)
+        self.slot_req: List[Optional[Request]] = [None] * self.slots
+        self._queue: Deque[Request] = collections.deque()
+        z = dict(device=dev)
+        self._state = {
+            "last": torch.zeros(self.slots, dtype=torch.int32, **z),
+            "pos": torch.zeros(self.slots, dtype=torch.int32, **z),
+            "active": torch.zeros(self.slots, dtype=torch.bool, **z),
+            "remaining": torch.zeros(self.slots, dtype=torch.int32, **z),
+            "temps": torch.zeros(self.slots, dtype=torch.float32, **z),
+        }
+        self.ticks = 0
+        self.counts = {"decode_ticks": 0, "prefill_calls": 0,
+                       "nonfinite_rows": 0}
+
+    # ---- device programs ------------------------------------------------
+    def _sample(self, lg: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+        """Next tokens for (B, V) f32 logits; two fresh key words per call,
+        drawn on the device (no host sync)."""
+        key = torch.randint(0, 2 ** 32, (2,), generator=self._gen,
+                            device=self.device, dtype=torch.int64)
+        if self.sample_impl == "kernel":
+            return kernel_ops.fused_sample(lg, temps, key)
+        return fused_sample_plain(lg, temps, key)
+
+    def _window(self):
+        """K decode ticks, no host sync.  Returns (3, K, slots) int32:
+        emitted tokens (-1 for inactive rows), finish flags, finite-logit
+        flags."""
+        st = self._state
+        last, pos, active = st["last"], st["pos"], st["active"]
+        remaining, temps = st["remaining"], st["temps"]
+        toks, fins, oks = [], [], []
+        for _ in range(self.ticks_per_sync):
+            safe_pos = pos.clamp(0, self.max_len - 1)
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, {"tokens": last[:, None]},
+                safe_pos, attn_impl=self.attn_impl)
+            lg = logits[:, -1]
+            oks.append(torch.isfinite(lg).all(dim=-1))
+            tok = self._sample(lg, temps)
+            fin = (remaining - 1 <= 0) | (pos + 1 >= self.max_len)
+            if self.eos_id is not None:
+                fin = fin | (tok == self.eos_id)
+            fin = active & fin
+            toks.append(torch.where(active, tok, -1))
+            fins.append(fin)
+            last = torch.where(active, tok, last)
+            pos = torch.where(active, pos + 1, pos)
+            remaining = torch.where(active, remaining - 1, remaining)
+            active = active & ~fin
+        self._state = {"last": last, "pos": pos, "active": active,
+                       "remaining": remaining, "temps": temps}
+        return torch.stack([torch.stack(toks).to(torch.int32),
+                            torch.stack(fins).to(torch.int32),
+                            torch.stack(oks).to(torch.int32)])
+
+    def _scatter_bank(self, name: str, fresh: torch.Tensor,
+                      rows: torch.Tensor, valid: torch.Tensor) -> None:
+        """Write ``fresh`` (prefill KV, seq length P, batch = admitted rows)
+        into the cache rows ``rows`` where ``valid[row, col]``, along the
+        bank's batch/seq axes; every other element keeps its bits."""
+        bank = self._banks[name]
+        ba, sa = bank.batch_axis, bank.seq_axis
+        old = self.cache[name]
+        P = fresh.shape[sa]
+        idx = tuple(rows if d == ba else (slice(0, P) if d == sa
+                                          else slice(None))
+                    for d in range(old.ndim))
+        mask = valid.reshape(tuple(
+            valid.shape[0] if d == ba else (P if d == sa else 1)
+            for d in range(old.ndim)))
+        old[idx] = torch.where(mask, fresh.to(old.dtype), old[idx])
+
+    # ---- admission ------------------------------------------------------
+    def submit(self, req: Request) -> bool:
+        """Queue a request; never raises (malformed requests end FAILED).
+        Returns True iff queued."""
+        return _soft_submit(self, req)
+
+    def _admit(self) -> int:
+        """Admit queued requests into free slots with one batched prefill."""
+        free = [i for i in range(self.slots) if self.slot_req[i] is None]
+        take = min(len(free), len(self._queue))
+        if take == 0:
+            return 0
+        pairs = [(free[i], self._queue.popleft()) for i in range(take)]
+        P = min(self.max_len,
+                _next_pow2(max(len(r.prompt) for _, r in pairs)))
+        tokens = np.zeros((take, P), np.int32)
+        lens = np.zeros(take, np.int32)
+        for i, (_, r) in enumerate(pairs):
+            tokens[i, :len(r.prompt)] = r.prompt
+            lens[i] = len(r.prompt)
+        dev = self.device
+        rows = torch.tensor([s for s, _ in pairs], device=dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        max_new = torch.tensor([r.max_new_tokens for _, r in pairs],
+                               dtype=torch.int32, device=dev)
+        temps = torch.tensor([r.temperature for _, r in pairs],
+                             dtype=torch.float32, device=dev)
+        logits, fresh = self.model.prefill(
+            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
+            logits_at=(lens_t - 1).clamp(0, P - 1))
+        valid = (torch.arange(P, device=dev)[None, :] < lens_t[:, None])
+        for name in self.cache:
+            self._scatter_bank(name, fresh[name], rows, valid)
+        del fresh
+        last_lg = logits[:, 0]
+        ok0 = torch.isfinite(last_lg).all(dim=-1)
+        t0 = self._sample(last_lg, temps)
+        done0 = (max_new - 1 <= 0) | (lens_t >= self.max_len)
+        if self.eos_id is not None:
+            done0 = done0 | (t0 == self.eos_id)
+        st = self._state
+        st["last"][rows] = t0
+        st["pos"][rows] = lens_t
+        st["active"][rows] = ok0 & ~done0
+        st["remaining"][rows] = max_new - 1
+        st["temps"][rows] = temps
+        host = torch.stack([t0.to(torch.int32), done0.to(torch.int32),
+                            ok0.to(torch.int32)]).cpu()    # ONE host sync
+        now = time.perf_counter()
+        self.counts["prefill_calls"] += 1
+        for i, (s, r) in enumerate(pairs):
+            self.slot_req[s] = r
+            r._mark_admitted(self.ticks, now)
+            if not host[2, i]:
+                self._fail(s, r, now, "non-finite logits at prefill")
+                continue
+            r.output.append(int(host[0, i]))
+            if host[1, i]:
+                r._mark_done(self.ticks, now)
+                self.slot_req[s] = None
+        return take
+
+    def _fail(self, s: int, r: Request, now: float, why: str) -> None:
+        self.counts["nonfinite_rows"] += 1
+        r._finalize(FAILED, self.ticks, now, reason=why)
+        self.slot_req[s] = None
+
+    # ---- engine loop ----------------------------------------------------
+    def step(self) -> int:
+        """One sync window: admit + K decode ticks + drain.  Returns the
+        number of sequences active during the window."""
+        self._admit()
+        n_active = sum(r is not None for r in self.slot_req)
+        if n_active == 0:
+            return 0
+        host = self._window().cpu().numpy()     # ONE host sync
+        toks, fins, oks = host
+        now = time.perf_counter()
+        self.counts["decode_ticks"] += self.ticks_per_sync
+        bad = []
+        for t in range(self.ticks_per_sync):
+            for s in range(self.slots):
+                r = self.slot_req[s]
+                if r is None or toks[t, s] < 0:
+                    continue
+                if not oks[t, s]:
+                    self._fail(s, r, now, f"non-finite logits at tick "
+                               f"{self.ticks + t}")
+                    bad.append(s)
+                    continue
+                r.output.append(int(toks[t, s]))
+                if fins[t, s]:
+                    r._mark_done(self.ticks + t, now)
+                    self.slot_req[s] = None
+        if bad:
+            self._state["active"][torch.tensor(bad, device=self.device)] \
+                = False
+        self.ticks += self.ticks_per_sync
+        return n_active
+
+    def run(self, max_ticks: int = 10_000) -> int:
+        """Run to completion within a K-granular tick budget; returns the
+        number of unfinished requests (0 when everything completed)."""
+        return _drain_until_done(self, max_ticks)
+
+
+class EngineReference:
+    """The per-tick serving path, kept as the correctness oracle for
+    ``Engine``: prompts prefill one token at a time through
+    ``decode_step`` (on the admitted slot's row only), every decode tick
+    brings the logits to the host, and sampling and termination run in
+    Python.  Attention and sampling are always the plain versions."""
+
+    ticks_per_sync = 1
+
+    def __init__(self, model: Model, params, *, slots: int, max_len: int,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = _check_model(model, device, "EngineReference")
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.seed = seed
+        self.reset()
+
+    def reset(self) -> None:
+        self.cache = self.model.init_cache(self.slots, self.max_len)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self.seed)
+        self.slot_req: List[Optional[Request]] = [None] * self.slots
+        self._queue: Deque[Request] = collections.deque()
+        self._last = np.zeros(self.slots, np.int32)
+        self._pos = np.zeros(self.slots, np.int32)
+        self._active = np.zeros(self.slots, bool)
+        self._remaining = np.zeros(self.slots, np.int32)
+        self._temps = np.zeros(self.slots, np.float32)
+        self.ticks = 0
+
+    def submit(self, req: Request) -> bool:
+        """Same soft-fail semantics as ``Engine.submit``."""
+        return _soft_submit(self, req)
+
+    def _admit(self) -> None:
+        for i in range(self.slots):
+            if self.slot_req[i] is None and self._queue:
+                self._prefill(i, self._queue.popleft())
+
+    def _sample(self, logits_row: torch.Tensor, temp: float) -> int:
+        if temp > 0:
+            key = torch.randint(0, 2 ** 32, (2,), generator=self._gen,
+                                device=self.device, dtype=torch.int64)
+            temps = torch.tensor([temp], dtype=torch.float32,
+                                 device=self.device)
+            return int(fused_sample_plain(logits_row[None], temps, key)[0])
+        return int(torch.argmax(logits_row))
+
+    def _decode(self, cache, tokens: np.ndarray, pos: np.ndarray):
+        dev = self.device
+        logits, _ = self.model.decode_step(
+            self.params, cache,
+            {"tokens": torch.from_numpy(tokens[:, None]).to(dev)},
+            torch.from_numpy(pos).to(dev), attn_impl="plain")
+        return logits[:, -1]
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        """Per-token prefill of one slot, on that slot's cache row alone."""
+        self.slot_req[slot] = req
+        row = {n: c[:, slot:slot + 1] for n, c in self.cache.items()}
+        lg = None
+        for t, tok in enumerate(req.prompt):
+            lg = self._decode(row, np.array([tok], np.int32),
+                              np.array([t], np.int32))
+        t0 = self._sample(lg[0], req.temperature)
+        req._mark_admitted(self.ticks, time.perf_counter())
+        req.output.append(t0)
+        self._last[slot] = t0
+        self._pos[slot] = len(req.prompt)
+        self._remaining[slot] = req.max_new_tokens - 1
+        self._temps[slot] = req.temperature
+        done = (self._remaining[slot] <= 0
+                or (self.eos_id is not None and t0 == self.eos_id)
+                or self._pos[slot] >= self.max_len)
+        if done:
+            req._mark_done(self.ticks, time.perf_counter())
+            self.slot_req[slot] = None
+        self._active[slot] = not done
+
+    def step(self) -> int:
+        """One engine tick: admit + one batched decode + host sampling."""
+        self._admit()
+        active = np.nonzero(self._active)[0]
+        if len(active) == 0:
+            return 0
+        lg = self._decode(self.cache, self._last,
+                          np.clip(self._pos, 0, self.max_len - 1)).cpu()
+        for s in active:
+            r = self.slot_req[s]
+            tok = self._sample(lg[s].to(self.device), self._temps[s])
+            r.output.append(tok)
+            self._last[s] = tok
+            self._pos[s] += 1
+            self._remaining[s] -= 1
+            done = (self._remaining[s] <= 0
+                    or (self.eos_id is not None and tok == self.eos_id)
+                    or self._pos[s] >= self.max_len)
+            if done:
+                r._mark_done(self.ticks, time.perf_counter())
+                self.slot_req[s] = None
+                self._active[s] = False
+        self.ticks += 1
+        return len(active)
+
+    def run(self, max_ticks: int = 10_000) -> int:
+        return _drain_until_done(self, max_ticks)
