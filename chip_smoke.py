@@ -8,24 +8,48 @@ result line:
 
   0. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
   1. build: every ``csrc/*.cu`` with nvcc for sm_90a (seconds, ptxas notes);
-  2. kernels against their plain PyTorch versions at llama3-8b shapes
-     (B=8, H=32, K=8, hd=128, L=1024, ragged positions, V=128256), with
-     median times over 50 CUDA-event-timed runs (L2 flushed before each);
-  3. slice A: ``Engine`` serving 16 mixed requests with llama3-8b at full
+  2. the serve kernels against their plain PyTorch versions at llama3-8b
+     shapes (B=8, H=32, K=8, hd=128, L=1024, ragged positions, V=128256),
+     with median times over 50 CUDA-event-timed runs (L2 flushed before
+     each);
+  3. the LRU cache-simulator kernels (``cache_sim_ladder``, ``cache_sim``)
+     against their plain versions at shapes slice C does not reach: a
+     whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
+     accesses, and per-point caches with odd set counts, one set, and 1,
+     4 and 16 ways; 0 mismatching counts; the time of one link of the
+     longest dependent chain;
+  4. slice A: ``Engine`` serving 16 mixed requests with llama3-8b at full
      width and depth (bf16, random weights from a seeded generator),
      checking that no decode window syncs with the host, every request
      ends DONE, logits stay finite and the kernel launch counts are what
      the run implies; then a ``torch.profiler`` trace of one decode window
      (device busy share, kernels by device time);
-  4. slice B: llama3-8b at full width, 4 layers, f32: the kernel ``Engine``
+  5. slice B: llama3-8b at full width, 4 layers, f32: the kernel ``Engine``
      against ``EngineReference`` (plain attention and sampling) on 8
      requests, greedy outputs equal token for token;
-  5. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-     slice A, error against its plain version, time, plain time, bound and
-     the time of one PyTorch library call computing the same function.
+  6. slice C, the simulator at full scale: ``simulate_ladder`` over the
+     16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
+     4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
+     ladder and 64 per-point launches; all 64 (trace, rung) counts equal
+     bit for bit to the 64 per-point ``simulate_reference`` runs and to
+     the plain ladder on the same lines, and at 3 MB on trace 0 to the
+     per-point plain version and an OrderedDict LRU carried here; both
+     kernels and their plain versions timed at these shapes; then
+     ``iso_area(dram_model="trace")`` and ``dram_reduction_curve`` at 1:1
+     beside the analytic miss model;
+  7. the DeepNVM++ pipeline on the card against the same code on the CPU:
+     the quickstart's five steps, ``tune_all()`` and ``paper_profiles()``;
+     identical Algorithm-1 selections and iso-area capacities, PPA and
+     traffic fields within rel 1e-6;
+  8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
+     its slice's run (A for the serve kernels, C for the simulator), error
+     against its plain version, time, plain time, bound and the time of
+     one PyTorch library call computing the same function (none exists for
+     an LRU simulation: null).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import dataclasses
 import json
 import statistics
@@ -34,6 +58,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 import torch
 import torch.nn.functional as F
 
@@ -41,6 +67,9 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# int32 outside the tensor cores: 64 int32 lanes per SM against the 128
+# float32 lanes behind F32_FLOPS_PER_S, which counts an FMA as 2 flops
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX tests' bounds
 # Gumbel-max rows may flip between two tokens whose scores differ by less
 # than this (logf in CUDA and torch.log may differ in the last ulp)
@@ -58,10 +87,10 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def median_ms(fn, runs: int = RUNS, flush=None) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn()``; ``flush()`` runs
-    before each, outside the timed pair."""
-    for _ in range(3):
+def median_ms(fn, runs: int = RUNS, flush=None, warm: int = 3) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn()`` after ``warm``
+    untimed calls; ``flush()`` runs before each, outside the timed pair."""
+    for _ in range(warm):
         fn()
     pairs = []
     for _ in range(runs):
@@ -269,6 +298,66 @@ def phase_sampling(flush) -> dict:
 # ---------------------------------------------------------------- phase 3
 
 
+def _bound(nbytes: float, int_ops: float):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_cache_sim(flush, T: int = 65536) -> float:
+    """Both LRU kernels against their plain versions on the card, over
+    traces of ``T`` accesses, at shapes beside slice C's: odd and ragged
+    set counts, one set, 1, 4 and 16 ways.  Returns the time of one link
+    of the longest dependent chain, in ns."""
+    from repro_torch.core.cachesim import _ladder_sets, synthetic_traces
+    from repro_torch.core.constants import GPU_L2_MB, LINE_BYTES, MB
+    from repro_torch.core.sweep import capacity_ladder
+    from repro_torch.kernels import cache_sim as cs
+    from repro_torch.kernels import ops
+    scale, ways = 16, 16
+    ladder_mb = capacity_ladder(steps_per_octave=1, include=(GPU_L2_MB,))
+    ladder = _ladder_sets(ladder_mb, scale=scale, ways=ways)
+    host = synthetic_traces(T, int(256 * MB) // (LINE_BYTES * scale),
+                            seeds=(0, 1))
+    traces = torch.from_numpy(host.astype(np.int32)).to(DEVICE)
+    got = ops.cache_sim_ladder(traces, num_sets=ladder, ways=ways)
+    want = cs.cache_sim_ladder_plain(traces, ladder, ways=ways)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    check(bad == 0, f"cache_sim_ladder: {bad} counts differ from plain")
+    check(bool((got.sum(2) == T).all()), "ladder hits + misses != T")
+    print(f"cache_sim_ladder W={got.shape[0]} T={T} rungs {ladder} (ways "
+          f"{ways}, 1:{scale}): 0 of {got.numel()} counts differ from plain")
+
+    line = torch.from_numpy(host[0].astype(np.int64)).to(DEVICE)
+    for ns, w in ((1, 1), (1, 16), (81, 4), (362, 1), (1536, 16),
+                  (11585, 16), (97, 4)):
+        sid, tag = (line % ns).int(), (line // ns).int()
+        got = ops.cache_sim(sid, tag, num_sets=ns, ways=w)
+        want = cs.cache_sim_plain(sid, tag, num_sets=ns, ways=w)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"cache_sim ns={ns} ways={w}: kernel "
+              f"{got.tolist()} != plain {want.tolist()}")
+        check(int(got.sum()) == T, "cache_sim hits + misses != T")
+        print(f"cache_sim ns={ns} ways={w} tile="
+              f"{cs.largest_divisor_tile(ns)}: [hits, misses] "
+              f"{got.tolist()} == plain")
+    # every access to set 0 of a 256-set tile: one thread applies all T
+    # updates in order while the block's 256 threads stage the trace, as
+    # the hottest set's thread does in the full-scale runs; the time per
+    # access is one link of the critical path
+    hot = (tag * 256).view(1, -1)
+    chain_ms = median_ms(lambda: ops.cache_sim_ladder(hot, num_sets=(256,),
+                                                      ways=16), runs=5,
+                         flush=flush)
+    print(f"cache_sim_ladder, all {T} accesses on one set of a 256-set "
+          f"tile, 16 ways: {chain_ms:.4f} ms = {chain_ms * 1e6 / T:.2f} ns "
+          f"per dependent update")
+    return chain_ms * 1e6 / T
+
+
+# ---------------------------------------------------------------- phase 4
+
+
 def phase_slice_a() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -368,7 +457,7 @@ def trace_window(eng, vocab: int) -> None:
               f"  {e.key[:80]}")
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 5
 
 
 def phase_slice_b() -> None:
@@ -406,6 +495,240 @@ def phase_slice_b() -> None:
           f"{launches}")
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def lru_oracle(trace, num_sets: int, ways: int):
+    """(hits, misses) of a plain OrderedDict LRU, one dict per set."""
+    sets = [collections.OrderedDict() for _ in range(num_sets)]
+    hits = 0
+    for line in trace.tolist():
+        s = sets[line % num_sets]
+        tag = line // num_sets
+        if tag in s:
+            hits += 1
+            s.move_to_end(tag)
+        else:
+            if len(s) >= ways:
+                s.popitem(last=False)
+            s[tag] = True
+    return hits, len(trace) - hits
+
+
+def timed_once(fn):
+    """``fn()`` once between two CUDA events: (its result, ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
+                  scale: int = 1):
+    """The simulator at full scale: 16 rungs at 1:``scale``, ``W`` traces
+    of ``T`` accesses.  Every (trace, rung) count is held against the
+    plain ladder (independent of the update the two kernels share), the
+    64 per-point runs and, at 3 MB on trace 0, the per-point plain version
+    and an OrderedDict LRU.  Returns the launches of the main path and the
+    kernels' rows for the JSON line, timed at these shapes."""
+    from repro_torch.core.cachesim import (ANALYTIC_TOL_PCT, _ladder_sets,
+                                           capacity_lines,
+                                           dram_reduction_curve,
+                                           simulate_ladder,
+                                           simulate_reference,
+                                           synthetic_traces)
+    from repro_torch.core.constants import GPU_L2_MB, LINE_BYTES, MB
+    from repro_torch.core.dram import dram_reduction_pct, dram_scale
+    from repro_torch.core.iso import iso_area, iso_area_capacities
+    from repro_torch.core.sweep import capacity_ladder
+    from repro_torch.kernels import cache_sim as cs
+    from repro_torch.kernels import ops
+    ways = 16
+    footprint = int(256 * MB) // (LINE_BYTES * scale)
+    ladder_mb = capacity_ladder(include=(GPU_L2_MB,))
+    L = len(ladder_mb)
+    check(L == 16, f"ladder has {L} rungs")
+    t0 = time.perf_counter()
+    traces = synthetic_traces(T, footprint, seeds=range(W))
+    print(f"slice C: {W} zipf traces x {T} accesses over {footprint} lines "
+          f"made in {time.perf_counter() - t0:.2f} s; rungs (MB) "
+          f"{[round(c, 3) for c in ladder_mb]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    counts = simulate_ladder(traces, ladder_mb, scale=scale, ways=ways,
+                             device=DEVICE)
+    ladder_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_point = np.array([[simulate_reference(
+        tr, capacity_lines(c, scale=scale), ways=ways, device=DEVICE)
+        for c in ladder_mb] for tr in traces], dtype=np.int64)
+    point_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["cache_sim_ladder"] == 1
+          and launches["cache_sim"] == W * L,
+          f"slice C launches {launches}: want 1 ladder and {W * L} "
+          f"per-point")
+    check(np.array_equal(counts, per_point),
+          f"ladder != per point at {np.argwhere(counts != per_point)[:4]}")
+    check(bool((counts.sum(2) == T).all()), "hits + misses != T")
+    print(f"slice C: simulate_ladder {ladder_s:.3f} s wall, {W * L} x "
+          f"simulate_reference {point_s:.3f} s wall, peak memory "
+          f"{peak / 1e9:.3f} GB; ladder == {W * L} per-point runs bit for "
+          f"bit; launches {launches}")
+
+    lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
+    ladder = _ladder_sets(ladder_mb, scale=scale, ways=ways)
+    torch.cuda.reset_peak_memory_stats()
+    plain, plain_ms = timed_once(
+        lambda: cs.cache_sim_ladder_plain(lines, ladder, ways=ways))
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain = plain.cpu().numpy()
+    check(np.array_equal(counts, plain),
+          f"ladder != plain at {np.argwhere(counts != plain)[:4]}")
+    ms = median_ms(lambda: ops.cache_sim_ladder(lines, num_sets=ladder,
+                                                ways=ways), runs=3, warm=1)
+    bound_ms, bound_by = _bound(W * T * 4 + W * L * 2 * 8,
+                                W * T * L * (1 + ways))
+    print(f"slice C: all {W * L} (trace, rung) counts == plain ladder "
+          f"bit for bit; cache_sim_ladder kernel {ms:.3f} ms (median of 3), "
+          f"plain {plain_ms:.1f} ms (once, peak memory "
+          f"{plain_peak / 1e9:.3f} GB), bound {bound_ms:.5f} ms "
+          f"({bound_by}); no library call")
+    ladder_row = {"name": "cache_sim_ladder", "route": "cuda",
+                  "source": "src/repro_torch/csrc/cache_sim.cu",
+                  "replaces": "src/repro/kernels/cache_sim.py:110",
+                  "max_abs_err": float(np.abs(counts - plain).max()),
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": None}
+    del plain
+    torch.cuda.empty_cache()
+
+    i3 = ladder_mb.index(GPU_L2_MB)
+    ns3 = ladder[i3]
+    sid, tag = lines[0] % ns3, lines[0] // ns3
+    got = ops.cache_sim(sid, tag, num_sets=ns3, ways=ways)
+    want, plain_ms = timed_once(
+        lambda: cs.cache_sim_plain(sid, tag, num_sets=ns3, ways=ways))
+    check(torch.equal(got, want), f"cache_sim at 3 MB, trace 0: kernel "
+          f"{got.tolist()} != plain {want.tolist()}")
+    t0 = time.perf_counter()
+    oracle = lru_oracle(traces[0], ns3, ways)
+    oracle_s = time.perf_counter() - t0
+    check(tuple(counts[0, i3]) == oracle,
+          f"3 MB rung {tuple(counts[0, i3])} != OrderedDict LRU {oracle}")
+    ms = median_ms(lambda: ops.cache_sim(sid, tag, num_sets=ns3, ways=ways),
+                   runs=3, warm=1)
+    pbound_ms, pbound_by = _bound(2 * T * 4 + 2 * 8, T * (1 + ways))
+    print(f"slice C: 3 MB rung of trace 0 ({ns3} sets): cache_sim == "
+          f"cache_sim_plain == OrderedDict LRU {oracle} ({oracle_s:.1f} s); "
+          f"kernel {ms:.3f} ms (median of 3), plain {plain_ms:.1f} ms "
+          f"(once), bound {pbound_ms:.5f} ms ({pbound_by}); no library call")
+    point_row = {"name": "cache_sim", "route": "cuda",
+                 "source": "src/repro_torch/csrc/cache_sim.cu",
+                 "replaces": "src/repro/kernels/cache_sim.py:38",
+                 "max_abs_err": float((got - want).abs().max()),
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": pbound_ms,
+                 "bound_by": pbound_by, "library_ms": None}
+
+    ratio = counts[:, :, 1] / T
+    print("slice C: miss ratio per rung, trace 0: " + ", ".join(
+        f"{c:g}MB {r:.4f}" for c, r in zip(ladder_mb, ratio[0])))
+    # the longest per-set chain: the critical path of both kernels
+    chain, where = 0, None
+    for w, tr in enumerate(traces):
+        for c, ns in zip(ladder_mb, ladder):
+            n = int(np.bincount(tr % ns).max())
+            if n > chain:
+                chain, where = n, (w, c)
+    print(f"slice C: longest per-set chain {chain} accesses ({chain / T:.3f}"
+          f" of a trace; trace {where[0]}, {where[1]:g} MB) x "
+          f"{ns_per_update:.2f} ns per dependent update = "
+          f"{chain * ns_per_update / 1e6:.2f} ms critical path")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    caps = iso_area_capacities(device=DEVICE)
+    res = iso_area(dram_model="trace", device=DEVICE,
+                   trace_kwargs={"scale": scale, "trace_len": T})
+    ana = iso_area(device=DEVICE)
+    curve = dram_reduction_curve(scale=scale, trace_len=T, device=DEVICE)
+    print(f"slice C: iso-area capacities {caps}; trace vs analytic DRAM "
+          f"model, launches {dict(ops.launches)}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    for r, a in zip(res[:2], ana[:2]):
+        for m in ("STT", "SOT"):
+            print(f"  {r.workload} {m}: EDP+DRAM x{r.metrics[m]['edp_with_dram']:.4f}"
+                  f" (trace) vs x{a.metrics[m]['edp_with_dram']:.4f} (analytic,"
+                  f" DRAM scale {dram_scale(caps[m]):.4f})")
+    for c, pct in curve.items():
+        print(f"  DRAM reduction vs 3 MB at {c:g} MB: {pct:.2f}% (trace, "
+              f"1:{scale}) vs {dram_reduction_pct(c):.2f}% (analytic); band "
+              f"+/-{ANALYTIC_TOL_PCT} points is the CPU tests' at 1:32, "
+              f"not gated here")
+    return launches, [ladder_row, point_row]
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_pipeline() -> None:
+    """The quickstart, tune_all and paper_profiles on the card and on the
+    CPU: selections identical, PPA and traffic fields within rel 1e-6."""
+    from repro_torch.core.cache_model import PPA_METRICS
+    from repro_torch.core.profiles import paper_profiles
+    from repro_torch.core.tuner import tune_all
+    from repro_torch.examples import quickstart
+    t0 = time.perf_counter()
+    res = {d: quickstart.run(d) for d in (DEVICE, "cpu")}
+    tuned = {d: tune_all(device=d) for d in (DEVICE, "cpu")}
+    profs = {d: paper_profiles(device=d) for d in (DEVICE, "cpu")}
+    print(f"pipeline: quickstart, tune_all, paper_profiles on {DEVICE} and "
+          f"cpu in {time.perf_counter() - t0:.2f} s")
+    print("\n".join(quickstart.report(res[DEVICE])))
+    pairs = [(res[DEVICE]["cfgs"][m], res["cpu"]["cfgs"][m])
+             for m in res["cpu"]["cfgs"]]
+    pairs += [(tuned[DEVICE][m][c], tuned["cpu"][m][c])
+              for m in tuned["cpu"] for c in tuned["cpu"][m]]
+    worst = 0.0
+    for g, c in pairs:
+        check((g.banks, g.rows, g.access_type) ==
+              (c.banks, c.rows, c.access_type),
+              f"selection differs at {c.mem} {c.capacity_mb} MB")
+        worst = max([worst] + [_rel(getattr(g, f), getattr(c, f))
+                               for f in PPA_METRICS])
+    tworst = 0.0
+    for g, c in zip(profs[DEVICE] + [res[DEVICE]["profile"]],
+                    profs["cpu"] + [res["cpu"]["profile"]]):
+        tworst = max([tworst] + [_rel(getattr(g, f), getattr(c, f))
+                                 for f in ("l2_reads", "l2_writes", "dram")])
+    vworst = max(_rel(res[DEVICE]["verdict"][m][k],
+                      res["cpu"]["verdict"][m][k])
+                 for m in res["cpu"]["verdict"]
+                 for k in res["cpu"]["verdict"][m])
+    print(f"pipeline: {len(pairs)} Algorithm-1 selections identical on "
+          f"{DEVICE} and cpu; max rel difference PPA {worst:.3g}, traffic "
+          f"{tworst:.3g}, verdict {vworst:.3g} (bound 1e-6)")
+    check(worst <= 1e-6 and tworst <= 1e-6,
+          "PPA or traffic fields differ beyond rel 1e-6")
+    caps = res[DEVICE]["iso_area"]
+    check(caps == res["cpu"]["iso_area"], f"iso-area {caps} != cpu "
+          f"{res['cpu']['iso_area']}")
+    check(6.0 <= caps["STT"] <= 9.5 and 8.5 <= caps["SOT"] <= 13.0,
+          f"iso-area capacities {caps} outside STT 6-9.5, SOT 8.5-13 MB")
+    print(f"pipeline: iso-area capacities {caps} on both (bands STT "
+          f"6-9.5 MB, SOT 8.5-13 MB; paper 7 and 10)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: the smoke needs a "
@@ -419,12 +742,18 @@ def main() -> None:
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     flush = scratch.zero_     # 256 MB write evicts the 50 MB L2
     kernels = [phase_decode_attention(flush), phase_sampling(flush)]
+    ns_per_update = phase_cache_sim(flush)
     del scratch
     launches = phase_slice_a()
     torch.cuda.empty_cache()
     phase_slice_b()
+    torch.cuda.empty_cache()
+    launches_c, rows = phase_slice_c(ns_per_update)
+    kernels += rows
+    phase_pipeline()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (launches_c if k["name"].startswith("cache_sim")
+                         else launches)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{n: k[n] for n in keys} for k in kernels]}))

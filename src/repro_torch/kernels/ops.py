@@ -10,15 +10,17 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cache_sim as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import sampling as _sm
 
-launches: Dict[str, int] = {"decode_attention": 0, "fused_sample": 0}
+launches: Dict[str, int] = {"decode_attention": 0, "fused_sample": 0,
+                            "cache_sim": 0, "cache_sim_ladder": 0}
 
 
 def reset_launches() -> None:
@@ -89,4 +91,40 @@ def fused_sample(logits, temps, key):
     fn = _build.function("sampling", "fused_sample", _sm.ARGTYPES)
     out = _sm.launch_cuda(fn, logits, temps, key)
     launches["fused_sample"] += 1
+    return out
+
+
+def cache_sim(set_ids, tags, *, num_sets: int, ways: int,
+              sets_tile: Optional[int] = None):
+    """LRU hits and misses of one trace of precomputed set ids and tags
+    (T,) int32 against a cache of ``num_sets`` x ``ways``; one block per
+    tile of ``sets_tile`` sets (``num_sets`` a multiple of it; by default
+    the largest divisor of ``num_sets`` up to 256).  Returns (2,) int64
+    [hits, misses]."""
+    if not _on_cuda(set_ids, tags):
+        return _cs.cache_sim_plain(set_ids, tags, num_sets=num_sets,
+                                   ways=ways)
+    if sets_tile is None:
+        sets_tile = _cs.largest_divisor_tile(num_sets)
+    _cs.check_args(set_ids, tags, num_sets, ways, sets_tile)
+    fn = _build.function("cache_sim", "cache_sim", _cs.ARGTYPES)
+    out = _cs.launch_cuda(fn, set_ids, tags, num_sets, ways, sets_tile)
+    launches["cache_sim"] += 1
+    return out
+
+
+def cache_sim_ladder(traces, *, num_sets: Sequence[int], ways: int,
+                     sets_tile: int = _cs.TILE):
+    """LRU hits and misses of every (trace, rung) pair in one launch:
+    traces (W, T) int32 line ids, ``num_sets`` the per-rung set counts;
+    one block per tile of ``sets_tile`` sets (cut to the largest rung), a
+    rung's last tile may be partial.  Returns (W, L, 2) int64 [hits,
+    misses]."""
+    if not _on_cuda(traces):
+        return _cs.cache_sim_ladder_plain(traces, num_sets, ways=ways)
+    _cs.check_ladder_args(traces, ways, sets_tile)
+    fn = _build.function("cache_sim", "cache_sim_ladder",
+                         _cs.LADDER_ARGTYPES)
+    out = _cs.launch_ladder_cuda(fn, traces, num_sets, ways, sets_tile)
+    launches["cache_sim_ladder"] += 1
     return out

@@ -81,3 +81,49 @@ def test_fused_sample_kernel_matches_plain(dev, V):
     rows = torch.arange(B, device=dev)
     gap = score[rows, want.long()] - score[rows, got.long()]
     assert float(gap.abs().max()) <= 1e-5 * float(score.abs().max())
+
+
+def _zipf(n, footprint, seed, theta=1.3):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.zipf(theta, n) % footprint).astype("int32"))
+
+
+@pytest.mark.parametrize("nsets,ways,tile,n", [
+    (1, 1, 1, 5000), (1, 16, 1, 5000), (8, 1, 8, 6000), (81, 16, 27, 9000),
+    (96, 4, 48, 9000), (1536, 16, 256, 20000)])
+def test_cache_sim_kernel_matches_plain(dev, nsets, ways, tile, n):
+    from repro_torch.kernels import cache_sim as cs
+    sid = (_zipf(n, 10 * nsets, nsets + ways) % nsets).to(dev)
+    tags = _zipf(n, 700, nsets).to(dev)
+    want = cs.cache_sim_plain(sid, tags, num_sets=nsets, ways=ways)
+    before = ops.launches["cache_sim"]
+    got = ops.cache_sim(sid, tags, num_sets=nsets, ways=ways,
+                        sets_tile=tile)
+    torch.cuda.synchronize()
+    assert ops.launches["cache_sim"] == before + 1
+    assert got.tolist() == want.tolist() and int(got.sum()) == n
+
+
+@pytest.mark.parametrize("ways,num_sets,tile", [
+    (4, (1, 3, 7, 20, 33), 8), (1, (1, 2, 5), 4), (16, (1,), 1),
+    (16, (16, 23, 32, 64, 96, 128, 256, 512, 1024), 256)])
+def test_cache_sim_ladder_kernel_matches_plain(dev, ways, num_sets, tile):
+    from repro_torch.kernels import cache_sim as cs
+    traces = torch.stack([_zipf(7000, 5000, s) for s in (0, 1, 2)]).to(dev)
+    want = cs.cache_sim_ladder_plain(traces, num_sets, ways=ways)
+    before = ops.launches["cache_sim_ladder"]
+    got = ops.cache_sim_ladder(traces, num_sets=num_sets, ways=ways,
+                               sets_tile=tile)
+    torch.cuda.synchronize()
+    assert ops.launches["cache_sim_ladder"] == before + 1
+    assert torch.equal(got, want)
+    assert bool((got.sum(2) == traces.shape[1]).all())
+
+
+def test_cache_sim_kernels_refuse_more_than_16_ways(dev):
+    x = torch.zeros(2, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ways"):
+        ops.cache_sim_ladder(x, num_sets=(4,), ways=32)
+    with pytest.raises(ValueError, match="ways"):
+        ops.cache_sim(x[0], x[1], num_sets=4, ways=17, sets_tile=4)

@@ -187,7 +187,8 @@ def test_plain_path_does_not_count_launches():
     ops.decode_attention_fused(q, k, v, nk, nv, tpos, 0)
     ops.fused_sample(torch.zeros(2, 8), torch.zeros(2),
                      torch.zeros(2, dtype=torch.int64))
-    assert ops.launches == {"decode_attention": 0, "fused_sample": 0}
+    assert ops.launches == {"decode_attention": 0, "fused_sample": 0,
+                            "cache_sim": 0, "cache_sim_ladder": 0}
 
 
 @pytest.mark.parametrize("change,match", [
@@ -229,7 +230,7 @@ def test_build_names_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     src.write_text("// b\n")
     assert _build._target(src) != a and a.parent == _build.BUILD_DIR
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attention.cu", "sampling.cu"]
+        "cache_sim.cu", "decode_attention.cu", "sampling.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
