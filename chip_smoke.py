@@ -11,7 +11,10 @@ result line:
   2. the serve kernels against their plain PyTorch versions at llama3-8b
      shapes (B=8, H=32, K=8, hd=128, L=1024, ragged positions, V=128256),
      with median times over 50 CUDA-event-timed runs (L2 flushed before
-     each);
+     each); the paged decode kernel over a page pool at page sizes 8 and
+     16, half the rows sharing a 512-token prefix and one free row on the
+     TRASH page: output within bound, write-back bitwise outside TRASH,
+     pages past each row's position ignored bit for bit;
   3. the LRU cache-simulator kernels (``cache_sim_ladder``, ``cache_sim``)
      against their plain versions at shapes slice C does not reach: a
      whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
@@ -24,17 +27,29 @@ result line:
      ends DONE, logits stay finite and the kernel launch counts are what
      the run implies; then a ``torch.profiler`` trace of one decode window
      (device busy share, kernels by device time);
+  4b. slice D: ``PagedEngine`` on the paged kernel at full width and depth
+     on slice A's weights, 16 shared-prefix requests (4 templates of 508
+     tokens): every request DONE, prefix hits and copy-on-write copies,
+     the page pool conserved, no host sync inside a decode window, one
+     paged kernel launch per layer and tick; a traced paged decode
+     window; the same requests through slice A's dense ``Engine`` beside
+     it;
   5. slice B: llama3-8b at full width, 4 layers, f32: the kernel ``Engine``
      against ``EngineReference`` (plain attention and sampling) on 8
      requests, greedy outputs equal token for token;
+  5b. slice E: slice B's model, ``PagedEngine`` on the paged kernel
+     against ``EngineReference``, greedy, token for token: the
+     shared-prefix workload at max_len 256 in the default pool and in a
+     pool of 2 nb + 2 pages (admission defers), and distinct prompts in a
+     pool of 2 nb pages (tree leaves evicted);
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
      ladder and 64 per-point launches; all 64 (trace, rung) counts equal
      bit for bit to the 64 per-point ``simulate_reference`` runs and to
-     the plain ladder on the same lines, and at 3 MB on trace 0 to the
-     per-point plain version and an OrderedDict LRU carried here; both
-     kernels and their plain versions timed at these shapes; then
+     the plain ladder, the 16 rungs of trace 0 to an OrderedDict LRU
+     carried here, the 3 MB rung of trace 0 to the per-point plain
+     version; kernels and plain versions timed at these shapes; then
      ``iso_area(dram_model="trace")`` and ``dram_reduction_curve`` at 1:1
      beside the analytic miss model;
   7. the DeepNVM++ pipeline on the card against the same code on the CPU:
@@ -42,7 +57,8 @@ result line:
      identical Algorithm-1 selections and iso-area capacities, PPA and
      traffic fields within rel 1e-6;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-     its slice's run (A for the serve kernels, C for the simulator), error
+     its slice's run (A for the dense serve kernels, D for the paged
+     kernel, C for the simulator), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
      an LRU simulation: null).
@@ -295,6 +311,177 @@ def phase_sampling(flush) -> dict:
             "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------- phase 2b
+
+
+def _paged_inputs(gen, dtype, ps, B=8, H=32, K=8, hd=128, L=1024,
+                  prefix=512):
+    """llama3-8b decode shapes over a page pool of B * nb pages + TRASH:
+    rows 0-3 share a ``prefix``-token prefix (rows 1-3 map row 0's
+    pages), rows 4-6 are private, row 7 is a free slot mapping every page
+    to TRASH; positions are ragged and every live boundary page is
+    private."""
+    nb = L // ps
+    P = B * nb + 1
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    pt = torch.arange(B * nb, dtype=torch.int32, device=DEVICE).view(B, nb)
+    pt[1:4, :prefix // ps] = pt[0, :prefix // ps]
+    pt[7] = P - 1
+    pos = torch.tensor([prefix, prefix + 1, 640, L - 1, 0, 127, 300, 5],
+                       dtype=torch.int32, device=DEVICE)
+    return (r(B, H, hd), r(P, ps, K, hd), r(P, ps, K, hd), r(B, K, hd),
+            r(B, K, hd), pt.contiguous(), pos)
+
+
+def _live_rows(pt, pos, ps, window=0):
+    """{(page, row)} of the live keys of every row (a page shared by
+    several rows counts once), and the live keys summed over rows."""
+    rows, keys = set(), 0
+    for b, p in enumerate(pos.tolist()):
+        lo = max(p - window + 1, 0) if window > 0 else 0
+        keys += p - lo + 1
+        ptb = pt[b].tolist()
+        rows.update((ptb[t // ps], t % ps) for t in range(lo, p + 1))
+    return rows, keys
+
+
+def _paged_bound(q, k, pt, pos):
+    """Least time for the fused call: the distinct live K/V rows read once
+    (a shared page counts once), q and the page table read, o written, new
+    rows read and written; 4*hd flops per live key and q head."""
+    B, H, hd = q.shape
+    ps, K = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    distinct, keys = _live_rows(pt, pos, ps)
+    nbytes = (len(distinct) * K * hd * 2 * elt + 2 * B * H * hd * elt
+              + 4 * B * K * hd * elt + pt.numel() * 4 + 4 * B)
+    flops = 4 * keys * (H // K) * K * hd
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            len(distinct), keys)
+
+
+def phase_paged_attention(flush) -> dict:
+    """The paged decode kernel against its plain version at llama3-8b
+    shapes, ps 8 and 16: output within the JAX tests' bound, the fused
+    write-back bitwise on every page but TRASH, pages past each row's
+    position ignored bit for bit; then times at ps 8, bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    for ps in (8, 16):
+        for label, dtype, window, cap in (
+                ("bf16 global", torch.bfloat16, 0, 0.0),
+                ("f32 global", torch.float32, 0, 0.0),
+                ("f32 window=11 cap=50", torch.float32, 11, 50.0)):
+            q, k, v, nk, nv, pt, pos = _paged_inputs(gen, dtype, ps)
+            k0, v0 = k.clone(), v.clone()
+            kp, vp = k.clone(), v.clone()
+            want = pa.paged_decode_attention_fused_plain(
+                q, kp, vp, nk, nv, pt, pos, window, logit_cap=cap)
+            got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos,
+                                                   window, logit_cap=cap)
+            torch.cuda.synchronize()
+            err = _close(got, want, dtype)
+            live = slice(0, k.shape[0] - 1)            # every page but TRASH
+            check(torch.equal(k[live], kp[live]) and
+                  torch.equal(v[live], vp[live]),
+                  f"paged ps={ps} {label}: write-back differs from plain")
+            changed = ((k != k0).any(dim=(2, 3)) | (v != v0).any(dim=(2, 3))
+                       )[live]
+            allowed = torch.zeros_like(changed)
+            for b, p in enumerate(pos.tolist()[:7]):
+                allowed[int(pt[b, p // ps]), p % ps] = True
+            check(not bool((changed & ~allowed).any()),
+                  f"paged ps={ps} {label}: a pool row other than a live "
+                  f"row's (page, pos % ps) changed")
+            base = ops.paged_decode_attention(q, k, v, pt, pos, window,
+                                              logit_cap=cap)
+            for b, p in enumerate(pos.tolist()[:7]):
+                for t in (k, v):
+                    t[pt[b, p // ps + 1:].long()] = 1e9
+                    t[int(pt[b, p // ps]), p % ps + 1:] = 1e9
+            poisoned = ops.paged_decode_attention(q, k, v, pt, pos, window,
+                                                  logit_cap=cap)
+            torch.cuda.synchronize()
+            check(torch.equal(base[:7], poisoned[:7]),
+                  f"paged ps={ps} {label}: keys past pos changed the output")
+            print(f"paged_decode_attention ps={ps} {label}: max|err| "
+                  f"{err:.3g} vs plain (tol {TOL[dtype]}), write-back "
+                  f"bitwise outside TRASH, pages past pos ignored")
+    q, k, v, nk, nv, pt, pos = _paged_inputs(gen, torch.bfloat16, 8)
+    kp, vp = k.clone(), v.clone()
+    want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, pos)
+    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos)
+    err = _close(got, want, torch.bfloat16)
+    ms = median_ms(lambda: ops.paged_decode_attention_fused(
+        q, k, v, nk, nv, pt, pos), flush=flush)
+    plain_ms = median_ms(lambda: pa.paged_decode_attention_fused_plain(
+        q, k, v, nk, nv, pt, pos), flush=flush)
+    # the library yardsticks: gather each row's live keys (its pages up to
+    # pos) and attend them with variable-length SDPA over nested tensors
+    # (a kv head's G q heads are its G queries, so no GQA expansion); or
+    # gather every row's pages up to the longest row's into one padded
+    # batch and attend it with dense SDPA and the live-prefix mask
+    B, H, hd = q.shape
+    ps, K = k.shape[1], k.shape[2]
+    G = H // K
+    lens = pos.long() + 1
+    offs = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+    keys = torch.cat([pt[b].long()[torch.arange(n, device=DEVICE) // ps] * ps
+                      + torch.arange(n, device=DEVICE) % ps
+                      for b, n in enumerate(lens.tolist())])
+    qoffs = torch.arange(B + 1, device=DEVICE) * G
+    lo, hi = int(lens.min()), int(lens.max())
+
+    def nested_sdpa():
+        def nested(x, o, a, z):
+            return torch.nested.nested_tensor_from_jagged(
+                x, o, min_seqlen=a, max_seqlen=z).transpose(1, 2)
+        qs = nested(q.view(B, K, G, hd).transpose(1, 2).reshape(B * G, K, hd),
+                    qoffs, G, G)
+        ks = nested(k.view(-1, K, hd).index_select(0, keys), offs, lo, hi)
+        vs = nested(v.view(-1, K, hd).index_select(0, keys), offs, lo, hi)
+        o = F.scaled_dot_product_attention(qs, ks, vs)
+        return o.transpose(1, 2).values().view(B, G, K, hd).transpose(
+            1, 2).reshape(B, H, hd)
+
+    idx = pt[:, :(hi - 1) // ps + 1].reshape(-1)
+    L = idx.numel() // B * ps
+    mask = (torch.arange(L, device=DEVICE)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+
+    def padded_sdpa():
+        ks = k.index_select(0, idx).view(B, L, K, hd).transpose(1, 2)
+        vs = v.index_select(0, idx).view(B, L, K, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    lib = {}
+    for name, fn in (("live-key gather + nested SDPA", nested_sdpa),
+                     ("padded gather + masked SDPA", padded_sdpa)):
+        err_l = _close(fn(), want, torch.bfloat16)
+        lib[name] = median_ms(fn, flush=flush)
+        print(f"paged_decode_attention library: {name} {lib[name]:.4f} ms, "
+              f"max|err| {err_l:.3g} vs plain")
+    library_ms = min(lib.values())
+    bound_ms, bound_by, ndistinct, nkeys = _paged_bound(q, k, pt, pos)
+    print(f"paged_decode_attention bf16 B=8 H=32 K=8 hd=128 ps=8 nb=128, "
+          f"{nkeys} live keys on {ndistinct} distinct (page, row) slots: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (the "
+          f"faster of the two) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by})")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:48",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -358,13 +545,39 @@ def phase_cache_sim(flush, T: int = 65536) -> float:
 # ---------------------------------------------------------------- phase 4
 
 
-def phase_slice_a() -> dict:
+def _no_sync_in_window(eng) -> None:
+    """A decode window must not wait on the card: admit one request, then
+    run one window under the "error" sync-debug mode, where any host sync
+    inside it raises."""
+    from repro_torch.serve import Request
+    eng.submit(Request(uid=-1, prompt=list(range(1, 40)), max_new_tokens=9))
+    eng._admit()
+    eng._pre_window()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._window()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng.reset()
+
+
+def _serve_stats(reqs, wall):
+    from repro_torch.serve import latency_summary
+    ntok = sum(len(r.output) for r in reqs)
+    lat = latency_summary(reqs)
+    ttft, itl = lat["wall"]["ttft_s"], lat["wall"]["tpot_s"]
+    return (f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s; TTFT "
+            f"p50 {ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} "
+            f"ms; ITL p50 {itl['p50'] * 1e3:.2f} ms p99 "
+            f"{itl['p99'] * 1e3:.2f} ms")
+
+
+def phase_slice_a():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    from repro_torch.serve import (DONE, Engine, Request, latency_summary,
-                                   mixed_requests, run_staggered,
-                                   staggered_groups)
+    from repro_torch.serve import (DONE, Engine, mixed_requests,
+                                   run_staggered, staggered_groups)
     cfg = get_config("llama3-8b")
     model = build_model(cfg, max_seq=1024)
     gen = torch.Generator(device=DEVICE)
@@ -379,18 +592,8 @@ def phase_slice_a() -> dict:
           f"{cfg.d_model} {cfg.dtype}: weights {wbytes / 1e9:.2f} GB "
           f"(made in {time.perf_counter() - t:.1f} s), KV "
           f"{kvbytes / 1e9:.2f} GB at 8 slots x 1024")
-    warm = Request(uid=-1, prompt=list(range(1, 40)), max_new_tokens=9)
-    eng.submit(warm)
-    eng._admit()
-    # a decode window must not wait on the card: any host sync inside it
-    # raises under the "error" sync-debug mode
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._window()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    _no_sync_in_window(eng)
     print("slice A: no host sync inside a decode window")
-    eng.reset()
     reqs = mixed_requests(16, seed=0, vocab=cfg.vocab_size,
                           prompt_lens=(16, 300), max_new=(16, 64))
     torch.cuda.synchronize()
@@ -411,22 +614,17 @@ def phase_slice_a() -> dict:
           "decode_attention launches != layers x ticks")
     check(launches["fused_sample"] == ticks + calls,
           "fused_sample launches != ticks + prefill calls")
-    ntok = sum(len(o) for o in outputs.values())
-    lat = latency_summary(reqs)
-    ttft, itl = lat["wall"]["ttft_s"], lat["wall"]["tpot_s"]
-    print(f"slice A: 16/16 DONE, {ntok} tokens in {wall:.3f} s = "
-          f"{ntok / wall:.1f} tok/s; TTFT p50 {ttft['p50'] * 1e3:.1f} ms "
-          f"p99 {ttft['p99'] * 1e3:.1f} ms; ITL p50 "
-          f"{itl['p50'] * 1e3:.2f} ms p99 {itl['p99'] * 1e3:.2f} ms; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"slice A: 16/16 DONE, {_serve_stats(reqs, wall)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     trace_window(eng, cfg.vocab_size)
-    return launches
+    return launches, model, params, eng
 
 
 def trace_window(eng, vocab: int) -> None:
-    """Profile one decode window with 8 busy slots (prompts 150-300): its
-    wall time, the device time of its kernels, the device's busy share and
-    the kernels that take the most device time."""
+    """Profile one decode window of ``eng`` (Engine or PagedEngine) with 8
+    busy slots (prompts 150-300): the median wall time of three untraced
+    windows, the device time of a traced one's kernels, the device's busy
+    share and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import mixed_requests
@@ -437,9 +635,12 @@ def trace_window(eng, vocab: int) -> None:
     eng._admit()
     eng._window().cpu()                       # warm
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng._window().cpu()
-    wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng._window().cpu()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng._window().cpu()
@@ -449,7 +650,9 @@ def trace_window(eng, vocab: int) -> None:
     busy = sum(dev_us(e) for e in kern) / 1e3
     k = eng.ticks_per_sync
     print(f"trace: decode window of {k} ticks, 8 slots: {wall * 1e3:.2f} "
-          f"ms wall untraced, {busy:.2f} ms of kernels traced, device busy "
+          f"ms wall untraced (median of "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), "
+          f"{busy:.2f} ms of kernels traced, device busy "
           f"{busy / (wall * 1e3):.3f} of the untraced wall; "
           f"{sum(e.count for e in kern) / k:.0f} kernel launches per tick")
     for e in sorted(kern, key=dev_us, reverse=True)[:8]:
@@ -457,10 +660,87 @@ def trace_window(eng, vocab: int) -> None:
               f"  {e.key[:80]}")
 
 
+# ---------------------------------------------------------------- phase 4b
+
+
+def _template_len(max_len, ps=8):
+    """The launcher's ``--shared-prefix`` template length: off the page
+    grid, so that every reuse copies a boundary page."""
+    return min(max(ps + ps // 2, max_len // 2 - ps // 2), max_len - 10)
+
+
+def _shared_prefix_workload(n, vocab, max_len, ps=8):
+    """The launcher's ``--shared-prefix`` workload at ``max_len``."""
+    from repro_torch.serve import shared_prefix_requests
+    return shared_prefix_requests(
+        n, seed=0, vocab=vocab, template_len=_template_len(max_len, ps),
+        suffix_lens=(2, 8), max_new=(2, max(2, max_len // 8)))
+
+
+def phase_slice_d(model, params, dense) -> dict:
+    """Paged serving at full width and depth on slice A's weights: 16
+    shared-prefix requests through PagedEngine on the paged kernel; then
+    the same requests through slice A's dense Engine, for comparison."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DONE, PagedEngine, run_staggered,
+                                   staggered_groups)
+    cfg = model.cfg
+    eng = PagedEngine(model, params, slots=8, max_len=1024, page_size=8,
+                      ticks_per_sync=8, attn_impl="kernel",
+                      sample_impl="kernel")
+    _no_sync_in_window(eng)
+    print("slice D: no host sync inside a paged decode window")
+    reqs = _shared_prefix_workload(16, cfg.vocab_size, 1024)
+    print(f"slice D: llama3-8b, 8 slots x 1024, page size 8: 16 requests "
+          f"over 4 templates of {_template_len(1024)} tokens, 2-8-token "
+          f"suffixes, 2-128 new tokens, two staggered groups of 8")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run_staggered(eng, staggered_groups(reqs, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(all(r.state == DONE for r in reqs), "a request did not end DONE")
+    check(eng.counts["nonfinite_rows"] == 0, "non-finite logits")
+    eng.pool.check(eng.tree.held_refs())
+    st = eng.paged_stats()
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    print(f"slice D: launches {launches}, decode ticks {ticks}, prefill "
+          f"calls {calls}")
+    check(st["prefix_tokens"] > 0 and st["cow_copies"] > 0,
+          f"no prefix sharing or no copy-on-write: {st}")
+    check(launches["paged_decode_attention"] == cfg.num_layers * ticks,
+          "paged_decode_attention launches != layers x ticks")
+    check(launches["fused_sample"] == ticks + calls,
+          "fused_sample launches != ticks + prefill calls")
+    check(launches["decode_attention"] == 0, "the dense kernel ran")
+    print(f"slice D: PagedEngine 16/16 DONE, {_serve_stats(reqs, wall)}; "
+          f"prefix hit rate {st['prefix_hit_rate']:.4f} "
+          f"({st['prefix_tokens']}/{st['prompt_tokens']} prompt tokens, "
+          f"{st['prefix_hits']} hits), CoW copies {st['cow_copies']}, "
+          f"pages_hwm {st['pages_hwm']} of the dense capacity "
+          f"{eng.slots * eng.nb}; pool conserved")
+    trace_window(eng, cfg.vocab_size)
+    del eng
+    torch.cuda.empty_cache()
+    dense.reset()
+    dreqs = _shared_prefix_workload(16, cfg.vocab_size, 1024)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_staggered(dense, staggered_groups(dreqs, 8))
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    check(all(r.state == DONE for r in dreqs), "dense: a request not DONE")
+    print(f"slice D: dense Engine on the same 16 requests: "
+          f"{_serve_stats(dreqs, dwall)}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 
-def phase_slice_b() -> None:
+def phase_slice_b():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -493,6 +773,59 @@ def phase_slice_b() -> None:
     print(f"slice B: llama3-8b width, 4 layers, f32: kernel Engine == "
           f"EngineReference on 8 requests, {ntok} greedy tokens; launches "
           f"{launches}")
+    return model, params
+
+
+# ---------------------------------------------------------------- phase 5b
+
+
+def phase_slice_e(model, params) -> None:
+    """Paged parity on the card at slice B's model: PagedEngine on the
+    paged kernel equals EngineReference, greedy, on the shared-prefix
+    workload (default and tight pool) and on distinct prompts in a pool
+    small enough to evict."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (EngineReference, PagedEngine,
+                                   mixed_requests, run_staggered,
+                                   staggered_groups)
+    cfg, slots, max_len, ps = model.cfg, 4, 256, 8
+    nb = max_len // ps
+
+    def shared():
+        return _shared_prefix_workload(8, cfg.vocab_size, max_len, ps)
+
+    def distinct():
+        return mixed_requests(10, seed=2, vocab=cfg.vocab_size,
+                              prompt_lens=(48, 75), max_new=(2, 4))
+
+    ref = EngineReference(model, params, slots=slots, max_len=max_len)
+    want = run_staggered(ref, staggered_groups(shared(), slots))
+    ref.reset()
+    want_d = run_staggered(ref, staggered_groups(distinct(), 1))
+    del ref
+    for label, reqs, group, num_pages, what in (
+            ("shared prefix", shared, slots, None, "cow_copies"),
+            ("shared prefix, tight pool", shared, slots, 2 * nb + 2,
+             "deferred"),
+            ("distinct prompts, pool 2 nb", distinct, 1, 2 * nb,
+             "evicted_pages")):
+        ops.reset_launches()
+        eng = PagedEngine(model, params, slots=slots, max_len=max_len,
+                          page_size=ps, num_pages=num_pages,
+                          ticks_per_sync=8)
+        got = run_staggered(eng, staggered_groups(reqs(), group))
+        st = eng.paged_stats()
+        eng.pool.check(eng.tree.held_refs())
+        check(got == (want_d if group == 1 else want),
+              f"slice E {label}: PagedEngine != EngineReference")
+        check(st[what] > 0, f"slice E {label}: {what} = 0")
+        check(ops.launches["paged_decode_attention"]
+              == cfg.num_layers * eng.counts["decode_ticks"],
+              f"slice E {label}: paged kernel launches")
+        print(f"slice E: {label}: PagedEngine(kernel) == EngineReference on "
+              f"{len(got)} requests, {sum(map(len, got.values()))} greedy "
+              f"tokens; {what} {st[what]}, prefix tokens "
+              f"{st['prefix_tokens']}, pages_hwm {st['pages_hwm']}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -530,10 +863,11 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
                   scale: int = 1):
     """The simulator at full scale: 16 rungs at 1:``scale``, ``W`` traces
     of ``T`` accesses.  Every (trace, rung) count is held against the
-    plain ladder (independent of the update the two kernels share), the
-    64 per-point runs and, at 3 MB on trace 0, the per-point plain version
-    and an OrderedDict LRU.  Returns the launches of the main path and the
-    kernels' rows for the JSON line, timed at these shapes."""
+    plain ladder (independent of the update the two kernels share) and
+    the 64 per-point runs, every rung of trace 0 against an OrderedDict
+    LRU, and the 3 MB rung of trace 0 against the per-point plain
+    version.  Returns the launches of the main path and the kernels' rows
+    for the JSON line, timed at these shapes."""
     from repro_torch.core.cachesim import (ANALYTIC_TOL_PCT, _ladder_sets,
                                            capacity_lines,
                                            dram_reduction_curve,
@@ -582,8 +916,17 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
           f"{peak / 1e9:.3f} GB; ladder == {W * L} per-point runs bit for "
           f"bit; launches {launches}")
 
-    lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
     ladder = _ladder_sets(ladder_mb, scale=scale, ways=ways)
+    t0 = time.perf_counter()
+    for i, ns in enumerate(ladder):
+        oracle = lru_oracle(traces[0], ns, ways)
+        check(tuple(counts[0, i]) == oracle,
+              f"{ladder_mb[i]:g} MB rung of trace 0 {tuple(counts[0, i])} "
+              f"!= OrderedDict LRU {oracle}")
+    print(f"slice C: all {L} full-scale rungs of trace 0 == OrderedDict LRU "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
     torch.cuda.reset_peak_memory_stats()
     plain, plain_ms = timed_once(
         lambda: cs.cache_sim_ladder_plain(lines, ladder, ways=ways))
@@ -609,26 +952,20 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
     del plain
     torch.cuda.empty_cache()
 
-    i3 = ladder_mb.index(GPU_L2_MB)
-    ns3 = ladder[i3]
+    ns3 = ladder[ladder_mb.index(GPU_L2_MB)]
     sid, tag = lines[0] % ns3, lines[0] // ns3
     got = ops.cache_sim(sid, tag, num_sets=ns3, ways=ways)
     want, plain_ms = timed_once(
         lambda: cs.cache_sim_plain(sid, tag, num_sets=ns3, ways=ways))
     check(torch.equal(got, want), f"cache_sim at 3 MB, trace 0: kernel "
           f"{got.tolist()} != plain {want.tolist()}")
-    t0 = time.perf_counter()
-    oracle = lru_oracle(traces[0], ns3, ways)
-    oracle_s = time.perf_counter() - t0
-    check(tuple(counts[0, i3]) == oracle,
-          f"3 MB rung {tuple(counts[0, i3])} != OrderedDict LRU {oracle}")
     ms = median_ms(lambda: ops.cache_sim(sid, tag, num_sets=ns3, ways=ways),
                    runs=3, warm=1)
     pbound_ms, pbound_by = _bound(2 * T * 4 + 2 * 8, T * (1 + ways))
     print(f"slice C: 3 MB rung of trace 0 ({ns3} sets): cache_sim == "
-          f"cache_sim_plain == OrderedDict LRU {oracle} ({oracle_s:.1f} s); "
-          f"kernel {ms:.3f} ms (median of 3), plain {plain_ms:.1f} ms "
-          f"(once), bound {pbound_ms:.5f} ms ({pbound_by}); no library call")
+          f"cache_sim_plain {want.tolist()}; kernel {ms:.3f} ms (median of "
+          f"3), plain {plain_ms:.1f} ms (once), bound {pbound_ms:.5f} ms "
+          f"({pbound_by}); no library call")
     point_row = {"name": "cache_sim", "route": "cuda",
                  "source": "src/repro_torch/csrc/cache_sim.cu",
                  "replaces": "src/repro/kernels/cache_sim.py:38",
@@ -741,18 +1078,26 @@ def main() -> None:
     phase_build()
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     flush = scratch.zero_     # 256 MB write evicts the 50 MB L2
-    kernels = [phase_decode_attention(flush), phase_sampling(flush)]
+    kernels = [phase_decode_attention(flush), phase_sampling(flush),
+               phase_paged_attention(flush)]
     ns_per_update = phase_cache_sim(flush)
     del scratch
-    launches = phase_slice_a()
+    launches, model, params, dense = phase_slice_a()
     torch.cuda.empty_cache()
-    phase_slice_b()
+    launches_d = phase_slice_d(model, params, dense)
+    del model, params, dense
+    torch.cuda.empty_cache()
+    model, params = phase_slice_b()
+    torch.cuda.empty_cache()
+    phase_slice_e(model, params)
+    del model, params
     torch.cuda.empty_cache()
     launches_c, rows = phase_slice_c(ns_per_update)
     kernels += rows
     phase_pipeline()
     for k in kernels:
         k["launches"] = (launches_c if k["name"].startswith("cache_sim")
+                         else launches_d if k["name"].startswith("paged")
                          else launches)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,8 +4,9 @@ Every source becomes its own shared library with a plain C interface
 (``extern "C"`` functions that launch on the stream they are given and
 return ``cudaGetLastError()``).  All sources compile at once, one ``nvcc``
 process each, into ``build/repro_torch/`` at the repository root, named by
-a hash of the source and the flags so that an unchanged source is not
-built again.  Nothing is built when the module is imported.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags
+so that an unchanged source is not built again.  Nothing is built when
+the module is imported.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # sources may include them
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -17,9 +17,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import cache_sim as _cs
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import sampling as _sm
 
-launches: Dict[str, int] = {"decode_attention": 0, "fused_sample": 0,
+launches: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0}
 
 
@@ -77,6 +79,48 @@ def decode_attention_fused(q, k, v, new_k, new_v, pos, window: int = 0, *,
     out = _da.launch_cuda(fn, q, k, v, new_k, new_v, pos, window,
                           logit_cap)
     launches["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k, v, page_table, pos, window: int = 0, *,
+                           logit_cap: float = 0.0):
+    """Paged decode attention over pools that already hold the new row.
+
+    q (B,H,hd); k/v pools (P,ps,K,hd); page_table (B,nb) int32; pos (B,)
+    int32; window int (<= 0 global) -> o (B,H,hd)."""
+    if not _on_cuda(q, k, v, page_table, pos):
+        return _pa.paged_decode_attention_plain(q, k, v, page_table, pos,
+                                                window, logit_cap=logit_cap)
+    _pa.check_args(q, k, v, None, None, page_table, pos, window)
+    fn = _build.function("paged_attention", "paged_decode_attention",
+                         _pa.ARGTYPES)
+    out = _pa.launch_cuda(fn, q, k, v, None, None, page_table, pos, window,
+                          logit_cap)
+    launches["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_fused(q, k, v, new_k, new_v, page_table, pos,
+                                 window: int = 0, *,
+                                 logit_cap: float = 0.0):
+    """Write ``new_k/new_v`` (B,K,hd) through the page table at each row's
+    ``pos[b]`` (page ``page_table[b, pos[b] // ps]``, row ``pos[b] % ps``;
+    nothing where that page is past the table) and attend ``k_idx <=
+    pos[b]``, in one launch.
+
+    The pools are updated IN PLACE (the JAX kernel returned aliased
+    buffers); every other pool row keeps its bits.  Precondition: each
+    live row's boundary page is private to it.  Returns o (B,H,hd)."""
+    if not _on_cuda(q, k, v, new_k, new_v, page_table, pos):
+        return _pa.paged_decode_attention_fused_plain(
+            q, k, v, new_k, new_v, page_table, pos, window,
+            logit_cap=logit_cap)
+    _pa.check_args(q, k, v, new_k, new_v, page_table, pos, window)
+    fn = _build.function("paged_attention", "paged_decode_attention",
+                         _pa.ARGTYPES)
+    out = _pa.launch_cuda(fn, q, k, v, new_k, new_v, page_table, pos,
+                          window, logit_cap)
+    launches["paged_decode_attention"] += 1
     return out
 
 

@@ -60,12 +60,14 @@ class StateBank:
 
 
 # Which serve engines can host each family: "dense" = Engine /
-# EngineReference slot caches.  Other families come in later slices.
-_FAMILY_SERVE_MODES: Dict[str, frozenset] = {"dense": frozenset({"dense"})}
+# EngineReference slot caches, "paged" = PagedEngine page pools.  Other
+# families come in later slices.
+_FAMILY_SERVE_MODES: Dict[str, frozenset] = {
+    "dense": frozenset({"dense", "paged"})}
 
 
 def serve_families(mode: str):
-    """Families servable under engine ``mode``."""
+    """Families servable under engine ``mode`` ("dense" | "paged")."""
     return tuple(sorted(f for f, m in _FAMILY_SERVE_MODES.items()
                         if mode in m))
 
@@ -92,6 +94,16 @@ class Model:
         return materialize(self.cache_defs(batch, max_len), None,
                            self.cfg.dtype, self.device)
 
+    # ---- paged cache (serve) --------------------------------------------
+    def paged_cache_defs(self, num_pages: int, page_size: int) -> ParamDefs:
+        """Per-layer physical page pools; ``num_pages`` includes the
+        trailing TRASH page."""
+        return tf.paged_cache_param_defs(self.cfg, num_pages, page_size)
+
+    def init_paged_cache(self, num_pages: int, page_size: int) -> Params:
+        return materialize(self.paged_cache_defs(num_pages, page_size),
+                           None, self.cfg.dtype, self.device)
+
     # ---- forward --------------------------------------------------------
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 logits_at: Optional[torch.Tensor] = None):
@@ -101,16 +113,28 @@ class Model:
 
     def decode_step(self, params: Params, cache: Params,
                     batch: Dict[str, torch.Tensor], pos: torch.Tensor, *,
-                    attn_impl: str = "plain"):
+                    attn_impl: str = "plain",
+                    page_table: Optional[torch.Tensor] = None,
+                    kv_write_mask: Optional[torch.Tensor] = None,
+                    logits_at: Optional[torch.Tensor] = None):
         """One decode step at per-row positions ``pos`` (B,) int32.  The
-        cache is updated in place; returns (logits (B,1,V), cache)."""
+        cache is updated in place; returns (logits (B,1,V), cache).
+
+        With ``page_table`` (B, nb) the cache is the paged pool and ``pos``
+        each row's first write position; S > 1 tokens per row is the paged
+        suffix prefill (writes masked by ``kv_write_mask``), returning
+        (B, S, V) logits, or (B, 1, V) at token index ``logits_at[b]``."""
         return tf.decoder_forward(self.cfg, params, batch["tokens"],
                                   mode="decode", cache=cache, cache_pos=pos,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, logits_at=logits_at,
+                                  page_table=page_table,
+                                  kv_write_mask=kv_write_mask)
 
     # ---- serve capability metadata -------------------------------------
     @property
     def serve_modes(self) -> frozenset:
+        """``"dense"`` = Engine / EngineReference, ``"paged"`` =
+        PagedEngine."""
         return _FAMILY_SERVE_MODES[self.cfg.family]
 
     def state_banks(self) -> Dict[str, StateBank]:

@@ -1,13 +1,15 @@
 """GQA attention for the dense decoder (torch counterpart of the dense
 parts of ``repro/models/attention.py``): projections, RoPE, the O(S^2)
-prefill attention, the per-row-position decode tick and the KV cache
-definitions.
+prefill attention, the per-row-position decode tick, its paged branch
+(KV in a shared physical page pool addressed through page tables), the
+paged suffix prefill and the KV cache definitions.
 
 The decode tick has two implementations selected by ``impl``:
 ``"plain"`` scatters the new K/V row into the cache and runs the plain
 decode attention (the parity oracle); ``"kernel"`` calls
-``kernels.ops.decode_attention_fused``, which writes the row and attends in
-one CUDA launch (and takes the same plain version on CPU tensors).
+``kernels.ops.decode_attention_fused`` (``paged_decode_attention_fused``
+on the paged branch), which writes the row and attends in one CUDA launch
+(and takes the same plain version on CPU tensors).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   decode_attention_plain)
+from repro_torch.kernels.paged_attention import gather_pages, write_rows
 from repro_torch.models.common import (ParamDef, ParamDefs, Params,
                                        apply_rope, softcap)
 
@@ -79,6 +82,72 @@ def decode_attention(q, k, v, *, pos, window=0, logit_cap=0.0):
                                   logit_cap=logit_cap)[:, None]
 
 
+def paged_suffix_attention(q, k, v, *, q_pos, window=0,
+                           logit_cap=0.0) -> torch.Tensor:
+    """Suffix-prefill attention over a row-linearized paged cache.
+
+    q (B,S,H,hd) suffix queries; k/v (B,L,K,hd) caches gathered through
+    each row's page table that already hold the suffix rows at their
+    positions; q_pos (B,S) global query positions, row-varying because
+    each suffix starts at that row's shared-prefix length.  Query (b, s)
+    attends ``k_idx <= q_pos[b, s]`` inside its window, which is both the
+    causal mask within the suffix and the guard that hides TRASH-page rows
+    past the row's own depth.  Forms (B, S, K, G, L) f32 logits: transient,
+    freed when the call returns."""
+    B, S, H, hd = q.shape
+    L, K = k.shape[1], k.shape[2]
+    G = H // K
+    qr = q.reshape(B, S, K, G, hd).float() * hd ** -0.5
+    logits = softcap(torch.einsum("bskgh,btkh->bskgt", qr, k.float()),
+                     logit_cap)
+    k_idx = torch.arange(L, device=q.device)
+    qp = q_pos.long()[:, :, None]
+    ok = k_idx[None, None, :] <= qp
+    if window > 0:
+        ok &= k_idx[None, None, :] > qp - window
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    logits = logits + torch.where(ok, zero, torch.full_like(zero, NEG_INF)
+                                  )[:, :, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bskgt,btkh->bskgh", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _paged_attention(cfg: ModelConfig, q, k, v, cache, cache_pos,
+                     page_table, kv_write_mask, window, impl):
+    """The paged branch of ``attention_block``: KV lives in a shared
+    physical pool (P, ps, K, hd) per layer and row b's logical page i maps
+    to ``page_table[b, i]``.  The last pool page is TRASH: masked and
+    out-of-range writes land there (finite values, so masked softmax terms
+    stay exact zeros) and the per-row mask keeps it unreadable.  The pools
+    are updated in place."""
+    S = q.shape[1]
+    ck, cv = cache["k"], cache["v"]
+    if impl == "kernel" and S == 1:
+        return kernel_ops.paged_decode_attention_fused(
+            q[:, 0], ck, cv, k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype),
+            page_table, cache_pos, window,
+            logit_cap=cfg.attn_softcap)[:, None]
+    if impl == "kernel":
+        raise ValueError("impl='kernel' is the single-token paged decode "
+                         "kernel; the suffix prefill takes impl='plain'")
+    if impl != "plain":
+        raise ValueError(f"decode impl {impl!r} not in {DECODE_IMPLS}")
+    # scatter this step's S rows through the page table (cache_pos[b] is
+    # row b's FIRST write position), then gather each row's pages into a
+    # linear (B, nb*ps) cache and attend with per-row positions
+    trash = ck.shape[0] - 1
+    wp = write_rows(ck, k, page_table, cache_pos, kv_write_mask, trash=trash)
+    write_rows(cv, v, page_table, cache_pos, kv_write_mask, trash=trash)
+    lin_k, lin_v = gather_pages(ck, page_table), gather_pages(cv, page_table)
+    if S == 1:
+        return decode_attention(q, lin_k, lin_v, pos=cache_pos,
+                                window=window, logit_cap=cfg.attn_softcap)
+    return paged_suffix_attention(q, lin_k, lin_v, q_pos=wp, window=window,
+                                  logit_cap=cfg.attn_softcap)
+
+
 def attention_block(
     cfg: ModelConfig,
     p: Params,
@@ -90,6 +159,8 @@ def attention_block(
     cache_pos: Optional[torch.Tensor] = None,         # decode: (B,) int
     return_kv: bool = False,
     impl: str = "plain",
+    page_table: Optional[torch.Tensor] = None,     # paged: (B, nb) int32
+    kv_write_mask: Optional[torch.Tensor] = None,  # paged suffix: (B, S)
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention op incl. projections, RoPE (``rope_cs`` = the
     positions' ``rope_tables``, None without RoPE) and cache handling.
@@ -98,7 +169,11 @@ def attention_block(
     with ``return_kv`` the computed k/v come back as the cache.  Decode
     (``cache_pos`` a (B,) vector, S == 1): row b writes its k/v at its own
     position ``cache_pos[b]`` — IN PLACE in ``cache`` (the JAX package
-    returned new buffers) — and attends its own prefix."""
+    returned new buffers) — and attends its own prefix.  With
+    ``page_table`` the cache is the paged pool and ``cache_pos[b]`` is row
+    b's first write position: S == 1 is the paged decode tick, S > 1 the
+    paged suffix prefill (positions ``cache_pos[b] + s``, writes masked by
+    ``kv_write_mask``)."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
@@ -110,7 +185,14 @@ def attention_block(
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
 
-    if cache is not None:
+    if page_table is not None:
+        if cache is None or cache_pos is None or cache_pos.ndim != 1:
+            raise ValueError("paged attention needs the pools and a (B,) "
+                             "vector of first write positions")
+        out = _paged_attention(cfg, q, k, v, cache, cache_pos, page_table,
+                               kv_write_mask, window, impl)
+        new_cache = cache
+    elif cache is not None:
         if cache_pos is None or cache_pos.ndim != 1 or S != 1:
             raise ValueError("decode takes one token per row and a (B,) "
                              "vector of cache positions")
@@ -143,6 +225,21 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
     K, hd = cfg.num_kv_heads, cfg.head_dim
     shape = (layers, batch, max_len, K, hd)
     axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamDef(shape, axes, init="zeros"),
+        "v": ParamDef(shape, axes, init="zeros"),
+    }
+
+
+def paged_cache_defs(cfg: ModelConfig, num_pages: int, page_size: int,
+                     layers: int) -> ParamDefs:
+    """Paged KV pool ParamDefs (stacked over layers): one physical pool
+    ``(num_pages, page_size, K, hd)`` per layer, addressed through the
+    engine's page tables.  ``num_pages`` INCLUDES the trailing TRASH page
+    (index ``num_pages - 1``) that absorbs masked writes."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (layers, num_pages, page_size, K, hd)
+    axes = ("layers", "kv_pages", "kv_page_rows", "kv_heads", "head_dim")
     return {
         "k": ParamDef(shape, axes, init="zeros"),
         "v": ParamDef(shape, axes, init="zeros"),

@@ -4,7 +4,9 @@
 Modes:
   prefill — full-sequence forward, returns the per-layer KV cache
   decode  — one token per row against an existing cache, at per-row
-            positions (the serve tick); the cache is updated in place
+            positions (the serve tick); the cache is updated in place.
+            With a page table the cache is the paged pool, and S > 1
+            tokens per row is the paged suffix prefill.
 
 The JAX package scans the stacked layers with ``jax.lax.scan``; here a
 Python loop walks views of the same stacked tensors.
@@ -63,6 +65,12 @@ def cache_param_defs(cfg: ModelConfig, batch: int, max_len: int) -> ParamDefs:
     return attn_mod.cache_defs(cfg, batch, max_len, cfg.num_layers)
 
 
+def paged_cache_param_defs(cfg: ModelConfig, num_pages: int,
+                           page_size: int) -> ParamDefs:
+    return attn_mod.paged_cache_defs(cfg, num_pages, page_size,
+                                     cfg.num_layers)
+
+
 def _layers(cfg: ModelConfig, params: Params) -> List[Params]:
     """Per-layer views of the stacked ``blocks/`` tensors."""
     blocks = subtree(params, "blocks")
@@ -71,12 +79,14 @@ def _layers(cfg: ModelConfig, params: Params) -> List[Params]:
 
 
 def _decoder_layer(cfg: ModelConfig, p: Params, x, *, rope_cs, window,
-                   cache=None, cache_pos=None, return_kv=False, impl="plain"):
+                   cache=None, cache_pos=None, return_kv=False, impl="plain",
+                   page_table=None, kv_write_mask=None):
     """Dense layer body. Returns (x, new_cache)."""
     h, new_cache = attn_mod.attention_block(
         cfg, subtree(p, "attn"), rms_norm(x, p["ln1/g"]),
         rope_cs=rope_cs, window=window, cache=cache,
-        cache_pos=cache_pos, return_kv=return_kv, impl=impl)
+        cache_pos=cache_pos, return_kv=return_kv, impl=impl,
+        page_table=page_table, kv_write_mask=kv_write_mask)
     x = x + h
     m = mlp_mod.mlp_block(cfg, subtree(p, "mlp"), rms_norm(x, p["ln2/g"]))
     return x + m, new_cache
@@ -106,17 +116,24 @@ def decoder_forward(
     cache: Optional[Params] = None,       # {"k","v"}: (layers,B,L,K,hd)
     cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
     attn_impl: str = "plain",
-    logits_at: Optional[torch.Tensor] = None,   # prefill: (B,) positions
+    logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
+    page_table: Optional[torch.Tensor] = None,  # paged: (B, nb) int32
+    kv_write_mask: Optional[torch.Tensor] = None,   # paged suffix: (B, S)
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits, cache).
 
-    Prefill returns (B, S, V) logits — or (B, 1, V) at ``logits_at[b]``
-    when given, which saves the full (B, S, V) f32 tensor (2 GB at
-    llama3-8b, B=8, S=512) when only the last prompt position is needed —
-    and the stacked fresh KV.  Decode writes each row's K/V at its own
-    ``cache_pos[b]`` into ``cache`` in place and returns (B, 1, V) logits
-    with the same cache."""
-    B, S = tokens.shape
+    Prefill returns (B, S, V) logits — or (B, 1, V) at token index
+    ``logits_at[b]`` when given, which saves the full (B, S, V) f32 tensor
+    (2 GB at llama3-8b, B=8, S=512) when only the last prompt position is
+    needed — and the stacked fresh KV.  Decode writes each row's K/V at
+    its own ``cache_pos[b]`` into ``cache`` in place and returns (B, 1, V)
+    logits with the same cache.  With ``page_table`` the cache is the
+    paged pool ``{"k","v"}: (layers, P, ps, K, hd)`` and ``cache_pos[b]``
+    is row b's first write position: S == 1 is the paged decode tick,
+    S > 1 the paged suffix prefill (positions ``cache_pos[b] + s``, writes
+    masked by ``kv_write_mask``), which takes ``logits_at`` as prefill
+    does."""
+    S = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     windows = layer_windows(cfg)
     layers = _layers(cfg, params)
@@ -135,19 +152,29 @@ def decoder_forward(
                                    return_kv=True)
             ks.append(kv["k"])
             vs.append(kv["v"])
-        if logits_at is not None:
-            x = x[torch.arange(B, device=x.device), logits_at.long()][:, None]
-        return (_unembed(cfg, params, x),
+        return (_unembed(cfg, params, _pick(x, logits_at)),
                 {"k": torch.stack(ks), "v": torch.stack(vs)})
     if mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
     if cache is None or cache_pos is None or cache_pos.ndim != 1:
         raise ValueError("decode needs a cache and (B,) cache positions")
+    if S != 1 and page_table is None:
+        raise ValueError("decode takes one token per row; S > 1 only on "
+                         "the paged branch (suffix prefill)")
     rope_cs = tables(cache_pos.to(torch.int32)[:, None] + torch.arange(
         S, dtype=torch.int32, device=x.device)[None, :])
     for i, (lp, w) in enumerate(zip(layers, windows)):
         x, _ = _decoder_layer(
             cfg, lp, x, rope_cs=rope_cs, window=w,
             cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_pos=cache_pos, impl=attn_impl)
-    return _unembed(cfg, params, x), cache
+            cache_pos=cache_pos, impl=attn_impl, page_table=page_table,
+            kv_write_mask=kv_write_mask)
+    return _unembed(cfg, params, _pick(x, logits_at)), cache
+
+
+def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):
+    """x (B, S, D), or its rows at token index ``logits_at[b]`` (B, 1, D)."""
+    if logits_at is None:
+        return x
+    return x[torch.arange(x.shape[0], device=x.device),
+             logits_at.long()][:, None]

@@ -26,6 +26,9 @@ The decode tick's attention and sampling are selected by ``attn_impl`` and
 ``kernels/ops.py``, ``"plain"`` through their plain PyTorch versions.  On
 CPU tensors the kernel wrappers take the plain versions themselves.
 
+``PagedEngine`` serves the same tick out of a shared physical page pool
+with radix-tree prefix sharing and copy-on-write boundary pages.
+
 ``EngineReference`` is the per-tick oracle: per-token prefill through
 ``decode_step``, one host round-trip per tick, sampling in Python.
 """
@@ -44,9 +47,11 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.sampling import fused_sample_plain
 from repro_torch.models.api import (Model, UnsupportedFamilyError,
                                     serve_families)
+from repro_torch.serve.paged import (PagePool, PagePoolExhausted,
+                                     RadixTree, pages_for)
 from repro_torch.serve.resilience import (DONE, FAILED, PENDING, QUEUED,
-                                          RUNNING, TERMINAL_STATES,
-                                          check_request)
+                                          RUNNING, SHED, TERMINAL_STATES,
+                                          ShedPolicy, check_request)
 
 IMPLS = ("plain", "kernel")
 
@@ -76,7 +81,8 @@ class Request:
     first_token_time: Optional[float] = None
     done_time: Optional[float] = None
     state: str = PENDING
-    reason: Optional[str] = None      # why FAILED
+    reason: Optional[str] = None      # why FAILED or SHED
+    defers: int = 0                   # pool-exhausted admission defers
 
     @property
     def terminal(self) -> bool:
@@ -185,10 +191,14 @@ class Engine:
         self.reset()
 
     # ---- state ----------------------------------------------------------
+    def _fresh_cache(self):
+        """Cache buffers for ``reset`` (PagedEngine makes page pools)."""
+        return self.model.init_cache(self.slots, self.max_len)
+
     def reset(self) -> None:
         """Clear cache, slot state, queue and counters."""
         dev = self.device
-        self.cache = self.model.init_cache(self.slots, self.max_len)
+        self.cache = self._fresh_cache()
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self.seed)
         self.slot_req: List[Optional[Request]] = [None] * self.slots
@@ -215,6 +225,20 @@ class Engine:
             return kernel_ops.fused_sample(lg, temps, key)
         return fused_sample_plain(lg, temps, key)
 
+    def _decode_kwargs(self) -> dict:
+        """Extra ``decode_step`` arguments of the decode tick (PagedEngine
+        passes its page table)."""
+        return {}
+
+    def _pre_window(self) -> None:
+        """Host work before a decode window, so that none is needed inside
+        it (PagedEngine uploads a changed page table here)."""
+
+    def _release_slot(self, s: int) -> None:
+        """Free slot ``s``: every site that frees a slot comes here
+        (PagedEngine also returns the slot's page references)."""
+        self.slot_req[s] = None
+
     def _window(self):
         """K decode ticks, no host sync.  Returns (3, K, slots) int32:
         emitted tokens (-1 for inactive rows), finish flags, finite-logit
@@ -227,7 +251,7 @@ class Engine:
             safe_pos = pos.clamp(0, self.max_len - 1)
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, {"tokens": last[:, None]},
-                safe_pos, attn_impl=self.attn_impl)
+                safe_pos, attn_impl=self.attn_impl, **self._decode_kwargs())
             lg = logits[:, -1]
             oks.append(torch.isfinite(lg).all(dim=-1))
             tok = self._sample(lg, temps)
@@ -287,10 +311,6 @@ class Engine:
         dev = self.device
         rows = torch.tensor([s for s, _ in pairs], device=dev)
         lens_t = torch.from_numpy(lens).to(dev)
-        max_new = torch.tensor([r.max_new_tokens for _, r in pairs],
-                               dtype=torch.int32, device=dev)
-        temps = torch.tensor([r.temperature for _, r in pairs],
-                             dtype=torch.float32, device=dev)
         logits, fresh = self.model.prefill(
             self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
             logits_at=(lens_t - 1).clamp(0, P - 1))
@@ -298,7 +318,22 @@ class Engine:
         for name in self.cache:
             self._scatter_bank(name, fresh[name], rows, valid)
         del fresh
-        last_lg = logits[:, 0]
+        self._land(pairs, self._start_rows(pairs, rows, logits[:, 0],
+                                           lens_t))
+        return take
+
+    def _start_rows(self, pairs, rows: torch.Tensor, last_lg: torch.Tensor,
+                    lens_t: torch.Tensor) -> torch.Tensor:
+        """Sample each admitted row's first token from the logits of its
+        last prompt position (``last_lg`` (n, V), rows in ``pairs`` order),
+        then write the admitted slots ``rows`` of the slot state.  ONE
+        host sync; returns host (3, n) int32: first tokens, done-at-prefill
+        flags, finite-logit flags."""
+        dev = self.device
+        max_new = torch.tensor([r.max_new_tokens for _, r in pairs],
+                               dtype=torch.int32, device=dev)
+        temps = torch.tensor([r.temperature for _, r in pairs],
+                             dtype=torch.float32, device=dev)
         ok0 = torch.isfinite(last_lg).all(dim=-1)
         t0 = self._sample(last_lg, temps)
         done0 = (max_new - 1 <= 0) | (lens_t >= self.max_len)
@@ -310,10 +345,15 @@ class Engine:
         st["active"][rows] = ok0 & ~done0
         st["remaining"][rows] = max_new - 1
         st["temps"][rows] = temps
-        host = torch.stack([t0.to(torch.int32), done0.to(torch.int32),
-                            ok0.to(torch.int32)]).cpu()    # ONE host sync
-        now = time.perf_counter()
         self.counts["prefill_calls"] += 1
+        return torch.stack([t0.to(torch.int32), done0.to(torch.int32),
+                            ok0.to(torch.int32)]).cpu()
+
+    def _land(self, pairs, host: torch.Tensor) -> None:
+        """Seat the admitted requests and record their first tokens; a row
+        with non-finite logits fails, a row done at prefill frees its
+        slot."""
+        now = time.perf_counter()
         for i, (s, r) in enumerate(pairs):
             self.slot_req[s] = r
             r._mark_admitted(self.ticks, now)
@@ -323,13 +363,12 @@ class Engine:
             r.output.append(int(host[0, i]))
             if host[1, i]:
                 r._mark_done(self.ticks, now)
-                self.slot_req[s] = None
-        return take
+                self._release_slot(s)
 
     def _fail(self, s: int, r: Request, now: float, why: str) -> None:
         self.counts["nonfinite_rows"] += 1
         r._finalize(FAILED, self.ticks, now, reason=why)
-        self.slot_req[s] = None
+        self._release_slot(s)
 
     # ---- engine loop ----------------------------------------------------
     def step(self) -> int:
@@ -339,6 +378,7 @@ class Engine:
         n_active = sum(r is not None for r in self.slot_req)
         if n_active == 0:
             return 0
+        self._pre_window()
         host = self._window().cpu().numpy()     # ONE host sync
         toks, fins, oks = host
         now = time.perf_counter()
@@ -357,7 +397,7 @@ class Engine:
                 r.output.append(int(toks[t, s]))
                 if fins[t, s]:
                     r._mark_done(self.ticks + t, now)
-                    self.slot_req[s] = None
+                    self._release_slot(s)
         if bad:
             self._state["active"][torch.tensor(bad, device=self.device)] \
                 = False
@@ -368,6 +408,251 @@ class Engine:
         """Run to completion within a K-granular tick budget; returns the
         number of unfinished requests (0 when everything completed)."""
         return _drain_until_done(self, max_ticks)
+
+
+class PagedEngine(Engine):
+    """Paged-KV continuous-batching engine with radix-tree prefix sharing
+    (torch counterpart of ``repro/serve/engine.py::PagedEngine``).
+
+    Device KV lives in per-layer physical page pools of shape
+    ``(num_pages + 1, page_size, K, hd)`` — the trailing page is TRASH,
+    the scatter sink for masked and inactive rows — and every slot owns a
+    row of one ``(slots, nb)`` int32 page table (``nb = max_len //
+    page_size``).  Host-side bookkeeping is ``serve/paged.py``: a
+    refcounted ``PagePool`` and a ``RadixTree`` of served prompts pinning
+    the pages that hold their KV.
+
+    Admission walks the tree for the longest stored prefix of each prompt
+    (capped at ``len(prompt) - 1``, so that at least one suffix token
+    prefills and gives the first token's logits), maps the shared full
+    pages by bumping refcounts, copies the boundary page when the suffix
+    starts mid-page (copy-on-write: a live row's boundary page is always
+    private), and reserves the slot's whole page span
+    ``ceil(min(L + max_new, max_len) / page_size)`` up front, so decode
+    never allocates.  Only the unshared suffixes run through the model, in
+    one batched paged prefill on the plain path; served prompts go into
+    the tree.  When the pool runs short, LRU tree leaves are evicted; if
+    it is still short the request steps aside (keeping its place in the
+    queue) and is shed after ``shed_policy.max_defers`` defers.
+
+    Decode runs ``Engine``'s window with the page table as an extra
+    operand, uploaded before the window: ``attn_impl="kernel"`` calls the
+    CUDA paged kernel (``kernels/ops.py::paged_decode_attention_fused``),
+    ``"plain"`` scatters and gathers through the table (its oracle).
+    Greedy outputs equal ``Engine``'s and ``EngineReference``'s on the same
+    requests.
+    """
+
+    def __init__(self, model: Model, params, *, slots: int, max_len: int,
+                 page_size: int = 8, num_pages: Optional[int] = None,
+                 shed_policy: Optional[ShedPolicy] = None, **kw):
+        if "paged" not in model.serve_modes:
+            raise UnsupportedFamilyError(
+                model.cfg.family, serve_families("paged"), "PagedEngine",
+                detail="pages hold positioned KV rows of a decoder")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if max_len % page_size != 0:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of page_size "
+                f"{page_size}")
+        self.page_size = int(page_size)
+        self.nb = max_len // self.page_size
+        # default pool = dense capacity (slots x nb); prefix sharing then
+        # lowers pages in use.  TRASH is the extra device page at index
+        # num_pages, never managed by the host pool.
+        self.num_pages = int(num_pages) if num_pages is not None \
+            else slots * self.nb
+        if self.num_pages < self.nb:
+            raise ValueError(
+                f"num_pages {self.num_pages} cannot hold one full-length "
+                f"request ({self.nb} pages)")
+        self.trash = self.num_pages
+        self.shed_policy = shed_policy if shed_policy is not None \
+            else ShedPolicy()
+        super().__init__(model, params, slots=slots, max_len=max_len, **kw)
+
+    # ---- state ----------------------------------------------------------
+    def _fresh_cache(self):
+        return self.model.init_paged_cache(self.num_pages + 1,
+                                           self.page_size)
+
+    def reset(self) -> None:
+        super().reset()
+        self.pool = PagePool(self.num_pages, self.page_size)
+        self.tree = RadixTree(self.pool)
+        self._slot_pages: List[List[int]] = [[] for _ in range(self.slots)]
+        self._pt_host = np.full((self.slots, self.nb), self.trash, np.int32)
+        self._upload_page_table()
+        self.stats = {"prefix_hits": 0, "prefix_tokens": 0,
+                      "prompt_tokens": 0, "cow_copies": 0, "deferred": 0,
+                      "evicted_pages": 0, "inserted_nodes": 0}
+        self._last_shortage = (0, 0)   # (pages wanted, pages free)
+
+    def paged_stats(self) -> dict:
+        """Counters and pool gauges for launch printouts and the smoke."""
+        pt = max(1, self.stats["prompt_tokens"])
+        return {**self.stats,
+                "pages_hwm": self.pool.hwm,
+                "pages_in_use": self.pool.in_use,
+                "free_pages": self.pool.free_pages,
+                "radix_nodes": self.tree.num_nodes,
+                "prefix_hit_rate": self.stats["prefix_tokens"] / pt}
+
+    # ---- window plumbing -------------------------------------------------
+    def _upload_page_table(self) -> None:
+        """Copy the host page table to the device (a copy, never a view of
+        the numpy buffer, on the CPU too)."""
+        self._pt_dev = torch.tensor(self._pt_host, device=self.device)
+        self._pt_dirty = False
+
+    def _decode_kwargs(self) -> dict:
+        return {"page_table": self._pt_dev}
+
+    def _pre_window(self) -> None:
+        if self._pt_dirty:
+            self._upload_page_table()
+
+    def _release_slot(self, s: int) -> None:
+        super()._release_slot(s)
+        for p in self._slot_pages[s]:
+            self.pool.release(p)
+        self._slot_pages[s] = []
+        self._pt_host[s] = self.trash
+        self._pt_dirty = True
+
+    # ---- admission ------------------------------------------------------
+    def _plan(self, req: Request) -> Optional[dict]:
+        """Reserve every page request ``req`` will ever touch, sharing
+        tree-held prefix pages.  Returns None (nothing mutated net) when
+        the pool stays short even after LRU eviction; the shortfall is
+        kept in ``_last_shortage`` for the shed reason."""
+        ps = self.page_size
+        prompt = list(req.prompt)
+        L = len(prompt)
+        # cap the match one token short of the prompt: the suffix must be
+        # non-empty so the admission prefill computes t0 logits
+        matched, shared = self.tree.match(prompt[:L - 1])
+        n_full = matched // ps
+        boundary = matched % ps != 0
+        held = shared[:n_full + (1 if boundary else 0)]
+        for p in held:            # pin before eviction can free them
+            self.pool.share(p)
+        total = pages_for(min(L + req.max_new_tokens, self.max_len), ps)
+        need = total - n_full     # the boundary page is copied: it is new
+        if self.pool.free_pages < need:
+            self.stats["evicted_pages"] += self.tree.evict(need)
+        try:
+            new = self.pool.alloc(need)
+        except PagePoolExhausted as e:
+            for p in held:        # roll back the pins; admission defers
+                self.pool.release(p)
+            self._last_shortage = (e.requested, e.free)
+            return None
+        self.stats["prompt_tokens"] += L
+        self.stats["prefix_tokens"] += matched
+        self.stats["prefix_hits"] += 1 if matched else 0
+        cow = None
+        if boundary:
+            # suffix starts mid-page: a private copy of the shared boundary
+            # page (new[0] covers logical page n_full); its pin is dropped
+            # after the device copy in _admit
+            cow = (held[n_full], new[0])
+            self.stats["cow_copies"] += 1
+            self.pool.cow_copies += 1
+        return {"matched": matched, "L": L, "prompt": prompt, "cow": cow,
+                "pages": shared[:n_full] + new, "total": total}
+
+    def _admit(self) -> int:
+        """Shed-or-defer admission, never head-of-line blocking: a request
+        whose pages cannot be reserved steps aside (keeping its queue
+        position) so that later requests that fit can run, and is shed
+        once it has been passed over more than ``max_defers`` times.  The
+        admitted requests' boundary pages are copied in one batched copy
+        per pool, their page-table rows uploaded, and their suffixes
+        prefilled in one batched paged prefill."""
+        free = [s for s in range(self.slots) if self.slot_req[s] is None]
+        max_defers = self.shed_policy.max_defers
+        pairs, plans = [], []
+        deferred: List[Request] = []
+        while free and self._queue:
+            r = self._queue.popleft()
+            plan = self._plan(r)
+            if plan is None:
+                self.stats["deferred"] += 1
+                r.defers += 1
+                if max_defers is not None and r.defers > max_defers:
+                    want, have = self._last_shortage
+                    r._finalize(
+                        SHED, self.ticks, time.perf_counter(),
+                        reason=(f"page pool exhausted on {r.defers} "
+                                f"admission attempts (last shortfall: "
+                                f"wanted {want} pages, {have} free)"))
+                else:
+                    deferred.append(r)
+                continue
+            pairs.append((free.pop(0), r))
+            plans.append(plan)
+        for r in reversed(deferred):
+            self._queue.appendleft(r)
+        if not pairs:
+            return 0
+        dev = self.device
+        cows = [p["cow"] for p in plans if p["cow"] is not None]
+        if cows:
+            src = torch.tensor([c[0] for c in cows], device=dev)
+            dst = torch.tensor([c[1] for c in cows], device=dev)
+            for pool in self.cache.values():
+                pool[:, dst] = pool[:, src]
+            for c in cows:
+                self.pool.release(c[0])
+        for (s, _), p in zip(pairs, plans):
+            self._slot_pages[s] = list(p["pages"])
+            self._pt_host[s, :p["total"]] = p["pages"]   # the rest: TRASH
+        self._upload_page_table()
+        rows = torch.tensor([s for s, _ in pairs], device=dev)
+        last_lg = self._prefill_prog(rows, plans)
+        lens_t = torch.tensor([p["L"] for p in plans], dtype=torch.int32,
+                              device=dev)
+        host = self._start_rows(pairs, rows, last_lg, lens_t)
+        for i, p in enumerate(plans):
+            if host[2, i]:
+                # the tree takes its own references on the prompt's pages;
+                # the slot may go on decoding into the boundary page at
+                # rows >= L, which the tree never vouches for
+                self.stats["inserted_nodes"] += self.tree.insert(
+                    p["prompt"],
+                    p["pages"][:pages_for(p["L"], self.page_size)])
+        self._land(pairs, host)
+        return len(pairs)
+
+    def _prefill_prog(self, rows: torch.Tensor, plans) -> torch.Tensor:
+        """Batched paged SUFFIX prefill of the admitted slots ``rows``: a
+        decode-mode forward with S tokens per row starting at each row's
+        matched prefix length, on the plain paged path.  Padding positions
+        write to TRASH (``kv_write_mask``), so the shared prefix pages and
+        the rows of other slots keep their bits.  Returns each row's
+        logits at its last suffix token, (n, V) f32."""
+        S = min(self.max_len,
+                _next_pow2(max(p["L"] - p["matched"] for p in plans)))
+        n = len(plans)
+        tokens = np.zeros((n, S), np.int32)
+        mask = np.zeros((n, S), bool)
+        for i, p in enumerate(plans):
+            suf = p["prompt"][p["matched"]:]
+            tokens[i, :len(suf)] = suf
+            mask[i, :len(suf)] = True
+        dev = self.device
+        starts = torch.tensor([p["matched"] for p in plans],
+                              dtype=torch.int32, device=dev)
+        last = torch.tensor([p["L"] - p["matched"] - 1 for p in plans],
+                            device=dev)
+        logits, _ = self.model.decode_step(
+            self.params, self.cache,
+            {"tokens": torch.from_numpy(tokens).to(dev)}, starts,
+            attn_impl="plain", page_table=self._pt_dev[rows],
+            kv_write_mask=torch.from_numpy(mask).to(dev), logits_at=last)
+        return logits[:, 0]
 
 
 class EngineReference:

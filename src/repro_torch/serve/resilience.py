@@ -1,7 +1,8 @@
-"""Terminal states and request validation for the serve engines (the part
-of ``repro/serve/resilience.py`` that ``Engine`` needs; shedding,
-deadlines, the watchdog, quarantine and chaos injection are not ported
-yet, and with them the SHED and TIMED_OUT states).
+"""Terminal states, request validation and the page-pool shed policy for
+the serve engines (the part of ``repro/serve/resilience.py`` that
+``Engine`` and ``PagedEngine`` need; queue-depth backpressure, deadlines,
+the watchdog, quarantine and chaos injection are not ported yet, and with
+them the TIMED_OUT state).
 
 Every ``Request`` walks ``PENDING -> QUEUED -> RUNNING`` and ends in
 exactly one terminal state.  ``DONE`` is the only state that sets
@@ -9,14 +10,26 @@ exactly one terminal state.  ``DONE`` is the only state that sets
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 PENDING = "PENDING"      # created, not yet submitted
 QUEUED = "QUEUED"        # in an engine's admission queue
 RUNNING = "RUNNING"      # admitted into a slot, decoding
 
 DONE = "DONE"            # served to completion (the only state with done=True)
+SHED = "SHED"            # rejected by admission control (page-pool defers)
 FAILED = "FAILED"        # malformed request, or non-finite logits
 
-TERMINAL_STATES = frozenset({DONE, FAILED})
+TERMINAL_STATES = frozenset({DONE, SHED, FAILED})
+
+
+@dataclasses.dataclass
+class ShedPolicy:
+    """Admission control of ``PagedEngine``: a request whose page
+    reservation cannot be met steps aside, and is shed once it has been
+    passed over more than ``max_defers`` times (None: never shed)."""
+    max_defers: Optional[int] = None
 
 
 def check_request(req, max_len: int) -> None:

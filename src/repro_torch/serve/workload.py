@@ -1,10 +1,10 @@
 """Serve traffic for the port's engines: the mixed workload of
 ``repro/serve/workload.py`` (staggered arrivals, uneven prompt/output
-lengths).  With slot isolation a request's greedy output depends only on
+lengths) and its shared-prefix workload (system-prompt templates).  With slot isolation a request's greedy output depends only on
 its own prompt, so outputs are schedule-independent: the same request set
 decodes identically under any arrival pattern, any ticks_per_sync and
 under ``EngineReference``.  The same seed gives the same requests as the
-JAX package's ``mixed_requests``.
+JAX package's ``mixed_requests`` and ``shared_prefix_requests``.
 """
 from __future__ import annotations
 
@@ -61,3 +61,34 @@ def staggered_groups(reqs: Sequence[Request],
     """Chop a request list into arrival groups of ``group_size``."""
     return [list(reqs[i:i + group_size])
             for i in range(0, len(reqs), group_size)]
+
+
+def shared_prefix_requests(n: int, *, seed: int = 0, vocab: int = 512,
+                           num_templates: int = 4, template_len: int = 42,
+                           suffix_lens: Tuple[int, int] = (2, 8),
+                           max_new: Tuple[int, int] = (3, 10),
+                           temperature: float = 0.0,
+                           temperature_every: int = 0) -> List[Request]:
+    """n requests over ``num_templates`` shared system-prompt templates:
+    request i's prompt is template ``i % num_templates`` of
+    ``template_len`` tokens plus a private random suffix (inclusive
+    ``suffix_lens`` bounds) — the traffic radix-tree prefix sharing is
+    built for.  A ``template_len`` that is not a multiple of the page size
+    makes the paged engine copy-on-write a boundary page on every reuse
+    (the default 42 % 8 == 6)."""
+    if num_templates < 1 or template_len < 1:
+        raise ValueError("need >= 1 template of >= 1 token")
+    rng = np.random.default_rng(seed)
+    templates = [[int(t) for t in rng.integers(1, vocab, size=template_len)]
+                 for _ in range(num_templates)]
+    reqs = []
+    for i in range(n):
+        slen = int(rng.integers(suffix_lens[0], suffix_lens[1] + 1))
+        suffix = [int(t) for t in rng.integers(1, vocab, size=slen)]
+        temp = (temperature if temperature_every and
+                (i + 1) % temperature_every == 0 else 0.0)
+        reqs.append(Request(
+            uid=i, prompt=templates[i % num_templates] + suffix,
+            max_new_tokens=int(rng.integers(max_new[0], max_new[1] + 1)),
+            temperature=temp))
+    return reqs

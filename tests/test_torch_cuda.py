@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the paged
+engine on its kernel against ``EngineReference``, on the card.
 
 Marked ``cuda``; each test skips with a reason where no CUDA device is
 present (the fixture decides, at run time).  On the card:
@@ -127,3 +128,85 @@ def test_cache_sim_kernels_refuse_more_than_16_ways(dev):
         ops.cache_sim_ladder(x, num_sets=(4,), ways=32)
     with pytest.raises(ValueError, match="ways"):
         ops.cache_sim(x[0], x[1], num_sets=4, ways=17, sets_tile=4)
+
+
+def _paged_inputs(dev, dtype, B, H, K, hd, ps, nb, shared, seed):
+    """Pools with a TRASH page (the last), rows 1.. sharing row 0's first
+    ``shared`` pages, every boundary page private, ragged positions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    P = B * nb + 1
+    pt = torch.arange(B * nb, dtype=torch.int32, device=dev).view(B, nb)
+    pt[1:, :shared] = pt[0, :shared]
+    pos = torch.randint(shared * ps, nb * ps, (B,), generator=g,
+                        device=dev, dtype=torch.int32)
+    pos[-1] = nb * ps - 1
+    return (r(B, H, hd), r(P, ps, K, hd), r(P, ps, K, hd), r(B, K, hd),
+            r(B, K, hd), pt.contiguous(), pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,hd,ps,nb,shared,window,cap", [
+    (8, 32, 8, 128, 8, 128, 64, 0, 0.0),      # chip_smoke's shapes, ps 8
+    (8, 32, 8, 128, 16, 64, 32, 11, 50.0),    # ps 16, window, softcap
+    (3, 4, 4, 32, 5, 7, 2, 0, 0.0),           # MHA, odd page size
+    (2, 8, 1, 256, 4, 9, 3, 6, 30.0),         # MQA, hd 256
+])
+def test_paged_attention_kernel_matches_plain(dev, dtype, B, H, K, hd, ps,
+                                              nb, shared, window, cap):
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, nk, nv, pt, pos = _paged_inputs(dev, dtype, B, H, K, hd, ps,
+                                             nb, shared, 3)
+    kp, vp = k.clone(), v.clone()
+    want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, pos,
+                                                 window, logit_cap=cap)
+    before = ops.launches["paged_decode_attention"]
+    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos, window,
+                                           logit_cap=cap)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_decode_attention"] == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(k, kp) and torch.equal(v, vp)
+    unfused = ops.paged_decode_attention(q, k, v, pt, pos, window,
+                                         logit_cap=cap)
+    torch.testing.assert_close(unfused.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_paged_engine_kernel_matches_reference(dev):
+    """PagedEngine on the CUDA paged kernel and sampler against
+    EngineReference, greedy, on the shared-prefix workload: the reduced
+    llama3-8b at float32 with head_dim 32 (the smallest the kernel
+    takes)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import (EngineReference, PagedEngine,
+                                   run_staggered, shared_prefix_requests,
+                                   staggered_groups)
+    cfg = dataclasses.replace(reduced(get_config("llama3-8b"),
+                                      dtype="float32"), head_dim=32)
+    model = build_model(cfg, max_seq=48, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def reqs():
+        return shared_prefix_requests(9, seed=4, num_templates=2,
+                                      template_len=26, suffix_lens=(2, 6),
+                                      max_new=(2, 8))
+
+    ref = EngineReference(model, params, slots=3, max_len=48, device=dev)
+    want = run_staggered(ref, staggered_groups(reqs(), 3))
+    before = ops.launches["paged_decode_attention"]
+    eng = PagedEngine(model, params, slots=3, max_len=48, page_size=8,
+                      ticks_per_sync=4, device=dev)
+    assert run_staggered(eng, staggered_groups(reqs(), 3)) == want
+    assert ops.launches["paged_decode_attention"] - before == \
+        cfg.num_layers * eng.counts["decode_ticks"]
+    st = eng.paged_stats()
+    assert st["cow_copies"] > 0 and st["prefix_tokens"] > 0
+    eng.pool.check(eng.tree.held_refs())

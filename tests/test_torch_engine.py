@@ -239,7 +239,8 @@ def test_counts_and_no_launches_on_cpu(mp):
     assert eng.counts["decode_ticks"] == eng.ticks > 0
     assert eng.counts["prefill_calls"] >= 3
     assert eng.counts["nonfinite_rows"] == 0
-    assert ops.launches == {"decode_attention": 0, "fused_sample": 0,
+    assert ops.launches == {"decode_attention": 0,
+                            "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0}
 
 
