@@ -15,6 +15,13 @@ result line:
      16, half the rows sharing a 512-token prefix and one free row on the
      TRASH page: output within bound, write-back bitwise outside TRASH,
      pages past each row's position ignored bit for bit;
+  2c. the recurrent families' scans against their plain versions: the
+     SSD chunked scan at mamba2-1.3b's prefill shape (B=4, S=2048, H=64,
+     P=64, N=128, chunk 256) in bf16 and f32, from a zero and a nonzero
+     state, y and the final state within the JAX kernel test's bounds;
+     the RG-LRU recurrence at recurrentgemma-2b's width (R=2560) at the
+     decode tick (8, 1) and the prefill (4, 2048), from a nonzero h0;
+     both timed as phase 2's kernels;
   3. the LRU cache-simulator kernels (``cache_sim_ladder``, ``cache_sim``)
      against their plain versions at shapes slice C does not reach: a
      whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
@@ -42,6 +49,18 @@ result line:
      shared-prefix workload at max_len 256 in the default pool and in a
      pool of 2 nb + 2 pages (admission defers), and distinct prompts in a
      pool of 2 nb pages (tree leaves evicted);
+  5c. slices F and G: mamba2-1.3b and recurrentgemma-2b at full width and
+     depth (bf16, weights from a seeded generator) serving slice A's 16
+     requests through ``Engine`` (masked per-token prefill scan, guarded
+     state banks): every request DONE, no host sync inside a window,
+     exact ``fused_sample`` and ``rglru_scan`` launch counts, a traced
+     decode window; then ``Model.prefill`` on 4 prompts of 2048 tokens,
+     one ``ssd_scan`` (mamba2) or ``rglru_scan`` (each R layer of
+     recurrentgemma) launch per layer;
+  5d. slice H: both families at full width, 4 layers, f32: the kernel
+     ``Engine`` at K=1 and K=4 equals ``EngineReference`` token for token
+     with an eos exit, and ``Model.prefill`` over 1024 tokens matches the
+     per-token ``decode_step`` loop within 2e-3 (logits and state);
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -58,10 +77,11 @@ result line:
      traffic fields within rel 1e-6;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
-     kernel, C for the simulator), error
+     kernel, F's ``Model.prefill`` for the SSD scan, G's serving for the
+     RG-LRU scan, C for the simulator), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
-     an LRU simulation: null).
+     an LRU simulation or either scan: null).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -179,12 +199,14 @@ def _decode_bound(q, k, pos, window, elt):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def _close(out, want, dtype) -> float:
+def _close(out, want, dtype=None, *, tol=None, what: str = "") -> float:
+    """max |out - want|; fails beyond ``tol + tol * |want|``, ``tol`` the
+    JAX tests' bound for ``dtype`` unless given."""
     err = (out.float() - want.float()).abs()
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     bad = err > tol + tol * want.float().abs()
-    check(not bool(bad.any()), f"max |err| {float(err.max()):.3g} beyond "
-          f"atol=rtol={tol}")
+    check(not bool(bad.any()), f"{what + ': ' if what else ''}max |err| "
+          f"{float(err.max()):.3g} beyond atol=rtol={tol}")
     return float(err.max())
 
 
@@ -482,6 +504,122 @@ def phase_paged_attention(flush) -> dict:
             "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------- phase 2c
+
+
+def _ssd_bound(b, S, H, P, N, Q, elt, s0: bool):
+    """Least time of one scan: inputs read once, y and the final state
+    written once; the products the function needs on the CUDA cores' f32
+    rate: C.B^T on the lower triangle once per (batch, chunk), and per
+    (batch, head, chunk) the weights times x on the triangle, C . s and
+    the state update."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    nbytes = (2 * b * S * H * P * elt + 2 * b * S * H * elt
+              + 2 * b * S * N * elt + (2 if s0 else 1) * b * H * P * N * 4)
+    flops = b * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            flops)
+
+
+def phase_ssd_scan(flush) -> dict:
+    """The SSD kernel against its plain version at mamba2-1.3b's prefill
+    shape (B=4, S=2048, H=64, P=64, N=128, chunk 256, bf16), from a zero
+    and from a nonzero state: y and the final state within the JAX kernel
+    test's bf16 bound (5e-2); then f32 at the same shape (5e-4)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    b, S, H, P, N, Q = 4, 2048, 64, 64, 128, 256
+
+    def inputs(dtype):
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=DEVICE) * scale
+        dt = F.softplus(r(b, S, H) - 1.0).to(dtype)
+        A = (-torch.exp(r(H) * 0.5)).to(dtype)
+        return (r(b, S, H, P).to(dtype), dt, (dt * A).contiguous(),
+                r(b, S, N, scale=0.3).to(dtype),
+                r(b, S, N, scale=0.3).to(dtype))
+
+    main = None
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 5e-4)):
+        args = inputs(dtype)
+        s0 = torch.randn(b, H, P, N, generator=gen, device=DEVICE)
+        for label, init in (("s0 = 0", None), ("s0 != 0", s0)):
+            want_y, want_s = ssd.ssd_scan_plain(*args, chunk=Q, s0=init)
+            got_y, got_s = ops.ssd_scan(*args, chunk=Q, s0=init)
+            torch.cuda.synchronize()
+            name = f"ssd_scan {dtype} {label}"
+            ey = _close(got_y, want_y, tol=tol, what=name + " y")
+            es = _close(got_s, want_s, tol=tol, what=name + " final state")
+            print(f"{name}: max|err| y {ey:.3g}, final state {es:.3g} vs "
+                  f"plain (tol {tol})")
+            if dtype == torch.bfloat16 and init is None:
+                main = dict(args=args, err=max(ey, es))
+    args = main["args"]
+    ms = median_ms(lambda: ops.ssd_scan(*args, chunk=Q), flush=flush)
+    plain_ms = median_ms(lambda: ssd.ssd_scan_plain(*args, chunk=Q),
+                         flush=flush)
+    bound_ms, bound_by, flops = _ssd_bound(b, S, H, P, N, Q, 2, False)
+    print(f"ssd_scan bf16 B={b} S={S} H={H} P={P} N={N} chunk {Q}: kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+          f"{flops / 1e9:.2f} GFLOP needed), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}); no single PyTorch call "
+          f"computes it")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:22",
+            "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _rglru_bound(B, S, R):
+    nbytes = 3 * B * S * R * 4 + 2 * B * R * 4    # a, b, y; h0, h_final
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * B * S * R / F32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase_rglru_scan(flush) -> dict:
+    """The RG-LRU kernel against its plain version at recurrentgemma-2b's
+    width (R=2560): the decode tick (8, 1) and the prefill (4, 2048), from
+    a nonzero h0; y and h_final within the JAX kernel test's f32 bound
+    (1e-4; the kernel rounds as the plain version does, so it is exact).
+    The row is the decode tick's shape, which the main path launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    R = 2560
+    row = None
+    for B, S in ((8, 1), (4, 2048)):
+        a = torch.sigmoid(torch.randn(B, S, R, generator=gen,
+                                      device=DEVICE) + 2.0)
+        bb = torch.randn(B, S, R, generator=gen, device=DEVICE) * 0.1
+        h0 = torch.randn(B, R, generator=gen, device=DEVICE)
+        want = rg.rglru_scan_plain(a, bb, h0)
+        got = ops.rglru_scan(a, bb, h0)
+        torch.cuda.synchronize()
+        err = max(_close(got[0], want[0], tol=1e-4, what=f"rglru y {B, S}"),
+                  _close(got[1], want[1], tol=1e-4, what=f"rglru h {B, S}"))
+        ms = median_ms(lambda: ops.rglru_scan(a, bb, h0), flush=flush)
+        plain_ms = median_ms(lambda: rg.rglru_scan_plain(a, bb, h0),
+                             runs=RUNS if S == 1 else 5, flush=flush)
+        bound_ms, bound_by = _rglru_bound(B, S, R)
+        print(f"rglru_scan f32 B={B} S={S} R={R}: max|err| {err:.3g} vs "
+              f"plain (bitwise: {torch.equal(got[0], want[0])}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f}"
+              f" ms ({bound_by}); no single PyTorch call computes it")
+        if row is None:
+            row = {"name": "rglru_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/rglru_scan.cu",
+                   "replaces": "src/repro/kernels/rglru_scan.py:22",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return row
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -620,16 +758,18 @@ def phase_slice_a():
     return launches, model, params, eng
 
 
-def trace_window(eng, vocab: int) -> None:
+def trace_window(eng, vocab: int, prompt_lens=(150, 300)) -> None:
     """Profile one decode window of ``eng`` (Engine or PagedEngine) with 8
-    busy slots (prompts 150-300): the median wall time of three untraced
-    windows, the device time of a traced one's kernels, the device's busy
-    share and the kernels that take the most device time."""
+    busy slots (prompts 150-300; the recurrent families' tick does not
+    depend on the prompt length, and they take shorter prompts, whose
+    per-token prefill scan is shorter): the median wall time of three
+    untraced windows, the device time of a traced one's kernels, the
+    device's busy share and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import mixed_requests
     eng.reset()
-    for r in mixed_requests(8, seed=3, vocab=vocab, prompt_lens=(150, 300),
+    for r in mixed_requests(8, seed=3, vocab=vocab, prompt_lens=prompt_lens,
                             max_new=(64, 64)):
         eng.submit(r)
     eng._admit()
@@ -826,6 +966,202 @@ def phase_slice_e(model, params) -> None:
               f"{len(got)} requests, {sum(map(len, got.values()))} greedy "
               f"tokens; {what} {st[what]}, prefix tokens "
               f"{st['prefix_tokens']}, pages_hwm {st['pages_hwm']}")
+
+
+# ---------------------------------------------------------------- phase 5c
+
+
+def _recurrent_model(arch: str, **overrides):
+    """Full-width ``arch`` (bf16 unless overridden), weights from
+    ``torch.Generator(seed=0)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    model = build_model(cfg, max_seq=2048)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    return model, params
+
+
+def _serve_recurrent(label: str, model, params, n_rec: int) -> dict:
+    """Slice A's workload through ``Engine`` on a recurrent family: no host
+    sync inside a window, 16/16 DONE, exact launch counts; a traced
+    window.  Returns the launch counts of the serving run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DONE, Engine, mixed_requests,
+                                   run_staggered, staggered_groups)
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8)
+    sbytes = sum(c.numel() * c.element_size() for c in eng.cache.values())
+    print(f"{label}: {cfg.arch} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} {cfg.dtype}: weights {wbytes / 1e9:.2f} GB, slot "
+          f"state {sbytes / 1e9:.3f} GB at 8 slots x 1024")
+    _no_sync_in_window(eng)
+    print(f"{label}: no host sync inside a decode window")
+    reqs = mixed_requests(16, seed=0, vocab=cfg.vocab_size,
+                          prompt_lens=(16, 300), max_new=(16, 64))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outputs = run_staggered(eng, staggered_groups(reqs, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(all(r.state == DONE for r in reqs), f"{label}: a request did "
+          "not end DONE")
+    check(eng.counts["nonfinite_rows"] == 0, f"{label}: non-finite logits")
+    check(all(0 <= tok < cfg.vocab_size for o in outputs.values()
+              for tok in o), f"{label}: token out of the vocabulary")
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    steps = eng.counts["prefill_steps"]
+    print(f"{label}: launches {launches}, decode ticks {ticks}, prefill "
+          f"calls {calls}, prefill-scan steps {steps}")
+    check(launches["fused_sample"] == ticks + calls,
+          f"{label}: fused_sample launches != ticks + prefill calls")
+    check(launches["rglru_scan"] == n_rec * (ticks + steps),
+          f"{label}: rglru_scan launches != {n_rec} x (ticks + steps)")
+    check(launches["ssd_scan"] == 0 and launches["decode_attention"] == 0,
+          f"{label}: a sequence or attention kernel ran while serving")
+    print(f"{label}: 16/16 DONE, {_serve_stats(reqs, wall)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    trace_window(eng, cfg.vocab_size, prompt_lens=(16, 32))
+    return launches
+
+
+def _prefill_4x2048(label: str, model, params, kernel: str,
+                    per_call: int) -> int:
+    """``Model.prefill`` on 4 prompts of 2048 tokens: one launch of
+    ``kernel`` per layer that runs it, finite last-position logits and
+    state; the median wall of 3 calls.  Returns the launches of the
+    counted call."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
+                         device=DEVICE)
+    at = torch.full((4,), 2047, dtype=torch.int32, device=DEVICE)
+    model.prefill(params, {"tokens": toks}, logits_at=at)     # warm
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lg, cache = model.prefill(params, {"tokens": toks}, logits_at=at)
+    torch.cuda.synchronize()
+    n = ops.launches[kernel]
+    check(n == per_call, f"{label}: {kernel} launches {n} != {per_call} "
+          "per Model.prefill")
+    check(lg.shape == (4, 1, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()), f"{label}: prefill logits")
+    check(all(bool(torch.isfinite(c.float()).all()) for c in cache.values()),
+          f"{label}: prefill state not finite")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, logits_at=at)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    del lg, cache
+    print(f"{label}: Model.prefill 4 x 2048 tokens: {n} {kernel} launches "
+          f"per call, {statistics.median(walls) * 1e3:.1f} ms median of "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} = "
+          f"{4 * 2048 / statistics.median(walls):.0f} prompt tok/s")
+    return n
+
+
+def phase_slice_f() -> dict:
+    """mamba2-1.3b at full width and depth: serving (no kernel of this
+    slice in the tick: the decode step is the recurrent update) and the
+    sequence path, where ``ssd_scan`` runs once per layer."""
+    model, params = _recurrent_model("mamba2-1.3b")
+    launches = _serve_recurrent("slice F", model, params, n_rec=0)
+    launches["ssd_scan"] = _prefill_4x2048("slice F", model, params,
+                                           "ssd_scan", model.cfg.num_layers)
+    return launches
+
+
+def phase_slice_g() -> dict:
+    """recurrentgemma-2b at full width and depth: serving (``rglru_scan``
+    once per R layer in every decode tick and prefill-scan step) and the
+    sequence path."""
+    from repro_torch.models.transformer import hybrid_pattern
+    model, params = _recurrent_model("recurrentgemma-2b")
+    n_rec = hybrid_pattern(model.cfg).count("R")
+    launches = _serve_recurrent("slice G", model, params, n_rec=n_rec)
+    _prefill_4x2048("slice G", model, params, "rglru_scan", n_rec)
+    return launches
+
+
+def _eos_exiting_early(outputs):
+    """A token at index >= 1 of some output that is no output's first
+    token: the eos run then ends that request at length > 1 and none at
+    length 1."""
+    firsts = {o[0] for o in outputs.values()}
+    for o in outputs.values():
+        for t in o[1:]:
+            if t not in firsts:
+                return t
+    fail("no early-exit eos token in the slice H workload")
+
+
+def phase_slice_h(arch: str) -> None:
+    """Parity at full width, 4 layers, f32: the kernel Engine at K=1 and
+    K=4 against EngineReference (plain versions), token for token, on a
+    staggered workload with an eos exit; then ``Model.prefill`` over 1024
+    tokens (four 256-token SSD chunks) against the per-token
+    ``decode_step`` loop on the same tokens: last-position logits and
+    the final ``ssm`` / ``rec/h`` state within 2e-3, the JAX
+    decode-vs-forward bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (Engine, EngineReference, mixed_requests,
+                                   run_staggered, staggered_groups)
+    model, params = _recurrent_model(arch, num_layers=4, dtype="float32")
+    cfg = model.cfg
+
+    def reqs():
+        return mixed_requests(8, seed=1, vocab=cfg.vocab_size,
+                              prompt_lens=(16, 128), max_new=(8, 32))
+
+    ref = EngineReference(model, params, slots=8, max_len=512)
+    eos = _eos_exiting_early(run_staggered(ref, staggered_groups(reqs(), 4)))
+    ref = EngineReference(model, params, slots=8, max_len=512, eos_id=eos)
+    want = run_staggered(ref, staggered_groups(reqs(), 4))
+    check(any(o[-1] == eos and len(o) > 1 for o in want.values()),
+          f"slice H {arch}: no eos exit")
+    for K in (1, 4):
+        ops.reset_launches()
+        eng = Engine(model, params, slots=8, max_len=512, eos_id=eos,
+                     ticks_per_sync=K)
+        got = run_staggered(eng, staggered_groups(reqs(), 4))
+        for uid in want:
+            check(got[uid] == want[uid], f"slice H {arch} K={K} request "
+                  f"{uid}: kernel {got[uid]} != reference {want[uid]}")
+        check(ops.launches["fused_sample"] > 0, "slice H: no kernel ran")
+    print(f"slice H: {arch} full width, 4 layers, f32: kernel Engine (K=1, "
+          f"K=4) == EngineReference on 8 requests, "
+          f"{sum(map(len, want.values()))} greedy tokens, eos {eos}; "
+          f"launches at K=4 {dict(ops.launches)}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                         device=DEVICE)
+    lg, pc = model.prefill(params, {"tokens": toks}, logits_at=torch.full(
+        (2,), 1023, dtype=torch.int32, device=DEVICE))
+    cache = model.init_cache(2, 1024)
+    for t in range(1024):
+        dl, cache = model.decode_step(
+            params, cache, {"tokens": toks[:, t:t + 1]},
+            torch.full((2,), t, dtype=torch.int32, device=DEVICE),
+            attn_impl="kernel")
+    state = "ssm" if cfg.family == "ssm" else "rec/h"
+    e_lg = _close(dl[:, 0], lg[:, 0], tol=2e-3, what=f"slice H {arch} logits")
+    e_st = _close(cache[state], pc[state], tol=2e-3,
+                  what=f"slice H {arch} {state}")
+    print(f"slice H: {arch} Model.prefill over 1024 tokens == the per-token "
+          f"decode loop: max|err| logits {e_lg:.3g}, {state} {e_st:.3g} "
+          f"(tol 2e-3)")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1074,31 +1410,54 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done} done",
+              flush=True)
+
     phase_card()
     phase_build()
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     flush = scratch.zero_     # 256 MB write evicts the 50 MB L2
     kernels = [phase_decode_attention(flush), phase_sampling(flush),
-               phase_paged_attention(flush)]
+               phase_paged_attention(flush), phase_ssd_scan(flush),
+               phase_rglru_scan(flush)]
     ns_per_update = phase_cache_sim(flush)
     del scratch
+    stamp("kernel phases")
     launches, model, params, dense = phase_slice_a()
     torch.cuda.empty_cache()
     launches_d = phase_slice_d(model, params, dense)
     del model, params, dense
     torch.cuda.empty_cache()
+    stamp("slices A, D")
     model, params = phase_slice_b()
     torch.cuda.empty_cache()
     phase_slice_e(model, params)
     del model, params
     torch.cuda.empty_cache()
+    stamp("slices B, E")
+    launches_f = phase_slice_f()
+    torch.cuda.empty_cache()
+    stamp("slice F")
+    launches_g = phase_slice_g()
+    torch.cuda.empty_cache()
+    stamp("slice G")
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b"):
+        phase_slice_h(arch)
+        torch.cuda.empty_cache()
+    stamp("slice H")
     launches_c, rows = phase_slice_c(ns_per_update)
     kernels += rows
+    stamp("slice C")
     phase_pipeline()
+    stamp("pipeline")
+    slice_of = {"paged_decode_attention": launches_d,
+                "ssd_scan": launches_f, "rglru_scan": launches_g,
+                "cache_sim": launches_c, "cache_sim_ladder": launches_c}
     for k in kernels:
-        k["launches"] = (launches_c if k["name"].startswith("cache_sim")
-                         else launches_d if k["name"].startswith("paged")
-                         else launches)[k["name"]]
+        k["launches"] = slice_of.get(k["name"], launches)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{n: k[n] for n in keys} for k in kernels]}))

@@ -10,7 +10,7 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,11 +18,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import cache_sim as _cs
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import sampling as _sm
+from repro_torch.kernels import ssd_scan as _ssd
 
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
-                            "cache_sim": 0, "cache_sim_ladder": 0}
+                            "cache_sim": 0, "cache_sim_ladder": 0,
+                            "ssd_scan": 0, "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -171,4 +174,34 @@ def cache_sim_ladder(traces, *, num_sets: Sequence[int], ways: int,
                          _cs.LADDER_ARGTYPES)
     out = _cs.launch_ladder_cuda(fn, traces, num_sets, ways, sets_tile)
     launches["cache_sim_ladder"] += 1
+    return out
+
+
+def ssd_scan(x, dt, dtA, Bm, Cm, *, chunk: int,
+             s0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunked scan in the model's layout: x (b,S,H,P); dt,
+    dtA (b,S,H); Bm, Cm (b,S,N), one float dtype; ``chunk`` divides S; s0
+    (b,H,P,N) f32 or None (zero start).  Returns (y like x, final state
+    (b,H,P,N) f32)."""
+    if not _on_cuda(*(t for t in (x, dt, dtA, Bm, Cm, s0) if t is not None)):
+        return _ssd.ssd_scan_plain(x, dt, dtA, Bm, Cm, chunk=chunk, s0=s0)
+    _ssd.check_args(x, dt, dtA, Bm, Cm, chunk, s0)
+    fn = _build.function("ssd_scan", "ssd_scan", _ssd.ARGTYPES)
+    out = _ssd.launch_cuda(fn, x, dt, dtA, Bm, Cm, chunk, s0)
+    launches["ssd_scan"] += 1
+    return out
+
+
+def rglru_scan(a, b, h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B,S,R) f32;
+    h0 (B,R) f32 or None (zero start).  Returns (y (B,S,R) f32, h_final
+    (B,R) f32)."""
+    if not _on_cuda(*(t for t in (a, b, h0) if t is not None)):
+        return _rg.rglru_scan_plain(a, b, h0)
+    _rg.check_args(a, b, h0)
+    fn = _build.function("rglru_scan", "rglru_scan", _rg.ARGTYPES)
+    out = _rg.launch_cuda(fn, a, b, h0)
+    launches["rglru_scan"] += 1
     return out

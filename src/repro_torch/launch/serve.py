@@ -6,6 +6,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \
         --shared-prefix --no-reduced --slots 8 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --no-reduced --slots 8 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --no-reduced --slots 8 --max-len 1024
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are
 random, drawn from a ``torch.Generator`` seeded by ``--seed``.  Serves
@@ -15,6 +19,9 @@ request ended DONE.  ``--paged`` serves through ``PagedEngine`` (a shared
 page pool with radix-tree prefix sharing) and prints its page and prefix
 counters; ``--shared-prefix`` (paged only) serves the shared-prefix
 template workload and fails if no prompt token was served from the tree.
+The ssm (mamba2) and hybrid (recurrentgemma) families serve through
+``Engine`` only: ``--paged`` raises ``UnsupportedFamilyError`` for them
+before any weight is made.
 """
 import argparse
 import collections
@@ -24,7 +31,9 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.models import build_model
-from repro_torch.serve import (DONE, Engine, PagedEngine, latency_summary,
+from repro_torch.models.api import serve_families
+from repro_torch.serve import (DONE, Engine, PagedEngine,
+                               UnsupportedFamilyError, latency_summary,
                                mixed_requests, run_staggered,
                                shared_prefix_requests, staggered_groups)
 
@@ -83,6 +92,11 @@ def main(argv=None):
     if args.reduced:
         cfg = reduce_cfg(cfg)
     model = build_model(cfg, max_seq=args.max_len, device=args.device)
+    if args.paged and "paged" not in model.serve_modes:
+        raise UnsupportedFamilyError(cfg.family, serve_families("paged"),
+                                     "PagedEngine",
+                                     detail="pages hold positioned KV rows "
+                                            "of a decoder")
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params = model.init(gen)

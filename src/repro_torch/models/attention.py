@@ -1,8 +1,9 @@
-"""GQA attention for the dense decoder (torch counterpart of the dense
-parts of ``repro/models/attention.py``): projections, RoPE, the O(S^2)
-prefill attention, the per-row-position decode tick, its paged branch
-(KV in a shared physical page pool addressed through page tables), the
-paged suffix prefill and the KV cache definitions.
+"""GQA attention (torch counterpart of the decoder parts of
+``repro/models/attention.py``): projections, RoPE, the O(S^2) prefill
+attention, the per-row-position decode tick, its paged branch (KV in a
+shared physical page pool addressed through page tables), the paged
+suffix prefill, the hybrid family's ring-buffer decode attention and the
+KV cache definitions.
 
 The decode tick has two implementations selected by ``impl``:
 ``"plain"`` scatters the new K/V row into the cache and runs the plain
@@ -80,6 +81,36 @@ def decode_attention(q, k, v, *, pos, window=0, logit_cap=0.0):
     or not-yet-written positions cannot leak into a live sequence."""
     return decode_attention_plain(q[:, 0], k, v, pos, window,
                                   logit_cap=logit_cap)[:, None]
+
+
+def ring_decode_attention(q, k, v, *, q_pos, k_positions, window=0,
+                          logit_cap=0.0) -> torch.Tensor:
+    """Single-new-token attention over PER-ROW ring-buffer caches (the
+    hybrid family's serve decode tick; plain torch, as the JAX package's
+    is plain jnp).
+
+    q (B, 1, H, hd); k/v (B, W, K, hd) ring buffers; q_pos (B,) per-row
+    query positions; k_positions (B, W) per-row slot positions (-1 =
+    empty).  Row b attends slots with ``0 <= k_positions[b, t] <=
+    q_pos[b]`` inside its local window, so a freshly reset ring
+    contributes nothing and rows stay independent."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qr = q.reshape(B, K, G, hd).float() * hd ** -0.5
+    logits = softcap(torch.einsum("bkgh,btkh->bkgt", qr, k.float()),
+                     logit_cap)
+    kp = k_positions.to(torch.int32)
+    qp = q_pos.to(torch.int32)[:, None]
+    ok = (kp <= qp) & (kp >= 0)
+    if window > 0:
+        ok &= kp > qp - window
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    logits = logits + torch.where(ok, zero, torch.full_like(zero, NEG_INF)
+                                  )[:, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def paged_suffix_attention(q, k, v, *, q_pos, window=0,

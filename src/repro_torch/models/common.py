@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -134,6 +135,12 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` forms it
+    (``logaddexp(x, 0)``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def activation(name: str):

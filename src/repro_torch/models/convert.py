@@ -1,9 +1,10 @@
 """Weights bridge: the JAX package's parameter dict, as numpy arrays, into
 the port's parameters.
 
-Layouts are kept as they are (``wq (D,H,hd)``, ``wo (H,hd,D)``, layers
-stacked on axis 0), so a test can feed the same weights to both packages
-and compare like with like.
+Names and layouts are kept as they are (``wq (D,H,hd)``, ``wo (H,hd,D)``;
+dense and ssm layers stacked on axis 0 under ``blocks/``, the hybrid
+stack unrolled under ``layer_{i}/``), so a test can feed the same weights
+to both packages and compare like with like.
 """
 from __future__ import annotations
 

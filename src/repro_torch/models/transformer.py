@@ -1,15 +1,20 @@
-"""Dense decoder assembly (torch counterpart of the dense-family parts of
-``repro/models/transformer.py``).
+"""Decoder assembly (torch counterpart of the dense, ssm and hybrid parts
+of ``repro/models/transformer.py``).
 
 Modes:
-  prefill — full-sequence forward, returns the per-layer KV cache
+  prefill — full-sequence forward, returns the per-layer KV cache (dense)
+            or the recurrent state and ring caches (ssm, hybrid)
   decode  — one token per row against an existing cache, at per-row
-            positions (the serve tick); the cache is updated in place.
-            With a page table the cache is the paged pool, and S > 1
-            tokens per row is the paged suffix prefill.
+            positions (the serve tick).  The dense KV cache is updated in
+            place; the ssm and hybrid caches come back as new tensors and
+            the cache passed in keeps its bits, so a serve engine can
+            merge rows under a mask.  With a page table the dense cache is
+            the paged pool, and S > 1 tokens per row is the paged suffix
+            prefill.
 
 The JAX package scans the stacked layers with ``jax.lax.scan``; here a
-Python loop walks views of the same stacked tensors.
+Python loop walks views of the same stacked tensors (dense, ssm) or the
+unrolled ``layer_{i}`` tensors (hybrid).
 """
 from __future__ import annotations
 
@@ -20,9 +25,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (ParamDef, ParamDefs, Params, rms_norm,
-                                       rope_tables, softcap, stacked, subtree,
-                                       torch_dtype)
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (ParamDef, ParamDefs, Params,
+                                       apply_rope, rms_norm, rope_tables,
+                                       softcap, stacked, subtree, torch_dtype)
 
 
 def _prefix(pre: str, defs: ParamDefs) -> ParamDefs:
@@ -32,15 +39,38 @@ def _prefix(pre: str, defs: ParamDefs) -> ParamDefs:
 def _decoder_layer_defs(cfg: ModelConfig) -> ParamDefs:
     D = cfg.d_model
     defs: ParamDefs = {"ln1/g": ParamDef((D,), (None,), init="zeros")}
+    if cfg.family == "ssm":
+        defs.update(_prefix("ssm", ssm_mod.ssm_param_defs(cfg)))
+        return defs
     defs.update(_prefix("attn", attn_mod.attn_param_defs(cfg)))
     defs["ln2/g"] = ParamDef((D,), (None,), init="zeros")
     defs.update(_prefix("mlp", mlp_mod.mlp_param_defs(cfg)))
     return defs
 
 
+def _hybrid_layer_defs(cfg: ModelConfig, kind: str) -> ParamDefs:
+    D = cfg.d_model
+    defs: ParamDefs = {"ln1/g": ParamDef((D,), (None,), init="zeros"),
+                       "ln2/g": ParamDef((D,), (None,), init="zeros")}
+    if kind == "R":
+        defs.update(_prefix("rec", rglru_mod.rglru_param_defs(cfg)))
+    else:
+        defs.update(_prefix("attn", attn_mod.attn_param_defs(cfg)))
+    defs.update(_prefix("mlp", mlp_mod.mlp_param_defs(cfg)))
+    return defs
+
+
+def hybrid_pattern(cfg: ModelConfig) -> List[str]:
+    """Per-layer block kind of the hybrid stack: "R" (RG-LRU) or "A"
+    (local attention), the pattern string tiled over the layers."""
+    pat = cfg.block_pattern or "A"
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
 def model_param_defs(cfg: ModelConfig) -> ParamDefs:
-    """Parameter defs of the dense decoder, named as ``model.init`` names
-    them in the JAX package (stacked layers under ``blocks/``)."""
+    """Parameter defs of the decoder, named as ``model.init`` names them in
+    the JAX package: stacked layers under ``blocks/`` (dense, ssm), unrolled
+    ``layer_{i}/`` (hybrid)."""
     D, V = cfg.d_model, cfg.vocab_size
     defs: ParamDefs = {
         "emb/tok": ParamDef((V, D), ("vocab", "embed"), scale=0.02),
@@ -49,6 +79,10 @@ def model_param_defs(cfg: ModelConfig) -> ParamDefs:
     if not cfg.tie_embeddings:
         defs["emb/out"] = ParamDef((D, V), ("embed", "vocab"),
                                    scale=D ** -0.5)
+    if cfg.family == "hybrid":
+        for i, kind in enumerate(hybrid_pattern(cfg)):
+            defs.update(_prefix(f"layer_{i}", _hybrid_layer_defs(cfg, kind)))
+        return defs
     defs.update(stacked(_decoder_layer_defs(cfg), cfg.num_layers, "blocks"))
     return defs
 
@@ -62,26 +96,62 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def cache_param_defs(cfg: ModelConfig, batch: int, max_len: int) -> ParamDefs:
+    if cfg.family == "ssm":
+        return ssm_mod.ssm_state_defs(cfg, batch, cfg.num_layers)
+    if cfg.family == "hybrid":
+        pat = hybrid_pattern(cfg)
+        n_rec = sum(1 for k in pat if k == "R")
+        n_attn = len(pat) - n_rec
+        W = min(cfg.local_window or max_len, max_len)
+        defs = {f"rec/{k}": v for k, v in
+                rglru_mod.rglru_state_defs(cfg, batch, n_rec).items()}
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        axes = ("stack", "batch", "kv_seq", "kv_heads", "head_dim")
+        defs["attn/k"] = ParamDef((n_attn, batch, W, K, hd), axes,
+                                  init="zeros")
+        defs["attn/v"] = ParamDef((n_attn, batch, W, K, hd), axes,
+                                  init="zeros")
+        defs["attn/pos"] = ParamDef((n_attn, batch, W),
+                                    ("stack", "batch", "kv_seq"),
+                                    init="const", const=-1, dtype="int32")
+        return defs
     return attn_mod.cache_defs(cfg, batch, max_len, cfg.num_layers)
 
 
 def paged_cache_param_defs(cfg: ModelConfig, num_pages: int,
                            page_size: int) -> ParamDefs:
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"paged KV serving not supported for family '{cfg.family}' "
+            "(recurrent state / ring buffers are not paged)")
     return attn_mod.paged_cache_defs(cfg, num_pages, page_size,
                                      cfg.num_layers)
 
 
 def _layers(cfg: ModelConfig, params: Params) -> List[Params]:
-    """Per-layer views of the stacked ``blocks/`` tensors."""
-    blocks = subtree(params, "blocks")
-    return [{n: w[i] for n, w in blocks.items()}
+    """Per-layer views of the stacked ``blocks/`` tensors (dense, ssm) or
+    the ``layer_{i}/`` tensors (hybrid), grouped in one pass over the
+    names."""
+    if cfg.family == "hybrid":
+        layers: List[Params] = [{} for _ in range(cfg.num_layers)]
+        for name, w in params.items():
+            if name.startswith("layer_"):
+                i, rest = name[len("layer_"):].split("/", 1)
+                layers[int(i)][rest] = w
+        return layers
+    views = {n: w.unbind(0) for n, w in subtree(params, "blocks").items()}
+    return [{n: v[i] for n, v in views.items()}
             for i in range(cfg.num_layers)]
 
 
 def _decoder_layer(cfg: ModelConfig, p: Params, x, *, rope_cs, window,
                    cache=None, cache_pos=None, return_kv=False, impl="plain",
                    page_table=None, kv_write_mask=None):
-    """Dense layer body. Returns (x, new_cache)."""
+    """Dense or ssm layer body. Returns (x, new_cache)."""
+    if cfg.family == "ssm":
+        h, new_state = ssm_mod.ssm_block(
+            cfg, subtree(p, "ssm"), rms_norm(x, p["ln1/g"]), state=cache)
+        return x + h, new_state
     h, new_cache = attn_mod.attention_block(
         cfg, subtree(p, "attn"), rms_norm(x, p["ln1/g"]),
         rope_cs=rope_cs, window=window, cache=cache,
@@ -132,9 +202,14 @@ def decoder_forward(
     is row b's first write position: S == 1 is the paged decode tick,
     S > 1 the paged suffix prefill (positions ``cache_pos[b] + s``, writes
     masked by ``kv_write_mask``), which takes ``logits_at`` as prefill
-    does."""
+    does.  ``attn_impl`` ("plain" | "kernel") selects the decode tick's
+    attention.  The ssm family's cache is its recurrent state (see
+    ``_ssm_forward``); it has no kernel in its decode tick."""
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens)
+    if cfg.family == "ssm":
+        return _ssm_forward(cfg, params, x, mode=mode, cache=cache,
+                            cache_pos=cache_pos, logits_at=logits_at)
     windows = layer_windows(cfg)
     layers = _layers(cfg, params)
 
@@ -178,3 +253,160 @@ def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):
         return x
     return x[torch.arange(x.shape[0], device=x.device),
              logits_at.long()][:, None]
+
+
+def _check_decode(mode: str, cache, cache_pos, S: int) -> None:
+    """The recurrent families decode one token per row at (B,) positions."""
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+    if cache is None or cache_pos is None or cache_pos.ndim != 1:
+        raise ValueError("decode needs a cache and (B,) cache positions")
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got S = {S}")
+
+
+def _ssm_forward(cfg: ModelConfig, params: Params, x, *, mode, cache,
+                 cache_pos, logits_at):
+    """The mamba2 stack.  Prefill runs the causal conv and the chunked SSD
+    scan (``ops.ssd_scan``) of every layer and returns the
+    state ``{"conv": (layers,B,W-1,d_xbc), "ssm": (layers,B,H,P,N) f32}``;
+    decode runs every layer's O(1) recurrent update and returns the
+    advanced state as new tensors (``cache_pos`` is not read: the state
+    is positionless)."""
+    layers = _layers(cfg, params)
+    if mode == "prefill":
+        convs, ssms = [], []
+        for lp in layers:
+            x, st = _decoder_layer(cfg, lp, x, rope_cs=None, window=0)
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        return (_unembed(cfg, params, _pick(x, logits_at)),
+                {"conv": torch.stack(convs), "ssm": torch.stack(ssms)})
+    _check_decode(mode, cache, cache_pos, x.shape[1])
+    new = {n: torch.empty_like(c) for n, c in cache.items()}
+    for i, lp in enumerate(layers):
+        x, st = _decoder_layer(
+            cfg, lp, x, rope_cs=None, window=0,
+            cache={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+        new["conv"][i] = st["conv"]
+        new["ssm"][i] = st["ssm"]
+    return _unembed(cfg, params, _pick(x, logits_at)), new
+
+
+def _ring_decode_layer(cfg: ModelConfig, p: Params, z, k_l, v_l, pos_l,
+                       cache_pos, rope_cs):
+    """Local attention of one decode tick against a ring-buffer cache of
+    size Wr: row b writes its k/v into its own slot ``cache_pos[b] % Wr``
+    of COPIES of the ring (the cache passed in keeps its bits) and attends
+    through ``ring_decode_attention``'s per-row position mask.  Returns
+    (y, (k, v, pos) rings)."""
+    B, S, D = z.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (z @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
+    k = (z @ p["wk"].reshape(D, K * hd)).reshape(B, S, K, hd)
+    v = (z @ p["wv"].reshape(D, K * hd)).reshape(B, S, K, hd)
+    if rope_cs is not None:
+        q = apply_rope(q, *rope_cs)
+        k = apply_rope(k, *rope_cs)
+    rows = torch.arange(B, device=z.device)
+    slot = cache_pos.long() % k_l.shape[1]
+    k_l, v_l, pos_l = k_l.clone(), v_l.clone(), pos_l.clone()
+    k_l[rows, slot] = k[:, 0].to(k_l.dtype)
+    v_l[rows, slot] = v[:, 0].to(v_l.dtype)
+    pos_l[rows, slot] = cache_pos.to(pos_l.dtype)
+    out = attn_mod.ring_decode_attention(
+        q, k_l, v_l, q_pos=cache_pos, k_positions=pos_l,
+        window=cfg.local_window, logit_cap=cfg.attn_softcap)
+    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+    return y, (k_l, v_l, pos_l)
+
+
+def _ring_fold(k, v, W: int):
+    """The last W prefill keys in the ring layout: slot = pos % W; empty
+    slots (pos -1) take the unused tail slots so they never clobber a real
+    key.  k/v (B,S,K,hd) -> rings (B,W,K,hd) and positions (B,W) int32."""
+    B, S = k.shape[:2]
+    n = min(W, S)
+    dev = k.device
+    ks, vs = k[:, S - n:], v[:, S - n:]
+    kpos = torch.arange(S - n, S, device=dev)
+    if W > n:
+        pad = torch.zeros((B, W - n) + tuple(k.shape[2:]), dtype=k.dtype,
+                          device=dev)
+        ks, vs = torch.cat([ks, pad], 1), torch.cat([vs, pad], 1)
+        kpos = torch.cat([kpos, torch.full((W - n,), -1, device=dev)])
+    slots = torch.where(kpos >= 0, kpos % W, torch.arange(W, device=dev))
+    k_r, v_r = torch.zeros_like(ks), torch.zeros_like(vs)
+    k_r[:, slots] = ks
+    v_r[:, slots] = vs
+    p_r = torch.full((B, W), -1, dtype=torch.int32, device=dev)
+    p_r[:, slots] = kpos.to(torch.int32)
+    return k_r, v_r, p_r
+
+
+def hybrid_forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,                 # (B, S) int
+    *,
+    mode: str = "prefill",                # prefill | decode
+    cache: Optional[Params] = None,
+    cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
+    attn_impl: str = "plain",
+    logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
+) -> Tuple[torch.Tensor, Params]:
+    """The recurrentgemma stack (unrolled ``layer_{i}``, pattern of "R"
+    RG-LRU and "A" local-attention blocks).  Returns (logits, cache).
+
+    Prefill: every R layer's recurrence runs through ``attn_impl``'s scan
+    (``"kernel"``: ``ops.rglru_scan``), every A layer's windowed prefill
+    attention through ``attention_block``; the cache holds each R layer's
+    final ``rec/h`` and ``rec/conv`` and each A layer's last W =
+    ``local_window`` keys folded into the ring layout.  Decode (per-row
+    ``cache_pos`` (B,)): each R layer's recurrent step (the scan at S = 1)
+    and each A layer's ring write and ``ring_decode_attention``; the
+    advanced cache comes back as new tensors."""
+    S = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    decode = mode == "decode"
+    if decode:
+        _check_decode(mode, cache, cache_pos, S)
+        positions = cache_pos.to(torch.int32)[:, None]
+    elif mode == "prefill":
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    else:
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+    rope_cs = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+               if cfg.rope_theta else None)
+    W = cfg.local_window
+    new = {n: [] for n in ("rec/h", "rec/conv", "attn/k", "attn/v",
+                           "attn/pos")}
+    for lp, kind in zip(_layers(cfg, params), hybrid_pattern(cfg)):
+        z = rms_norm(x, lp["ln1/g"])
+        if kind == "R":
+            r_i = len(new["rec/h"])
+            st = ({"h": cache["rec/h"][r_i], "conv": cache["rec/conv"][r_i]}
+                  if decode else None)
+            h, st = rglru_mod.rglru_block(cfg, subtree(lp, "rec"), z,
+                                          state=st, impl=attn_impl)
+            new["rec/h"].append(st["h"])
+            new["rec/conv"].append(st["conv"])
+        else:
+            if decode:
+                a_i = len(new["attn/k"])
+                h, rings = _ring_decode_layer(
+                    cfg, subtree(lp, "attn"), z, cache["attn/k"][a_i],
+                    cache["attn/v"][a_i], cache["attn/pos"][a_i], cache_pos,
+                    rope_cs)
+            else:
+                h, kv = attn_mod.attention_block(
+                    cfg, subtree(lp, "attn"), z, rope_cs=rope_cs, window=W,
+                    return_kv=True)
+                rings = _ring_fold(kv["k"], kv["v"], W)
+            for n, t in zip(("attn/k", "attn/v", "attn/pos"), rings):
+                new[n].append(t)
+        x = x + h
+        x = x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
+                                  rms_norm(x, lp["ln2/g"]))
+    return (_unembed(cfg, params, _pick(x, logits_at)),
+            {n: torch.stack(ts) for n, ts in new.items() if ts})

@@ -1,6 +1,6 @@
 """Device-resident continuous-batching serve engine (torch counterpart of
-the dense-family ``Engine`` / ``EngineReference`` of
-``repro/serve/engine.py``).
+``Engine`` / ``EngineReference`` of ``repro/serve/engine.py`` for the
+dense, ssm and hybrid families).
 
 Per-slot decode state — last token, write position, active flag,
 remaining budget, temperature — lives in (slots,) device tensors.  The
@@ -11,7 +11,8 @@ state machine:
          power of two, capped at max_len); the prompt KV is scattered into
          the assigned cache rows and every other row keeps its bits.  Each
          admitted row's first token is sampled from its last prompt
-         position's logits.
+         position's logits.  The recurrent families (ssm, hybrid) prefill
+         with a masked per-token decode scan instead (``_prefill_scan``).
   decode (device, K ticks): a Python loop of ``ticks_per_sync`` ticks with
          no host sync inside; each tick decodes every slot at its own
          position (inactive slots too, at ``clip(pos, 0, max_len-1)``),
@@ -31,6 +32,13 @@ with radix-tree prefix sharing and copy-on-write boundary pages.
 
 ``EngineReference`` is the per-tick oracle: per-token prefill through
 ``decode_step``, one host round-trip per tick, sampling in Python.
+
+State banks (``Model.state_banks``): KV banks need no reset, since reads
+are position-guarded.  The GUARDED banks (``"recurrent"``, ``"ring"``)
+carry state no position masks: every decode tick merges them under the
+pre-update active mask (frozen rows keep their bits), every site that
+frees a slot resets its rows, and an admitted row starts from the reset
+values.
 """
 from __future__ import annotations
 
@@ -54,6 +62,36 @@ from repro_torch.serve.resilience import (DONE, FAILED, PENDING, QUEUED,
                                           ShedPolicy, check_request)
 
 IMPLS = ("plain", "kernel")
+GUARDED_KINDS = ("recurrent", "ring")
+
+
+def _where_rows(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """Row-masked merge: ``new`` where ``mask`` (a (B,) bool over the bank's
+    slot axis ``axis``) else ``old``, other axes broadcast."""
+    m = mask.reshape(tuple(-1 if d == axis else 1 for d in range(old.ndim)))
+    return torch.where(m, new, old)
+
+
+def _reset_rows(cache, slot: int, banks, resets) -> None:
+    """Re-initialize, IN PLACE, slot ``slot``'s rows of the guarded
+    (recurrent/ring) banks to their init fill ``resets[name]`` (-1 for the
+    ring position bank, 0 elsewhere); kv banks and every other row keep
+    their bits."""
+    for n, b in banks.items():
+        if b.kind in GUARDED_KINDS:
+            cache[n].narrow(b.batch_axis, slot, 1).fill_(resets[n])
+
+
+def _bank_meta(model: Model, slots: int, max_len: int):
+    """(banks, reset fill per bank, names of the guarded banks)."""
+    banks = model.state_banks()
+    defs = model.cache_defs(slots, max_len)
+    resets = {n: (d.const if d.init == "const" else 0)
+              for n, d in defs.items()}
+    guarded = frozenset(n for n, b in banks.items()
+                        if b.kind in GUARDED_KINDS)
+    return banks, resets, guarded
 
 
 @dataclasses.dataclass
@@ -187,7 +225,8 @@ class Engine:
         self.ticks_per_sync = int(ticks_per_sync)
         self.attn_impl = attn_impl
         self.sample_impl = sample_impl
-        self._banks = model.state_banks()
+        self._banks, self._bank_reset, self._guarded = _bank_meta(
+            model, slots, max_len)
         self.reset()
 
     # ---- state ----------------------------------------------------------
@@ -213,7 +252,7 @@ class Engine:
         }
         self.ticks = 0
         self.counts = {"decode_ticks": 0, "prefill_calls": 0,
-                       "nonfinite_rows": 0}
+                       "prefill_steps": 0, "nonfinite_rows": 0}
 
     # ---- device programs ------------------------------------------------
     def _sample(self, lg: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
@@ -235,9 +274,13 @@ class Engine:
         it (PagedEngine uploads a changed page table here)."""
 
     def _release_slot(self, s: int) -> None:
-        """Free slot ``s``: every site that frees a slot comes here
-        (PagedEngine also returns the slot's page references)."""
+        """Free slot ``s``: every site that frees a slot comes here.  The
+        guarded banks' rows of the slot go back to their reset values
+        (positionless state would otherwise leak into the next occupant);
+        PagedEngine also returns the slot's page references."""
         self.slot_req[s] = None
+        if self._guarded:
+            _reset_rows(self.cache, s, self._banks, self._bank_reset)
 
     def _window(self):
         """K decode ticks, no host sync.  Returns (3, K, slots) int32:
@@ -249,9 +292,18 @@ class Engine:
         toks, fins, oks = [], [], []
         for _ in range(self.ticks_per_sync):
             safe_pos = pos.clamp(0, self.max_len - 1)
-            logits, self.cache = self.model.decode_step(
+            logits, new = self.model.decode_step(
                 self.params, self.cache, {"tokens": last[:, None]},
                 safe_pos, attn_impl=self.attn_impl, **self._decode_kwargs())
+            if self._guarded:
+                # guarded banks advance on every row: freeze the inactive
+                # ones under the PRE-update mask, so a row finishing this
+                # tick keeps this tick's state (kv banks need no merge)
+                new = {n: (_where_rows(active, t, self.cache[n],
+                                       self._banks[n].batch_axis)
+                           if n in self._guarded else t)
+                       for n, t in new.items()}
+            self.cache = new
             lg = logits[:, -1]
             oks.append(torch.isfinite(lg).all(dim=-1))
             tok = self._sample(lg, temps)
@@ -295,12 +347,15 @@ class Engine:
         return _soft_submit(self, req)
 
     def _admit(self) -> int:
-        """Admit queued requests into free slots with one batched prefill."""
+        """Admit queued requests into free slots with one batched prefill
+        (the masked per-token scan for the guarded families)."""
         free = [i for i in range(self.slots) if self.slot_req[i] is None]
         take = min(len(free), len(self._queue))
         if take == 0:
             return 0
         pairs = [(free[i], self._queue.popleft()) for i in range(take)]
+        if self._guarded:
+            return self._prefill_scan(pairs)
         P = min(self.max_len,
                 _next_pow2(max(len(r.prompt) for _, r in pairs)))
         tokens = np.zeros((take, P), np.int32)
@@ -321,6 +376,47 @@ class Engine:
         self._land(pairs, self._start_rows(pairs, rows, logits[:, 0],
                                            lens_t))
         return take
+
+    def _prefill_scan(self, pairs) -> int:
+        """Masked per-token prefill of the admitted slots, for the families
+        whose guarded banks cannot take a scattered full-sequence cache.
+        The admitted rows start from the banks' reset values; each prompt
+        position runs one decode step on those rows alone, and its result
+        merges only into rows still inside their prompt (``t < len``), so
+        each admitted row ends in the state the reference engine's
+        per-token loop leaves.  The rows go back into their slots at the
+        end; no other slot's rows are read or written.  Runs ``max(len)``
+        steps (the JAX engine runs to the power-of-two pad, whose extra
+        steps merge nothing)."""
+        dev = self.device
+        n = len(pairs)
+        lens = [len(r.prompt) for _, r in pairs]
+        L = max(lens)
+        tokens = np.zeros((n, L), np.int32)
+        for i, (_, r) in enumerate(pairs):
+            tokens[i, :lens[i]] = r.prompt
+        tok = torch.from_numpy(tokens).to(dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        rows = torch.tensor([s for s, _ in pairs], device=dev)
+        sub = self.model.init_cache(n, self.max_len)
+        last_lg = torch.zeros((n, self.model.cfg.vocab_size),
+                              dtype=torch.float32, device=dev)
+        for t in range(L):
+            pos = torch.full((n,), t, dtype=torch.int32, device=dev)
+            logits, new = self.model.decode_step(
+                self.params, sub, {"tokens": tok[:, t:t + 1]}, pos,
+                attn_impl=self.attn_impl)
+            live = t < lens_t
+            sub = {k: _where_rows(live, new[k], sub[k],
+                                  self._banks[k].batch_axis) for k in sub}
+            last_lg = torch.where((lens_t - 1 == t)[:, None],
+                                  logits[:, -1].float(), last_lg)
+        self.counts["prefill_steps"] += L
+        for k, t in sub.items():
+            self.cache[k].index_copy_(self._banks[k].batch_axis, rows, t)
+        del sub
+        self._land(pairs, self._start_rows(pairs, rows, last_lg, lens_t))
+        return n
 
     def _start_rows(self, pairs, rows: torch.Tensor, last_lg: torch.Tensor,
                     lens_t: torch.Tensor) -> torch.Tensor:
@@ -674,6 +770,8 @@ class EngineReference:
         self.max_len = max_len
         self.eos_id = eos_id
         self.seed = seed
+        self._banks, self._bank_reset, self._guarded = _bank_meta(
+            model, slots, max_len)
         self.reset()
 
     def reset(self) -> None:
@@ -708,21 +806,30 @@ class EngineReference:
         return int(torch.argmax(logits_row))
 
     def _decode(self, cache, tokens: np.ndarray, pos: np.ndarray):
+        """One plain decode step: (last-position logits, new cache)."""
         dev = self.device
-        logits, _ = self.model.decode_step(
+        logits, new = self.model.decode_step(
             self.params, cache,
             {"tokens": torch.from_numpy(tokens[:, None]).to(dev)},
             torch.from_numpy(pos).to(dev), attn_impl="plain")
-        return logits[:, -1]
+        return logits[:, -1], new
 
     def _prefill(self, slot: int, req: Request) -> None:
-        """Per-token prefill of one slot, on that slot's cache row alone."""
+        """Per-token prefill of one slot, on that slot's cache row alone;
+        the guarded banks' row is reset first (it still holds the previous
+        occupant's state)."""
         self.slot_req[slot] = req
-        row = {n: c[:, slot:slot + 1] for n, c in self.cache.items()}
+        if self._guarded:
+            _reset_rows(self.cache, slot, self._banks, self._bank_reset)
+        row = {n: c.narrow(self._banks[n].batch_axis, slot, 1)
+               for n, c in self.cache.items()}
         lg = None
         for t, tok in enumerate(req.prompt):
-            lg = self._decode(row, np.array([tok], np.int32),
-                              np.array([t], np.int32))
+            lg, new = self._decode(row, np.array([tok], np.int32),
+                                   np.array([t], np.int32))
+            for n, c in new.items():
+                if c is not row[n]:       # the recurrent banks' new state
+                    row[n].copy_(c)
         t0 = self._sample(lg[0], req.temperature)
         req._mark_admitted(self.ticks, time.perf_counter())
         req.output.append(t0)
@@ -744,8 +851,9 @@ class EngineReference:
         active = np.nonzero(self._active)[0]
         if len(active) == 0:
             return 0
-        lg = self._decode(self.cache, self._last,
-                          np.clip(self._pos, 0, self.max_len - 1)).cpu()
+        lg, self.cache = self._decode(self.cache, self._last,
+                                      np.clip(self._pos, 0, self.max_len - 1))
+        lg = lg.cpu()
         for s in active:
             r = self.slot_req[s]
             tok = self._sample(lg[s].to(self.device), self._temps[s])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, and the paged
-engine on its kernel against ``EngineReference``, on the card.
+engine and the recurrent families' engine on their kernels against
+``EngineReference``, on the card.
 
 Marked ``cuda``; each test skips with a reason where no CUDA device is
 present (the fixture decides, at run time).  On the card:
@@ -210,3 +211,120 @@ def test_paged_engine_kernel_matches_reference(dev):
     st = eng.paged_stats()
     assert st["cow_copies"] > 0 and st["prefix_tokens"] > 0
     eng.pool.check(eng.tree.held_refs())
+
+
+def _ssd_inputs(dev, dtype, b, S, H, P, N, seed, s0=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    dt = torch.nn.functional.softplus(r(b, S, H) - 1.0)
+    A = -torch.exp(r(H)) * 0.3
+    x, Bm, Cm = r(b, S, H, P), r(b, S, N, scale=0.3), r(b, S, N, scale=0.3)
+    state = r(b, H, P, N) if s0 else None
+    dt = dt.to(dtype)
+    return (x.to(dtype), dt, (dt * A.to(dtype)).contiguous(), Bm.to(dtype),
+            Cm.to(dtype), state)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,H,P,N,chunk,s0", [
+    (2, 512, 4, 64, 128, 256, True),    # mamba2's P, N and chunk
+    (1, 64, 2, 16, 8, 16, False),       # tests/test_kernels.py shapes
+    (2, 128, 4, 32, 16, 32, True),
+    (1, 200, 3, 24, 40, 100, True),     # ragged tiles: Q, P, N off 64
+    (2, 11, 2, 32, 16, 11, False),      # a short prefill: one 11-row chunk
+])
+def test_ssd_scan_kernel_matches_plain(dev, dtype, b, S, H, P, N, chunk,
+                                       s0):
+    """The CUDA SSD kernel against its plain version within the JAX kernel
+    test's bounds (f32 5e-4, bf16 5e-2), the final state included."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_inputs(dev, dtype, b, S, H, P, N, 5, s0)
+    want_y, want_s = ssd.ssd_scan_plain(*args[:5], chunk=chunk, s0=args[5])
+    before = ops.launches["ssd_scan"]
+    got_y, got_s = ops.ssd_scan(*args[:5], chunk=chunk, s0=args[5])
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == before + 1
+    assert got_y.dtype == dtype and got_s.dtype == torch.float32
+    tol = 5e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got_y.float(), want_y.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(got_s, want_s, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(dev):
+    x, dt, dtA, Bm, Cm, _ = _ssd_inputs(dev, torch.float32, 1, 64, 2, 96,
+                                        16, 0)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ops.ssd_scan(x, dt, dtA, Bm, Cm, chunk=32)
+    x, dt, dtA, Bm, Cm, _ = _ssd_inputs(dev, torch.float32, 1, 64, 2, 16,
+                                        16, 0)
+    with pytest.raises(ValueError, match="must divide"):
+        ops.ssd_scan(x, dt, dtA, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                     dtA, Bm, Cm, chunk=32)
+
+
+@pytest.mark.parametrize("B,S,R,h0", [
+    (8, 1, 2560, True),      # a recurrentgemma-2b decode tick
+    (4, 2048, 2560, True),   # its prefill shape
+    (3, 37, 100, False),     # ragged: S off the unroll, R off the block
+])
+def test_rglru_scan_kernel_equals_plain_bitwise(dev, B, S, R, h0):
+    """The kernel rounds the product and the sum separately, as the plain
+    version does: outputs and final state equal bit for bit."""
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=dev).manual_seed(6)
+    a = torch.rand(B, S, R, generator=g, device=dev)
+    b = torch.randn(B, S, R, generator=g, device=dev) * 0.1
+    h = torch.randn(B, R, generator=g, device=dev) if h0 else None
+    want = rg.rglru_scan_plain(a, b, h)
+    before = ops.launches["rglru_scan"]
+    got = ops.rglru_scan(a, b, h)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_engine_kernel_matches_reference(dev, arch):
+    """Engine on the CUDA kernels (RG-LRU scan, sampler) against
+    EngineReference (plain versions), greedy, token for token, on the
+    reduced configs at float32; the RG-LRU kernel launches once per R layer
+    per decode tick and prefill-scan step; Model.prefill runs the SSD
+    kernel once per layer."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import hybrid_pattern
+    from repro_torch.serve import (Engine, EngineReference, mixed_requests,
+                                   run_staggered, staggered_groups)
+    cfg = reduced(get_config(arch), dtype="float32")
+    model = build_model(cfg, max_seq=40, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def reqs():
+        return mixed_requests(6, seed=5, vocab=cfg.vocab_size,
+                              prompt_lens=(2, 9), max_new=(2, 8))
+
+    ref = EngineReference(model, params, slots=3, max_len=40, device=dev)
+    want = run_staggered(ref, staggered_groups(reqs(), 2))
+    ops.reset_launches()
+    eng = Engine(model, params, slots=3, max_len=40, ticks_per_sync=4,
+                 device=dev)
+    assert run_staggered(eng, staggered_groups(reqs(), 2)) == want
+    n_rec = sum(k == "R" for k in hybrid_pattern(cfg)) \
+        if cfg.family == "hybrid" else 0
+    steps = eng.counts["decode_ticks"] + eng.counts["prefill_steps"]
+    assert ops.launches["rglru_scan"] == n_rec * steps
+    assert ops.launches["fused_sample"] == \
+        eng.counts["decode_ticks"] + eng.counts["prefill_calls"]
+    ops.reset_launches()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=dev)
+    model.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_scan"] == (cfg.num_layers if arch.startswith(
+        "mamba2") else 0)
+    assert ops.launches["rglru_scan"] == n_rec

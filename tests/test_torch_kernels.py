@@ -189,7 +189,8 @@ def test_plain_path_does_not_count_launches():
                      torch.zeros(2, dtype=torch.int64))
     assert ops.launches == {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
-                            "cache_sim": 0, "cache_sim_ladder": 0}
+                            "cache_sim": 0, "cache_sim_ladder": 0,
+                            "ssd_scan": 0, "rglru_scan": 0}
 
 
 @pytest.mark.parametrize("change,match", [
@@ -232,7 +233,7 @@ def test_build_names_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     assert _build._target(src) != a and a.parent == _build.BUILD_DIR
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "cache_sim.cu", "decode_attention.cu", "paged_attention.cu",
-        "sampling.cu"]
+        "rglru_scan.cu", "sampling.cu", "ssd_scan.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):

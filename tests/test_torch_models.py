@@ -207,9 +207,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 
 def test_other_families_raise_unsupported():
-    with pytest.raises(UnsupportedFamilyError, match="'ssm'") as ei:
-        build_model(reduced(get_config("mamba2-1.3b")), device="cpu")
-    assert ei.value.family == "ssm" and ei.value.supported == ("dense",)
+    with pytest.raises(UnsupportedFamilyError, match="'encdec'") as ei:
+        build_model(reduced(get_config("whisper-tiny")), device="cpu")
+    assert ei.value.family == "encdec"
+    assert ei.value.supported == ("dense", "hybrid", "ssm")
     assert isinstance(ei.value, ValueError)
 
 
