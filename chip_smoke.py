@@ -22,6 +22,12 @@ result line:
      the RG-LRU recurrence at recurrentgemma-2b's width (R=2560) at the
      decode tick (8, 1) and the prefill (4, 2048), from a nonzero h0;
      both timed as phase 2's kernels;
+  2d. the flash-attention kernel against its plain version on the five
+     shapes of ``tests/test_kernels.py`` (Pallas layout), a ragged one
+     (Sq = Skv = 1000, window 256, softcap 30) and slice T's shape (B=2,
+     H=32, K=8, S=2048, hd=128, causal) in the model's strided layout,
+     each in f32 and bf16: o within 2e-5 / 2e-2, lse within 1e-5 (f32);
+     timed at slice T's shape in bf16 beside SDPA;
   3. the LRU cache-simulator kernels (``cache_sim_ladder``, ``cache_sim``)
      against their plain versions at shapes slice C does not reach: a
      whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
@@ -61,6 +67,23 @@ result line:
      ``Engine`` at K=1 and K=4 equals ``EngineReference`` token for token
      with an eos exit, and ``Model.prefill`` over 1024 tokens matches the
      per-token ``decode_step`` loop within 2e-3 (logits and state);
+  5e. slice T: training at full width, llama3-8b cut to 4 layers (bf16,
+     remat full, 1.92 B parameters, weights from a seeded generator):
+     AdamW with f32 master weights, ``warmup_cosine(1e-3, 10, 8)``, two
+     ``TrainWindow``s of 4 steps of 4 x 2048 tokens in 2 microbatches;
+     step time, tokens/s, 6N-flops utilisation, peak memory, the loss
+     trajectory; losses finite, the last window's mean below the first
+     step's loss, no host sync inside the second window, 128 flash
+     launches (layers x microbatches x (forward + remat) x steps); then a
+     ``torch.profiler`` trace of one more step (device busy share,
+     kernels by device time);
+  5f. slice U: training parity at 4 layers, reduced width, hd 32, f32:
+     the kernel path's loss and grad_norm over 4 steps within rel 1e-4 of
+     the plain path's (naive attention under autograd), one step's
+     gradients within rtol 3e-4 / atol 3e-5; under deterministic
+     algorithms the window equals the per-step loop bit for bit, two
+     windows equal one twice as long, and a checkpoint saved at step 4
+     resumes to the same step-8 state;
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -78,10 +101,10 @@ result line:
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, F's ``Model.prefill`` for the SSD scan, G's serving for the
-     RG-LRU scan, C for the simulator), error
+     RG-LRU scan, T for flash attention, C for the simulator), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
-     an LRU simulation or either scan: null).
+     an LRU simulation or either scan: null; SDPA for flash attention).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +114,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,6 +127,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 # int32 outside the tensor cores: 64 int32 lanes per SM against the 128
 # float32 lanes behind F32_FLOPS_PER_S, which counts an FMA as 2 flops
 INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
@@ -618,6 +643,91 @@ def phase_rglru_scan(flush) -> dict:
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None}
     return row
+
+
+def _flash_bound(B, H, K, Sq, Skv, hd, elt, causal, window):
+    """Least time for one flash forward: q, k, v read once, o and lse
+    written once; 4*hd flops per live (q row, key, head) pair at the bf16
+    tensor peak (the work is bf16 products)."""
+    q = torch.arange(Sq)
+    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    hi = torch.minimum(q, torch.tensor(Skv - 1)) if causal \
+        else torch.full_like(q, Skv - 1)
+    pairs = int((hi - lo + 1).clamp(min=0).sum())
+    flops = 4 * B * H * pairs * hd
+    nbytes = (2 * B * H * Sq * hd + 2 * B * K * Skv * hd) * elt + 4 * B * H * Sq
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            flops)
+
+
+def phase_flash_attention(flush) -> dict:
+    """The flash kernel against its plain version: the five shapes of
+    ``tests/test_kernels.py`` in the Pallas layout, a ragged one (Sq = Skv
+    = 1000, window and softcap) and slice T's shape (B=2, H=32, K=8,
+    S=2048, hd=128, causal, global) in the model's strided layout, each in
+    f32 and bf16: o within the JAX kernel test's bounds (2e-5 f32, 2e-2
+    bf16), lse within 1e-5 (f32).  Timed at slice T's shape in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    cases = [(1, 4, 2, 128, 128, 64, True, 0, 0.0, "pallas"),
+             (2, 4, 4, 64, 64, 32, True, 0, 0.0, "pallas"),
+             (1, 6, 2, 128, 128, 64, True, 48, 0.0, "pallas"),
+             (1, 4, 1, 64, 64, 128, True, 0, 50.0, "pallas"),
+             (1, 2, 2, 64, 128, 64, False, 0, 0.0, "pallas"),
+             (1, 8, 2, 1000, 1000, 128, True, 256, 30.0, "pallas"),
+             (2, 32, 8, 2048, 2048, 128, True, 0, 0.0, "model")]
+    main = None
+    for B, H, K, Sq, Skv, hd, causal, window, cap, layout in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            def r(n, s):
+                if layout == "model":   # (B, S, n, hd) behind the view
+                    return torch.randn(B, s, n, hd, generator=gen,
+                                       device=DEVICE).to(dtype).transpose(
+                                           1, 2)
+                return torch.randn(B, n, s, hd, generator=gen,
+                                   device=DEVICE).to(dtype)
+
+            q, k, v = r(H, Sq), r(K, Skv), r(K, Skv)
+            want, want_lse = fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, logit_cap=cap)
+            got, lse = ops.flash_attention(q, k, v, causal=causal,
+                                           window=window, logit_cap=cap,
+                                           return_lse=True)
+            torch.cuda.synchronize()
+            name = (f"flash_attention {dtype} B={B} H={H} K={K} Sq={Sq} "
+                    f"Skv={Skv} hd={hd} causal={causal} window={window} "
+                    f"cap={cap} {layout} layout")
+            check(got.stride() == q.stride(), f"{name}: output strides")
+            err = _close(got, want, dtype, what=name)
+            msg = f"{name}: max|err| o {err:.3g}"
+            if dtype == torch.float32:
+                e_lse = _close(lse, want_lse, tol=1e-5, what=name + " lse")
+                msg += f", lse {e_lse:.3g} (tol 1e-5)"
+            print(msg + f" vs plain (tol {TOL[dtype]})")
+            if layout == "model" and dtype == torch.bfloat16:
+                main = dict(q=q, k=k, v=v, err=err)
+    del want, want_lse, got, lse
+    q, k, v = main["q"], main["k"], main["v"]
+    ms = median_ms(lambda: ops.flash_attention(q, k, v), flush=flush)
+    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v), runs=5,
+                         flush=flush)
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush=flush)
+    bound_ms, bound_by, flops = _flash_bound(2, 32, 8, 2048, 2048, 128, 2,
+                                             True, 0)
+    print(f"flash_attention bf16 B=2 H=32 K=8 S=2048 hd=128 causal: kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+          f"{flops / 1e9:.2f} GFLOP needed), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:25",
+            "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1164,6 +1274,251 @@ def phase_slice_h(arch: str) -> None:
           f"(tol 2e-3)")
 
 
+# ---------------------------------------------------------------- slice T
+
+
+def phase_slice_t():
+    """Training at full width: llama3-8b (d_model 4096, 32 heads, 8 KV
+    heads, hd 128, d_ff 14336, vocab 128256) cut to 4 layers, bf16, remat
+    full, weights from ``torch.Generator(seed=0)``; AdamW with f32 master
+    weights, ``warmup_cosine(1e-3, 10, 8)``; 2 windows of 4 steps
+    (``TrainWindow``), each step 4 x 2048 tokens in 2 microbatches.  The
+    second window runs under the sync-error mode: its only host sync is
+    the drain of the stacked metrics after it.  Checks finite losses, the
+    last window's mean below the first step's loss and 128 flash launches
+    (layers x microbatches x (forward + remat recompute) x steps); then
+    traces one more step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.trainer import init_state, make_train_window
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
+    K, steps, micro, seq, batch = 4, 8, 2, 2048, 4
+    model = build_model(cfg, max_seq=seq, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 10, steps))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state = init_state(model, opt, gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state["params"].values())
+    sbytes = sum(t.numel() * t.element_size()
+                 for t in _leaves(state))
+    print(f"slice T: llama3-8b full width, {cfg.num_layers} layers, "
+          f"{cfg.dtype}, remat {cfg.remat}: {n / 1e9:.3f} B parameters, "
+          f"train state {sbytes / 1e9:.2f} GB")
+    win = make_train_window(model, opt, steps_per_sync=K,
+                            microbatches=micro,
+                            data_cfg=DataConfig(cfg.vocab_size, seq, batch))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    traj = []
+    for w in range(steps // K):
+        t0 = time.perf_counter()
+        if w == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = win(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        drained = torch.stack([m["loss"], m["grad_norm"], m["lr"]]).tolist()
+        step_s = (time.perf_counter() - t0) / K
+        traj.append(drained)
+        tokens = batch * seq
+        print(f"slice T: window {w}: {step_s * 1e3:.1f} ms/step, "
+              f"{tokens / step_s:.0f} tok/s, 6N-model-flops utilisation "
+              f"{6 * n * tokens / step_s / BF16_FLOPS_PER_S:.4f}; loss "
+              f"{[round(x, 4) for x in drained[0]]}, grad_norm "
+              f"{[round(x, 3) for x in drained[1]]}, lr "
+              f"{[round(x, 6) for x in drained[2]]}")
+    launches = dict(ops.launches)
+    losses = [x for d in traj for x in d[0]]
+    check(all(np.isfinite(losses)), f"slice T: non-finite loss {losses}")
+    check(statistics.mean(traj[-1][0]) < losses[0],
+          f"slice T: last window's mean loss "
+          f"{statistics.mean(traj[-1][0]):.4f} not below the first step's "
+          f"{losses[0]:.4f}")
+    want = cfg.num_layers * micro * 2 * steps
+    check(launches["flash_attention"] == want,
+          f"slice T: {launches['flash_attention']} flash launches, want "
+          f"{want}")
+    check(int(state["step"]) == steps, "slice T: step counter")
+    print(f"slice T: {steps} steps, losses finite and falling, "
+          f"{launches['flash_attention']} flash launches, no host sync "
+          f"inside window 1; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    trace_train_step(model, opt, state, micro, DataConfig(cfg.vocab_size,
+                                                          seq, batch))
+    return launches
+
+
+def _kernel_group(name: str) -> str:
+    """A kernel's group in the train step: the flash kernel, f32 GEMMs
+    (the blockwise attention backward's products), the other GEMMs (bf16
+    projections, MLP, unembedding), everything else."""
+    if "flash_attention_kernel" in name:
+        return "flash kernel"
+    if "f32f32" in name or "sgemm" in name:
+        return "f32 GEMM"
+    if "nvjet" in name or "gemm" in name.lower():
+        return "other GEMM"
+    return "elementwise and other"
+
+
+def trace_train_step(model, opt, state, micro: int, dcfg) -> None:
+    """Profile one more train step (a window of 1): its wall time, the
+    device time of its kernels, the device's busy share, and the kernels
+    that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.trainer import make_train_window
+    win = make_train_window(model, opt, steps_per_sync=1,
+                            microbatches=micro, data_cfg=dcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        win(state)[1]["loss"].cpu()
+    wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda e: e.self_device_time_total / 1e3   # noqa: E731
+    busy = sum(dev_ms(e) for e in kern)
+    print(f"trace: one train step: {wall * 1e3:.1f} ms wall traced, "
+          f"{busy:.1f} ms of kernels, device busy {busy / (wall * 1e3):.3f};"
+          f" {sum(e.count for e in kern)} kernel launches")
+    groups = collections.Counter()
+    for e in kern:
+        groups[_kernel_group(e.key)] += dev_ms(e)
+    print("  by group: " + ", ".join(f"{g} {ms:.1f} ms"
+                                     for g, ms in groups.most_common()))
+    for e in sorted(kern, key=dev_ms, reverse=True)[:10]:
+        print(f"  {dev_ms(e):8.2f} ms  {e.count:5d}x  {e.key[:80]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------- slice U
+
+
+def _host_batches(dcfg, start, n):
+    from repro_torch.data import batch_for_step
+    return [{k: torch.from_numpy(v).to(DEVICE)
+             for k, v in batch_for_step(dcfg, s).items()}
+            for s in range(start, start + n)]
+
+
+def phase_slice_u(tmp: Path) -> None:
+    """Training parity: llama3-8b cut to 4 layers, reduced width, hd 32,
+    f32, remat full, seq 256, 4 rows in 2 microbatches.  The kernel path's
+    loss and grad_norm over 4 steps within rel 1e-4 of the plain path's
+    (naive attention under autograd); one step's gradients within the JAX
+    attention test's bounds (rtol 3e-4, atol 3e-5).  Under deterministic
+    algorithms: the window equals the per-step loop on host batches bit
+    for bit, two windows equal one twice as long, and a checkpoint saved
+    at step 4 and restored resumes to the same step-8 state."""
+    import os
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import (clone_state, init_state,
+                                           make_train_step,
+                                           make_train_window)
+    cfg = reduced(get_config("llama3-8b"), dtype="float32", num_layers=4,
+                  head_dim=32, remat="full")
+    model = build_model(cfg, max_seq=256, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 8))
+    dcfg = DataConfig(cfg.vocab_size, 256, 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    state0 = init_state(model, opt, gen)
+    batches = _host_batches(dcfg, 0, 8)
+
+    def per_step(impl, n, state=None, start=0):
+        state = clone_state(state0) if state is None else state
+        fn = make_train_step(model, opt, microbatches=2, attn_impl=impl)
+        rows = []
+        for b in batches[start:start + n]:
+            state, m = fn(state, b)
+            rows.append(torch.stack([m["loss"], m["grad_norm"]]))
+        return torch.stack(rows), state
+
+    ops.reset_launches()
+    kern, _ = per_step("kernel", 4)
+    check(ops.launches["flash_attention"] == 4 * 2 * 2 * 4,
+          "slice U: flash launches of the kernel path")
+    plain, _ = per_step("plain", 4)
+    rel = float(((kern - plain).abs() / plain.abs()).max())
+    check(rel <= 1e-4, f"slice U: kernel vs plain loss/grad_norm rel {rel}")
+    print(f"slice U: 4 steps, kernel path {kern[:, 0].tolist()} vs plain "
+          f"{plain[:, 0].tolist()}: max rel diff of loss and grad_norm "
+          f"{rel:.3g} (tol 1e-4)")
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = {n: p.detach().requires_grad_()
+                  for n, p in state0["params"].items()}
+        loss = model.loss(leaves, batches[0], attn_impl=impl)
+        grads[impl] = torch.autograd.grad(loss, list(leaves.values()))
+    err = 0.0
+    for a, b, name in zip(grads["kernel"], grads["plain"], state0["params"]):
+        err = max(err, float((a - b).abs().max()))
+        bad = (a - b).abs() > 3e-5 + 3e-4 * b.abs()
+        check(not bool(bad.any()), f"slice U: gradient of {name} beyond "
+              f"rtol 3e-4 / atol 3e-5")
+    print(f"slice U: one step's gradients, kernel vs plain: max|err| "
+          f"{err:.3g} (rtol 3e-4, atol 3e-5)")
+
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        loop, s_loop = per_step("kernel", 4)
+        win = make_train_window(model, opt, steps_per_sync=4,
+                                microbatches=2, data_cfg=dcfg)
+        s_win, m = win(clone_state(state0))
+        check(torch.equal(torch.stack([m["loss"], m["grad_norm"]], 1), loop)
+              and _equal_states(s_win, s_loop),
+              "slice U: window != per-step loop")
+        win2 = make_train_window(model, opt, steps_per_sync=2,
+                                 microbatches=2, data_cfg=dcfg)
+        s2, m1 = win2(clone_state(state0))
+        s2, m2 = win2(s2)
+        check(torch.equal(torch.cat([m1["loss"], m2["loss"]]), m["loss"])
+              and _equal_states(s2, s_win),
+              "slice U: two windows of 2 != one window of 4")
+        mgr = CheckpointManager(str(tmp / "slice_u"))
+        mgr.save(4, s_win, blocking=True)
+        s_cont, m_cont = win(s_win)
+        like = init_state(model, opt, torch.Generator(device=DEVICE))
+        s_res, m_res = win(mgr.restore(like))
+        check(int(s_res["step"]) == 8 and _equal_states(s_res, s_cont)
+              and torch.equal(m_res["loss"], m_cont["loss"]),
+              "slice U: restored run differs at step 8")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+    print("slice U: deterministic: window == per-step loop, 2 windows == 1 "
+          "window of 4, checkpoint at step 4 restored == uninterrupted at "
+          "step 8, all bit for bit")
+
+
+def _equal_states(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -1422,7 +1777,7 @@ def main() -> None:
     flush = scratch.zero_     # 256 MB write evicts the 50 MB L2
     kernels = [phase_decode_attention(flush), phase_sampling(flush),
                phase_paged_attention(flush), phase_ssd_scan(flush),
-               phase_rglru_scan(flush)]
+               phase_rglru_scan(flush), phase_flash_attention(flush)]
     ns_per_update = phase_cache_sim(flush)
     del scratch
     stamp("kernel phases")
@@ -1448,6 +1803,12 @@ def main() -> None:
         phase_slice_h(arch)
         torch.cuda.empty_cache()
     stamp("slice H")
+    launches_t = phase_slice_t()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice_u(Path(tmp))
+    torch.cuda.empty_cache()
+    stamp("slices T, U")
     launches_c, rows = phase_slice_c(ns_per_update)
     kernels += rows
     stamp("slice C")
@@ -1455,7 +1816,8 @@ def main() -> None:
     stamp("pipeline")
     slice_of = {"paged_decode_attention": launches_d,
                 "ssd_scan": launches_f, "rglru_scan": launches_g,
-                "cache_sim": launches_c, "cache_sim_ladder": launches_c}
+                "cache_sim": launches_c, "cache_sim_ladder": launches_c,
+                "flash_attention": launches_t}
     for k in kernels:
         k["launches"] = slice_of.get(k["name"], launches)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

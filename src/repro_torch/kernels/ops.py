@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import cache_sim as _cs
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import sampling as _sm
@@ -25,7 +26,8 @@ from repro_torch.kernels import ssd_scan as _ssd
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0,
-                            "ssd_scan": 0, "rglru_scan": 0}
+                            "ssd_scan": 0, "rglru_scan": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -46,6 +48,25 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     raise ValueError(f"no kernel for device {dev}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_cap: float = 0.0, return_lse: bool = False):
+    """Flash attention forward in the Pallas layout: q (B,H,Sq,hd); k/v
+    (B,K,Skv,hd); ``window`` <= 0 global -> o (B,H,Sq,hd), and with
+    ``return_lse`` also lse (B,H,Sq) f32.  Any strides with a contiguous
+    last dimension; the output takes q's."""
+    if not _on_cuda(q, k, v):
+        o, lse = _fa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window,
+                                           logit_cap=logit_cap)
+    else:
+        _fa.check_args(q, k, v, causal, window, logit_cap)
+        fn = _build.function("flash_attention", "flash_attention",
+                             _fa.ARGTYPES)
+        o, lse = _fa.launch_cuda(fn, q, k, v, causal, window, logit_cap)
+        launches["flash_attention"] += 1
+    return (o, lse) if return_lse else o
 
 
 def decode_attention(q, k, v, pos, window: int = 0, *,

@@ -1,9 +1,11 @@
 """Public model API of the port: ``build_model(cfg) -> Model`` with
-init/prefill/decode_step, the ``StateBank`` contract, and serve
+init/loss/prefill/decode_step, the ``StateBank`` contract, and serve
 capability metadata (torch counterpart of ``repro/models/api.py``).
 
 The dense decoder, ssm (mamba2) and hybrid (recurrentgemma) families are
-ported; ``build_model`` raises ``UnsupportedFamilyError`` for any other.
+ported for serving; ``build_model`` raises ``UnsupportedFamilyError`` for
+any other.  Training (``mode="train"``, ``loss``) covers the dense family;
+the ssm and hybrid families raise ``UnsupportedFamilyError`` there.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ParamDefs, Params, materialize
+from repro_torch.models.common import (ParamDefs, Params, cross_entropy,
+                                       materialize)
 
 
 class UnsupportedFamilyError(ValueError):
@@ -85,6 +88,9 @@ _FAMILY_SERVE_MODES: Dict[str, frozenset] = {
 }
 
 
+_TRAIN_FAMILIES = frozenset({"dense"})
+
+
 def serve_families(mode: str):
     """Families servable under engine ``mode`` ("dense" | "paged")."""
     return tuple(sorted(f for f, m in _FAMILY_SERVE_MODES.items()
@@ -132,8 +138,14 @@ class Model:
                 kv_write_mask: Optional[torch.Tensor] = None,
                 logits_at: Optional[torch.Tensor] = None):
         """Dispatch per family: the hybrid stack, or the decoder (dense and
-        ssm).  Returns (logits, cache)."""
+        ssm).  Returns (logits, cache); ``mode="train"`` (dense family)
+        returns (B, S, V) f32 logits under autograd and no cache."""
         cfg = self.cfg
+        if mode == "train" and cfg.family not in _TRAIN_FAMILIES:
+            raise UnsupportedFamilyError(
+                cfg.family, _TRAIN_FAMILIES, "repro_torch training",
+                detail="ssm and hybrid training (ssd_chunked under "
+                       "checkpoint) come in a later slice")
         if cfg.family in ("ssm", "hybrid") and page_table is not None:
             raise ValueError("paged KV serving requires a dense decoder "
                              f"({cfg.family} has recurrent state)")
@@ -147,6 +159,16 @@ class Model:
                                   attn_impl=attn_impl, logits_at=logits_at,
                                   page_table=page_table,
                                   kv_write_mask=kv_write_mask)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
+             attn_impl: str = "kernel") -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both (B, S) int), differentiable.
+        ``attn_impl="kernel"`` attends through the flash kernel (its plain
+        version on CPU tensors), ``"plain"`` through naive attention."""
+        logits, _ = self.forward(params, batch, mode="train",
+                                 attn_impl=attn_impl)
+        return cross_entropy(logits, batch["labels"], self.cfg.final_softcap)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 logits_at: Optional[torch.Tensor] = None):

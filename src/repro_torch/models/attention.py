@@ -1,9 +1,10 @@
 """GQA attention (torch counterpart of the decoder parts of
 ``repro/models/attention.py``): projections, RoPE, the O(S^2) prefill
-attention, the per-row-position decode tick, its paged branch (KV in a
-shared physical page pool addressed through page tables), the paged
-suffix prefill, the hybrid family's ring-buffer decode attention and the
-KV cache definitions.
+attention, the train path's flash attention with its blockwise backward
+(``FlashAttention``, ``chunked_attention``), the per-row-position decode
+tick, its paged branch (KV in a shared physical page pool addressed
+through page tables), the paged suffix prefill, the hybrid family's
+ring-buffer decode attention and the KV cache definitions.
 
 The decode tick has two implementations selected by ``impl``:
 ``"plain"`` scatters the new K/V row into the cache and runs the plain
@@ -44,10 +45,14 @@ def attn_param_defs(cfg: ModelConfig) -> ParamDefs:
     return defs
 
 
-def _mask_bias(q_pos, k_pos, *, window: int) -> torch.Tensor:
-    """Additive causal mask bias (0 or NEG_INF). q_pos (Sq,), k_pos (Skv,);
+def _mask_bias(q_pos, k_pos, *, window: int,
+               causal: bool = True) -> torch.Tensor:
+    """Additive mask bias (0 or NEG_INF). q_pos (Sq,), k_pos (Skv,);
     ``window`` <= 0 means global."""
-    ok = k_pos[None, :] <= q_pos[:, None]
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         ok &= k_pos[None, :] > q_pos[:, None] - window
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
@@ -70,6 +75,84 @@ def naive_attention(q, k, v, *, window=0, logit_cap=0.0) -> torch.Tensor:
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bskgt,btkh->bskgh", p, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a flash-style backward: the torch counterpart
+    of ``flash_attention_jnp`` and its custom VJP.
+
+    Forward: ``ops.flash_attention`` on transposed views of the model's
+    (B, S, H, hd) tensors (no copy): the CUDA kernel on the card, its plain
+    version on the CPU.  It saves (q, k, v, o, lse).  The saved o is the
+    output in its own dtype: JAX takes ``delta = sum(do * out)`` from the
+    f32 accumulator, which for f32 inputs is the same tensor; for bf16 the
+    difference is o's bf16 rounding (relative 2^-9), below the rounding of
+    the bf16 gradients the backward returns.
+
+    Backward: ``_flash_bwd_rule`` in plain PyTorch on both devices,
+    streaming ``kv_block`` keys at a time, recomputing the probabilities
+    from lse and accumulating dq, dk, dv in f32 with the softcap
+    derivative.  The last block may be short; JAX pads it with masked keys
+    that contribute nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, logit_cap: float,
+                kv_block: int):
+        o, lse = kernel_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, logit_cap=logit_cap,
+            return_lse=True)
+        o = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, window, logit_cap, kv_block)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, logit_cap, kv_block = ctx.cfg
+        B, Sq, H, hd = q.shape
+        Skv, K = k.shape[1], k.shape[2]
+        G = H // K
+        scale = hd ** -0.5
+        qr = q.reshape(B, Sq, K, G, hd).float()
+        dor = do.reshape(B, Sq, K, G, hd).float()
+        delta = torch.sum(dor * o.reshape(B, Sq, K, G, hd).float(), dim=-1)
+        lse = lse.transpose(1, 2).reshape(B, Sq, K, G)
+        q_pos = torch.arange(Sq, device=q.device)
+        dq = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32,
+                         device=q.device)
+        dk = torch.empty((B, Skv, K, hd), dtype=torch.float32,
+                         device=q.device)
+        dv = torch.empty_like(dk)
+        for j0 in range(0, Skv, kv_block):
+            j1 = min(j0 + kv_block, Skv)
+            kj, vj = k[:, j0:j1].float(), v[:, j0:j1].float()
+            s_raw = torch.einsum("bskgh,btkh->bskgt", qr * scale, kj)
+            s = softcap(s_raw, logit_cap)
+            bias = _mask_bias(q_pos, torch.arange(j0, j1, device=q.device),
+                              window=window, causal=causal)
+            p = torch.exp(s + bias[None, :, None, None, :] - lse[..., None])
+            dp = torch.einsum("bskgh,btkh->bskgt", dor, vj)
+            ds = p * (dp - delta[..., None])
+            if logit_cap:
+                t = torch.tanh(s_raw / logit_cap)  # d softcap = 1 - tanh^2
+                ds = ds * (1.0 - t * t)
+            dq += torch.einsum("bskgt,btkh->bskgh", ds, kj) * scale
+            dk[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", ds, qr) * scale
+            dv[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", p, dor)
+        return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      logit_cap: float = 0.0,
+                      kv_block: int = 512) -> torch.Tensor:
+    """Flash attention in the model layout, q (B,S,H,hd), k/v
+    (B,Skv,K,hd) -> (B,S,H,hd), differentiable (see ``FlashAttention``);
+    ``window`` <= 0 is global."""
+    return FlashAttention.apply(q, k, v, causal, window, logit_cap,
+                                kv_block)
 
 
 def decode_attention(q, k, v, *, pos, window=0, logit_cap=0.0):
@@ -196,8 +279,12 @@ def attention_block(
     """One attention op incl. projections, RoPE (``rope_cs`` = the
     positions' ``rope_tables``, None without RoPE) and cache handling.
 
-    Prefill (``cache is None``): causal O(S^2) attention over the prompt;
-    with ``return_kv`` the computed k/v come back as the cache.  Decode
+    Prefill (``cache is None``, ``return_kv``): causal O(S^2) attention
+    over the prompt; the computed k/v come back as the cache.  Train
+    (``cache is None``, no ``return_kv``): causal attention under autograd,
+    ``impl="kernel"`` through ``chunked_attention`` (the flash kernel
+    forward, its blockwise backward), ``impl="plain"`` through
+    ``naive_attention`` (the oracle, as JAX's ``"naive"``).  Decode
     (``cache_pos`` a (B,) vector, S == 1): row b writes its k/v at its own
     position ``cache_pos[b]`` — IN PLACE in ``cache`` (the JAX package
     returned new buffers) — and attends its own prefix.  With
@@ -242,10 +329,16 @@ def attention_block(
         else:
             raise ValueError(f"decode impl {impl!r} not in {DECODE_IMPLS}")
         new_cache = cache
-    else:
+    elif return_kv or impl == "plain":
         out = naive_attention(q, k, v, window=window,
                               logit_cap=cfg.attn_softcap)
         new_cache = {"k": k, "v": v} if return_kv else None
+    elif impl == "kernel":
+        out = chunked_attention(q, k, v, window=window,
+                                logit_cap=cfg.attn_softcap)
+        new_cache = None
+    else:
+        raise ValueError(f"train impl {impl!r} not in {DECODE_IMPLS}")
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
 

@@ -147,3 +147,15 @@ def activation(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "relu": F.relu}[name]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  final_cap: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy over f32 logits after the final softcap,
+    as ``repro.models.common.cross_entropy`` forms it (the JAX train loss
+    applies ``final_cap`` here although ``_unembed`` applied it already;
+    the port keeps both)."""
+    logits = softcap(logits.float(), final_cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

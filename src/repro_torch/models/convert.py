@@ -1,5 +1,5 @@
 """Weights bridge: the JAX package's parameter dict, as numpy arrays, into
-the port's parameters.
+the port's parameters, and a JAX train state into the port's.
 
 Names and layouts are kept as they are (``wq (D,H,hd)``, ``wo (H,hd,D)``;
 dense and ssm layers stacked on axis 0 under ``blocks/``, the hybrid
@@ -32,18 +32,54 @@ def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
     JAX package -> the port's parameter dict on ``device``.  Raises on a
     missing, extra or mis-shaped name."""
     dev = resolve_device(device)
+    defs = _check_names(cfg, flat)
+    return {name: _to_tensor(np.asarray(flat[name])).to(
+        device=dev, dtype=torch_dtype(d.dtype or cfg.dtype))
+        for name, d in defs.items()}
+
+
+def _check_names(cfg: ModelConfig, flat: Mapping[str, np.ndarray]):
+    """The model's param defs; raises unless ``flat`` has exactly their
+    names and shapes."""
     defs = model_param_defs(cfg)
     missing = sorted(set(defs) - set(flat))
     extra = sorted(set(flat) - set(defs))
     if missing or extra:
         raise ValueError(f"parameter names differ: missing {missing}, "
                          f"extra {extra}")
-    out: Params = {}
     for name, d in defs.items():
-        t = _to_tensor(np.asarray(flat[name]))
-        if tuple(t.shape) != tuple(d.shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                             f"{tuple(d.shape)}")
-        out[name] = t.to(device=dev,
-                         dtype=torch_dtype(d.dtype or cfg.dtype))
-    return out
+        shape = tuple(np.shape(flat[name]))
+        if shape != tuple(d.shape):
+            raise ValueError(f"{name}: shape {shape} != {tuple(d.shape)}")
+    return defs
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Mapping, *,
+                           device: DeviceLike = None) -> dict:
+    """A JAX ``TrainState`` of the dense family as numpy (``{"params",
+    "opt": {"m", "v", "count"[, "master"]}, "step"}``, AdamW's state as
+    ``AdamW.init`` builds it) -> the port's train state on ``device``:
+    params through ``params_from_numpy``, moments and master weights f32
+    under the same names, count and step 0-d int32."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    unknown = sorted(set(opt) - {"m", "v", "count", "master"})
+    if unknown:
+        raise ValueError(f"optimizer state has keys {unknown} the port's "
+                         f"AdamW does not carry")
+
+    def f32_tree(tree):
+        _check_names(cfg, tree)
+        return {n: _to_tensor(np.asarray(a, np.float32)).to(dev)
+                for n, a in tree.items()}
+
+    def int32(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=dev)
+
+    out_opt = {"m": f32_tree(opt["m"]), "v": f32_tree(opt["v"]),
+               "count": int32(opt["count"])}
+    if "master" in opt:
+        out_opt["master"] = f32_tree(opt["master"])
+    return {"params": params_from_numpy(cfg, state["params"], device=dev),
+            "opt": out_opt, "step": int32(state["step"])}

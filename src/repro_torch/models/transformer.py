@@ -2,6 +2,9 @@
 of ``repro/models/transformer.py``).
 
 Modes:
+  train   — full-sequence forward under autograd (dense family), each
+            layer under ``torch.utils.checkpoint`` when ``cfg.remat`` asks
+            for rematerialisation; returns logits only
   prefill — full-sequence forward, returns the per-layer KV cache (dense)
             or the recurrent state and ring caches (ssm, hybrid)
   decode  — one token per row against an existing cache, at per-row
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -182,7 +186,7 @@ def decoder_forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) int
     *,
-    mode: str = "prefill",                # prefill | decode
+    mode: str = "prefill",                # train | prefill | decode
     cache: Optional[Params] = None,       # {"k","v"}: (layers,B,L,K,hd)
     cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
     attn_impl: str = "plain",
@@ -203,8 +207,10 @@ def decoder_forward(
     S > 1 the paged suffix prefill (positions ``cache_pos[b] + s``, writes
     masked by ``kv_write_mask``), which takes ``logits_at`` as prefill
     does.  ``attn_impl`` ("plain" | "kernel") selects the decode tick's
-    attention.  The ssm family's cache is its recurrent state (see
-    ``_ssm_forward``); it has no kernel in its decode tick."""
+    attention, and in train mode (dense family only; logits (B, S, V) f32
+    and no cache) the flash kernel or naive attention (see
+    ``_train_forward``).  The ssm family's cache is its recurrent state
+    (see ``_ssm_forward``); it has no kernel in its decode tick."""
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     if cfg.family == "ssm":
@@ -218,9 +224,13 @@ def decoder_forward(
             return None
         return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         rope_cs = tables(torch.arange(S, dtype=torch.int32,
                                       device=x.device)[None, :])
+    if mode == "train":
+        return _train_forward(cfg, params, x, layers, windows, rope_cs,
+                              attn_impl), None
+    if mode == "prefill":
         ks, vs = [], []
         for lp, w in zip(layers, windows):
             x, kv = _decoder_layer(cfg, lp, x, rope_cs=rope_cs, window=w,
@@ -230,7 +240,8 @@ def decoder_forward(
         return (_unembed(cfg, params, _pick(x, logits_at)),
                 {"k": torch.stack(ks), "v": torch.stack(vs)})
     if mode != "decode":
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
+                         f"'decode')")
     if cache is None or cache_pos is None or cache_pos.ndim != 1:
         raise ValueError("decode needs a cache and (B,) cache positions")
     if S != 1 and page_table is None:
@@ -245,6 +256,30 @@ def decoder_forward(
             cache_pos=cache_pos, impl=attn_impl, page_table=page_table,
             kv_write_mask=kv_write_mask)
     return _unembed(cfg, params, _pick(x, logits_at)), cache
+
+
+def _train_forward(cfg: ModelConfig, params: Params, x, layers, windows,
+                   rope_cs, attn_impl: str) -> torch.Tensor:
+    """The dense stack in train mode: (B, S, V) f32 logits under autograd.
+
+    Rematerialisation follows ``_maybe_remat``: with ``cfg.remat`` other
+    than "none" each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only the layer's input and runs the layer
+    forward again in the backward.  "dots" (JAX's ``checkpoint_dots``
+    policy, which also keeps the matmul outputs) has no torch policy here
+    and is treated as "full".  The model draws no random numbers, so the
+    RNG state is not stashed for the recompute."""
+    def layer(xc, lp, w):
+        return _decoder_layer(cfg, lp, xc, rope_cs=rope_cs, window=w,
+                              impl=attn_impl)[0]
+
+    for lp, w in zip(layers, windows):
+        if cfg.remat == "none":
+            x = layer(x, lp, w)
+        else:
+            x = checkpoint(layer, x, lp, w, use_reentrant=False,
+                           preserve_rng_state=False)
+    return _unembed(cfg, params, x)
 
 
 def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, and the paged
+"""The port's CUDA kernels against their plain versions, a train step on the
+flash kernel against the plain path, and the paged
 engine and the recurrent families' engine on their kernels against
 ``EngineReference``, on the card.
 
@@ -328,3 +329,81 @@ def test_recurrent_engine_kernel_matches_reference(dev, arch):
     assert ops.launches["ssd_scan"] == (cfg.num_layers if arch.startswith(
         "mamba2") else 0)
     assert ops.launches["rglru_scan"] == n_rec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Skv,hd,causal,window,cap,layout", [
+    (1, 4, 2, 128, 128, 64, True, 0, 0.0, "pallas"),
+    (2, 4, 4, 64, 64, 32, True, 0, 0.0, "pallas"),
+    (1, 6, 2, 128, 128, 64, True, 48, 0.0, "pallas"),     # local window
+    (1, 4, 1, 64, 64, 128, True, 0, 50.0, "pallas"),      # softcap + MQA
+    (1, 2, 2, 64, 128, 64, False, 0, 0.0, "pallas"),      # cross attn
+    (1, 4, 2, 1000, 1000, 256, True, 100, 30.0, "pallas"),  # ragged
+    (2, 8, 2, 200, 200, 128, True, 0, 0.0, "model"),      # strided views
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, K, Sq, Skv,
+                                              hd, causal, window, cap,
+                                              layout):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def r(b, n, s):
+        if layout == "model":     # (B, S, n, hd) storage, (B, n, S, hd) view
+            return torch.randn(b, s, n, hd, generator=g, device=dev).to(
+                dtype).transpose(1, 2)
+        return torch.randn(b, n, s, hd, generator=g, device=dev).to(dtype)
+
+    q, k, v = r(B, H, Sq), r(B, K, Skv), r(B, K, Skv)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, logit_cap=cap)
+    before = ops.launches["flash_attention"]
+    got, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   logit_cap=cap, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    assert got.stride() == q.stride()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_train_step_kernel_matches_plain(dev):
+    """Reduced llama3-8b (head_dim 32, f32, remat full) through the flash
+    kernel against the plain path (naive attention under autograd): the
+    gradients within the bounds of ``tests/test_models.py`` (rtol 3e-4,
+    atol 3e-5), and one train step's loss and grad_norm within 1e-5; two
+    kernel launches per layer (forward and remat recompute)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, device_batch_at
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train.trainer import (clone_state, init_state,
+                                           make_train_step)
+    cfg = reduced(get_config("llama3-8b"), dtype="float32", head_dim=32,
+                  remat="full")
+    model = build_model(cfg, max_seq=256, device=dev)
+    opt = AdamW(lr=constant(1e-3))
+    state = init_state(model, opt, torch.Generator(device=dev).manual_seed(0))
+    batch = device_batch_at(DataConfig(cfg.vocab_size, 256, 4), 0, dev)
+    grads, metrics, launched = {}, {}, {}
+    for impl in ("plain", "kernel"):
+        leaves = {n: p.detach().requires_grad_()
+                  for n, p in state["params"].items()}
+        ops.reset_launches()
+        loss = model.loss(leaves, batch, attn_impl=impl)
+        grads[impl] = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        launched[impl] = ops.launches["flash_attention"]
+        _, metrics[impl] = make_train_step(model, opt, attn_impl=impl)(
+            clone_state(state), batch)
+    assert launched == {"plain": 0, "kernel": 2 * cfg.num_layers}
+    for n, g in grads["kernel"].items():
+        torch.testing.assert_close(g, grads["plain"][n], atol=3e-5,
+                                   rtol=3e-4)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(metrics["kernel"][key],
+                                   metrics["plain"][key], atol=1e-5,
+                                   rtol=1e-5)

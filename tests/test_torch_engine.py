@@ -242,7 +242,8 @@ def test_counts_and_no_launches_on_cpu(mp):
     assert ops.launches == {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0,
-                            "ssd_scan": 0, "rglru_scan": 0}
+                            "ssd_scan": 0, "rglru_scan": 0,
+                            "flash_attention": 0}
 
 
 def test_latency_summary_over_served_requests(mp):

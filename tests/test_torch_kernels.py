@@ -187,10 +187,13 @@ def test_plain_path_does_not_count_launches():
     ops.decode_attention_fused(q, k, v, nk, nv, tpos, 0)
     ops.fused_sample(torch.zeros(2, 8), torch.zeros(2),
                      torch.zeros(2, dtype=torch.int64))
+    ops.flash_attention(torch.zeros(1, 2, 8, 32), torch.zeros(1, 1, 8, 32),
+                        torch.zeros(1, 1, 8, 32))
     assert ops.launches == {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0,
-                            "ssd_scan": 0, "rglru_scan": 0}
+                            "ssd_scan": 0, "rglru_scan": 0,
+                            "flash_attention": 0}
 
 
 @pytest.mark.parametrize("change,match", [
@@ -232,8 +235,8 @@ def test_build_names_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     src.write_text("// b\n")
     assert _build._target(src) != a and a.parent == _build.BUILD_DIR
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "cache_sim.cu", "decode_attention.cu", "paged_attention.cu",
-        "rglru_scan.cu", "sampling.cu", "ssd_scan.cu"]
+        "cache_sim.cu", "decode_attention.cu", "flash_attention.cu",
+        "paged_attention.cu", "rglru_scan.cu", "sampling.cu", "ssd_scan.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
