@@ -1,7 +1,7 @@
-// The body shared by the decode attention kernels (decode_attention.cu,
-// paged_attention.cu), templated on how a key's row is addressed, and its
-// helpers: f32/bf16 conversion, a lane's vector of head_dim/32 elements,
-// the warp sum and the head_dim dispatch of the launchers.
+// Helpers shared by the attention kernels (decode_attention.cu,
+// paged_attention.cu, flash_attention.cu): f32/bf16 conversion, warp
+// reductions, the head_dim dispatch of the launchers, and the paged
+// kernel's body (attend_keys), templated on how a key's row is addressed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,10 +28,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// NPL contiguous elements of one lane, loaded as one vector.
-template <typename T, int NPL>
-struct alignas(sizeof(T) * NPL) Vec {
-  T v[NPL];
+// NE contiguous elements, loaded as one vector (NE a power of two).
+template <typename T, int NE>
+struct alignas(sizeof(T) * NE) Vec {
+  T v[NE];
 };
 
 // Butterfly sum: every lane ends with the same bits (a+b == b+a).
@@ -41,66 +41,111 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+constexpr int pow2_floor(int x) { return x >= 2 ? 2 * pow2_floor(x / 2) : 1; }
+
+// How the lanes of a warp split one head_dim row in attend_keys: vectors
+// of NE elements (at most 16 bytes, a power of two dividing HD), lane i
+// holding vectors i, i + 32, ... (NV of them); vectors past HD / NE are
+// masked (hd 16 uses 16 lanes, hd 96 half of its second vector); ALL says
+// at compile time that none is.  A chunk of CHUNK keys keeps CHUNK * NV *
+// NE elements of K and of V per lane in registers, 64 (32 at hd 16 and 32,
+// where more spills).
+template <typename T, int HD>
+struct Lanes {
+  static constexpr int NE =
+      pow2_floor(HD / 32 > 1 ? HD / 32 : 1) < int(16 / sizeof(T))
+          ? pow2_floor(HD / 32 > 1 ? HD / 32 : 1)
+          : int(16 / sizeof(T));
+  static constexpr int NVEC = HD / NE;
+  static constexpr int NV = (NVEC + 31) / 32;
+  static constexpr bool ALL = NVEC % 32 == 0;
+  static constexpr int CHUNK = 64 / (NE * NV) < 32 ? 64 / (NE * NV) : 32;
+  static_assert(HD % NE == 0 && CHUNK >= 1, "head_dim");
+};
+
 // One block's work for one (slot b, kv head kh) pair, blockDim = 32 * H/K.
-// With ``write``, all threads first store new_k/new_v (B, K, hd) at key p,
+// With ``write``, all threads first store new_k/new_v (B, K, HD) at key p,
 // then __syncthreads, which makes the block's global writes visible to its
 // own reads, so the self term reads the new row.  Then warp g attends q head
-// kh*G + g over keys [lo, last]: lanes split head_dim (NPL = head_dim / 32
-// elements each), dot products reduce with warp shuffles, and the online
-// softmax runs in f32.  ``row(t)`` is the element offset of key t's row for
-// head kh in kc/vc (the address policy: dense, or through a page table).
-// Each step scores CHUNK keys whose K and V rows are all loaded before any
-// is used, so that a step costs one memory round trip and not one per key;
-// keys past ``last`` in the last chunk load the row of ``last`` (always
-// mapped) and are masked to -inf.
-template <typename T, int NPL, typename Row>
+// kh*G + g over keys [lo, last]: lanes split head_dim (Lanes<T, HD>), dot
+// products reduce with warp shuffles, and the online softmax runs in f32.
+// ``row(t)`` is the element offset of key t's row for head kh in kc/vc (the
+// address policy: through a page table).  Each step scores CHUNK keys whose
+// K and V rows are all loaded before any is used, so that a step costs one
+// memory round trip and not one per key; keys past ``last`` in the last
+// chunk load the row of ``last`` (always mapped) and are masked to -inf.
+template <typename T, int HD, typename Row>
 __device__ __forceinline__ void attend_keys(
     const T* __restrict__ q, T* __restrict__ kc, T* __restrict__ vc,
     const T* __restrict__ nk, const T* __restrict__ nv, T* __restrict__ out,
     int b, int kh, int H, int K, bool write, int p, int lo, int last,
     Row row, float scale, float cap) {
-  constexpr int hd = 32 * NPL;
-  constexpr int CHUNK = 64 / NPL;
-  using V = Vec<T, NPL>;
+  using Ly = Lanes<T, HD>;
+  constexpr int NE = Ly::NE, NV = Ly::NV, CHUNK = Ly::CHUNK;
+  using V = Vec<T, NE>;
   const int G = H / K;
   const int g = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
   if (write) {
     const size_t dst = row(p);
-    const size_t src = ((size_t)b * K + kh) * hd;
-    for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    const size_t src = ((size_t)b * K + kh) * HD;
+    for (int d = threadIdx.x; d < HD; d += blockDim.x) {
       kc[dst + d] = nk[src + d];
       vc[dst + d] = nv[src + d];
     }
     __syncthreads();
   }
 
-  const int h = kh * G + g;
-  const V qraw =
-      *reinterpret_cast<const V*>(q + ((size_t)b * H + h) * hd + lane * NPL);
-  float qv[NPL], acc[NPL];
+  bool on[NV];
+  int col[NV];
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    qv[i] = to_f32(qraw.v[i]) * scale;
-    acc[i] = 0.f;
+  for (int i = 0; i < NV; ++i) {
+    on[i] = Ly::ALL || lane + 32 * i < Ly::NVEC;
+    col[i] = (lane + 32 * i) * NE;
+  }
+  const int h = kh * G + g;
+  const T* qrow = q + ((size_t)b * H + h) * HD;
+  float qv[NV][NE], acc[NV][NE];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const V qraw = on[i] ? *reinterpret_cast<const V*>(qrow + col[i]) : V{};
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      qv[i][e] = to_f32(qraw.v[e]) * scale;
+      acc[i][e] = 0.f;
+    }
   }
 
   float m = kNegInf, l = 0.f;
   for (int t0 = lo; t0 <= last; t0 += CHUNK) {
-    V kr[CHUNK], vr[CHUNK];
+    V kr[CHUNK][NV], vr[CHUNK][NV];
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c) {
-      const size_t off = row(min(t0 + c, last)) + lane * NPL;
-      kr[c] = *reinterpret_cast<const V*>(kc + off);
-      vr[c] = *reinterpret_cast<const V*>(vc + off);
+      const size_t off = row(min(t0 + c, last));
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        kr[c][i] = on[i] ? *reinterpret_cast<const V*>(kc + off + col[i])
+                         : V{};
+        vr[c][i] = on[i] ? *reinterpret_cast<const V*>(vc + off + col[i])
+                         : V{};
+      }
     }
     float s[CHUNK];
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c) {
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) part += qv[i] * to_f32(kr[c].v[i]);
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < NE; ++e) part += qv[i][e] * to_f32(kr[c][i].v[e]);
       s[c] = part;
     }
 #pragma unroll
@@ -115,41 +160,57 @@ __device__ __forceinline__ void attend_keys(
     const float corr = expf(m - mc);
     l *= corr;
 #pragma unroll
-    for (int i = 0; i < NPL; ++i) acc[i] *= corr;
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[i][e] *= corr;
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c) {
       const float pc = expf(s[c] - mc);  // exactly 0 for masked keys
       l += pc;
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] += pc * to_f32(vr[c].v[i]);
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < NE; ++e) acc[i][e] += pc * to_f32(vr[c][i].v[e]);
     }
     m = mc;
   }
 
   const float denom = fmaxf(l, 1e-37f);
-  V o;
+  T* orow = out + ((size_t)b * H + h) * HD;
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) o.v[i] = from_f32<T>(acc[i] / denom);
-  *reinterpret_cast<V*>(out + ((size_t)b * H + h) * hd + lane * NPL) = o;
+  for (int i = 0; i < NV; ++i) {
+    if (!on[i]) continue;
+    V o;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) o.v[e] = from_f32<T>(acc[i][e] / denom);
+    *reinterpret_cast<V*>(orow + col[i]) = o;
+  }
 }
 
-// Calls launch(std::integral_constant<int, NPL>) for head_dim = 32 * NPL in
-// {32, 64, 128, 256}.  Returns cudaErrorInvalidValue for any other head_dim,
-// else cudaGetLastError() after the launch.
+// Calls launch(std::integral_constant<int, HD>) for every head_dim the
+// model configs use (16, 32, 64, 96, 128, 256).  Returns
+// cudaErrorInvalidValue for any other head_dim, else cudaGetLastError()
+// after the launch.
 template <typename F>
 int launch_for_head_dim(int hd, F&& launch) {
   switch (hd) {
+    case 16:
+      launch(std::integral_constant<int, 16>{});
+      break;
     case 32:
-      launch(std::integral_constant<int, 1>{});
+      launch(std::integral_constant<int, 32>{});
       break;
     case 64:
-      launch(std::integral_constant<int, 2>{});
+      launch(std::integral_constant<int, 64>{});
+      break;
+    case 96:
+      launch(std::integral_constant<int, 96>{});
       break;
     case 128:
-      launch(std::integral_constant<int, 4>{});
+      launch(std::integral_constant<int, 128>{});
       break;
     case 256:
-      launch(std::integral_constant<int, 8>{});
+      launch(std::integral_constant<int, 256>{});
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

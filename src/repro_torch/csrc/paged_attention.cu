@@ -35,20 +35,21 @@
 // outputs are discarded, and no live row reads TRASH at or below its pos.
 //
 // Known limit: one block per (b, k), B*K = 64 blocks at 8 slots of
-// llama3-8b on 132 SMs: under-filled and latency bound, like the dense
-// kernel.  Split-K over pages, TMA page gathers and wgmma for the grouped
-// dot are later work.
+// llama3-8b on 132 SMs: under-filled and latency bound.  Split-K over
+// pages (as decode_attention.cu now does over a dense row), TMA page
+// gathers and wgmma for the grouped dot are later work.
 //
 // Arithmetic follows the JAX package: q is scaled by hd^-0.5 before the dot,
 // the softcap cap*tanh(s/cap) comes before masking, only live keys enter the
 // softmax, the final division clamps l at 1e-37, the output is cast to q's
 // dtype.  Loads are f32 or bf16 (template), accumulation is f32.  head_dim
-// is 32, 64, 128 or 256: one vector of head_dim/32 elements per lane.
+// is 16, 32, 64, 96, 128 or 256: lanes hold vectors of at most 16 bytes
+// (Lanes in attention_common.cuh), idle lanes masked.
 #include "attention_common.cuh"
 
 namespace {
 
-template <typename T, int NPL>
+template <typename T, int HD>
 __global__ void paged_attention_kernel(
     const T* __restrict__ q, T* __restrict__ kp, T* __restrict__ vp,
     const T* __restrict__ nk, const T* __restrict__ nv,
@@ -63,15 +64,15 @@ __global__ void paged_attention_kernel(
   const int last = min(p, nb * ps - 1);
   const int lo = window > 0 ? max(p - window + 1, 0) : 0;
   const int* ptb = pt + (size_t)b * nb;
-  const size_t stride = (size_t)K * 32 * NPL;  // elements between page rows
-  const size_t head = (size_t)kh * 32 * NPL;
+  const size_t stride = (size_t)K * HD;  // elements between page rows
+  const size_t head = (size_t)kh * HD;
   // a page id outside the pool is clamped, so that no launch can read or
   // write outside it; the engine never maps one
   auto row = [=](int t) {
     const int page = min(max(ptb[t / ps], 0), P - 1);
     return ((size_t)page * ps + t % ps) * stride + head;
   };
-  attend_keys<T, NPL>(q, kp, vp, nk, nv, out, b, kh, H, K,
+  attend_keys<T, HD>(q, kp, vp, nk, nv, out, b, kh, H, K,
                       nk != nullptr && p >= 0 && p / ps < nb, p, lo, last,
                       row, scale, cap);
 }
@@ -81,8 +82,8 @@ int launch(const void* q, void* k, void* v, const void* nk, const void* nv,
            const void* pt, const void* pos, void* out, int B, int H, int K,
            int P, int ps, int nb, int hd, int window, float scale, float cap,
            cudaStream_t stream) {
-  return launch_for_head_dim(hd, [&](auto npl) {
-    paged_attention_kernel<T, decltype(npl)::value>
+  return launch_for_head_dim(hd, [&](auto head_dim) {
+    paged_attention_kernel<T, decltype(head_dim)::value>
         <<<dim3(K, B), dim3(32 * (H / K)), 0, stream>>>(
             static_cast<const T*>(q), static_cast<T*>(k),
             static_cast<T*>(v), static_cast<const T*>(nk),
@@ -94,7 +95,8 @@ int launch(const void* q, void* k, void* v, const void* nk, const void* nv,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}.  q (B,H,hd);
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 96, 128, 256}.
+// q (B,H,hd);
 // k/v pools (P,ps,K,hd); pt (B,nb) int32; pos (B,) int32.  nk == nv == NULL
 // attends a pool that already holds the new row.  Returns
 // cudaGetLastError() after the launch.

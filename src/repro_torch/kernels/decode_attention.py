@@ -5,7 +5,9 @@ through ``decode_attention`` and ``decode_attention_fused``).  One query
 row per slot attends that slot's cache prefix ``k_idx <= pos[b]``, inside
 its local window when ``window > 0``; the fused variant first writes the
 new token's K/V row at ``pos[b]``.  The CUDA kernel is
-``csrc/decode_attention.cu``; its design note says what bounds it.
+``csrc/decode_attention.cu``: the keys of a row are split into chunks of
+32-256 keys over a cluster of up to 8 blocks whose partial softmax states
+combine in the same launch; its design note says what bounds it.
 
 Layouts (cache-native, as in the JAX package):
   q (B, H, hd); k/v cache (B, L, K, hd); new k/v rows (B, K, hd);
@@ -18,8 +20,8 @@ import ctypes
 import torch
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128, 256)   # one vector of hd/32 elements per lane
-MAX_GROUP = 32          # one warp per q head of a kv group, <= 1024 threads
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # every head_dim of the configs
+MAX_GROUP = 32          # q heads of a kv group (the paged kernel: a warp each)
 
 
 def decode_attention_plain(q, k, v, pos, window=0, *, logit_cap=0.0):
@@ -90,10 +92,11 @@ def check_args(q, k, v, new_k, new_v, pos, window):
     for t in (q, k, v, pos):
         if not t.is_contiguous():
             raise ValueError("q, k, v and pos must be contiguous")
-    vec = hd // 32 * q.element_size()      # bytes of one lane's vector load
-    for t in (q, k, v):
-        if t.data_ptr() % vec:
-            raise ValueError(f"q, k and v must be {vec}-byte aligned")
+    # 16-byte copies of K/V rows (cp.async) and of the new rows
+    for t in (q, k, v) + ((new_k, new_v) if new_k is not None else ()):
+        if t.data_ptr() % 16:
+            raise ValueError("q, k, v and the new rows must be 16-byte "
+                             "aligned")
 
 
 def launch_cuda(fn, q, k, v, new_k, new_v, pos, window, logit_cap):

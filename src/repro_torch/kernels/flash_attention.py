@@ -6,8 +6,9 @@ with a logit softcap, q head h reading kv head ``h // (H/K)``.  Beyond the
 TPU kernel it also returns each row's log-sum-exp, the statistic the
 backward recomputes the probabilities from, and it takes any Sq and Skv
 (the ragged edge is masked inside the kernel) and any strides with a
-contiguous last dimension.  The CUDA kernel is ``csrc/flash_attention.cu``;
-its design note says what bounds it.
+contiguous last dimension.  The CUDA kernel is ``csrc/flash_attention.cu``
+(bf16: TMA loads into a warp-specialised ``wgmma`` pipeline; f32: the
+CUDA cores); its design note says what bounds it.
 
 Layouts (the Pallas kernel's): q (B, H, Sq, hd); k/v (B, K, Skv, hd) ->
 o (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) f32.  ``window`` <= 0 is
@@ -20,8 +21,8 @@ import ctypes
 import torch
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128, 256)
-MAX_GRID_YZ = 65535              # heads and batch ride grid dims y and z
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # every head_dim of the configs
+MAX_GRID_YZ = 65535              # grid dims y and z: heads or q tiles, batch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

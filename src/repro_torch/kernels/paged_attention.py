@@ -118,10 +118,10 @@ def check_args(q, k, v, new_k, new_v, page_table, pos, window):
         if not t.is_contiguous():
             raise ValueError("q, k, v, page_table and pos must be "
                              "contiguous")
-    vec = hd // 32 * q.element_size()      # bytes of one lane's vector load
+    # a lane's vector load is at most 16 bytes
     for t in (q, k, v):
-        if t.data_ptr() % vec:
-            raise ValueError(f"q, k and v must be {vec}-byte aligned")
+        if t.data_ptr() % 16:
+            raise ValueError("q, k and v must be 16-byte aligned")
 
 
 def launch_cuda(fn, q, k, v, new_k, new_v, page_table, pos, window,

@@ -5,9 +5,9 @@
         --reduced --steps 8 --steps-per-sync 4
 
 ``--reduced`` is the JAX launcher's smoke config (4 layers, d_model 128,
-d_ff 256) with head_dim 32, the flash kernel's smallest, in place of 16.
-Without it the full config is built: llama3-8b's 32 layers (8 B
-parameters at 16 bytes of train state each) do not fit one 80 GB card.
+d_ff 256, head_dim 16).  Without it the full config is built: llama3-8b's
+32 layers (8 B parameters at 16 bytes of train state each) do not fit one
+80 GB card.
 Runs on the CUDA device unless ``--device cpu`` is given (it never falls
 back to the CPU).  Weights are random, drawn from a ``torch.Generator``
 seeded with 0; the data are the counter-hash token stream (seed 0).  It
@@ -60,7 +60,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-sized config (4 layers, d_model 128, "
-                         "head_dim 32)")
+                         "head_dim 16)")
     ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fused K-step train windows (--no-fused for the "
@@ -82,9 +82,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
-        # head_dim 32, not reduce_cfg's 16: the flash kernel's smallest
-        cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256,
-                         head_dim=32)
+        cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256)
     model = build_model(cfg, max_seq=args.seq, device=device)
     opt = AdamW(lr=warmup_cosine(args.lr, 10, args.steps))
     dcfg = DataConfig(cfg.vocab_size, args.seq, args.batch)

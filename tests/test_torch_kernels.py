@@ -6,6 +6,9 @@ these tests pin the plain versions — the CUDA kernels' oracles — to the
 JAX reference, and pin what the wrappers do around the kernels: argument
 checks, device dispatch, launch counting and the build's error path.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +17,11 @@ torch = pytest.importorskip("torch")   # CI images without PyTorch skip
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs import get_config, list_archs, reduced
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import sampling as sm
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py bounds
@@ -63,6 +69,8 @@ SWEEP = [
     (2, 4, 1, 128, 64, 24, 0.0, 32),      # MQA + local window
     (4, 6, 2, 96, 32, 8, 50.0, 32),       # softcap + window, odd L
     (5, 2, 2, 128, 64, 200, 30.0, 128),   # window > L == global
+    (3, 4, 2, 64, 16, 0, 0.0, 32),        # reduced() configs' head_dim
+    (4, 6, 3, 96, 96, 8, 30.0, 32),       # phi3-mini-3.8b's head_dim
 ]
 
 
@@ -241,3 +249,256 @@ def test_build_names_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no-nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# --- head dims -----------------------------------------------------------
+
+
+def _attention_head_dims():
+    """Every head_dim of the port's configs and of their ``reduced()``
+    forms, for the configs that have attention heads."""
+    dims = set()
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for c in (cfg, reduced(cfg)):
+            if c.num_heads > 0:
+                dims.add(c.head_dim)
+    return dims
+
+
+def test_every_config_head_dim_is_taken_by_the_attention_kernels():
+    dims = _attention_head_dims()
+    assert {16, 96, 128} <= dims
+    for mod in (da, pa, fa):
+        assert dims <= set(mod.HEAD_DIMS), mod.__name__
+
+
+@pytest.mark.parametrize("hd,ok", [(16, True), (96, True), (48, False)])
+def test_check_args_take_16_and_96_and_refuse_48(hd, ok):
+    """The three attention wrappers' argument checks at the new head dims
+    and at one that no config uses."""
+    B, H, K = 2, 4, 2
+    q, k = torch.zeros(B, H, hd), torch.zeros(B, 16, K, hd)
+    pos = torch.zeros(B, dtype=torch.int32)
+    pool, pt = torch.zeros(5, 4, K, hd), torch.zeros(B, 2, dtype=torch.int32)
+    fq, fk = torch.zeros(B, H, 40, hd), torch.zeros(B, K, 40, hd)
+    calls = (lambda: da.check_args(q, k, k, None, None, pos, 0),
+             lambda: pa.check_args(q, pool, pool, None, None, pt, pos, 0),
+             lambda: fa.check_args(fq, fk, fk, True, 0, 0.0))
+    for call in calls:
+        if ok:
+            call()
+        else:
+            with pytest.raises(ValueError, match="head_dim"):
+                call()
+
+
+@pytest.mark.parametrize("wrapper", ["decode", "paged"])
+@pytest.mark.parametrize("shift", [4, 8])
+def test_decode_and_paged_check_args_refuse_unaligned_rows(wrapper, shift):
+    """Both decode wrappers hold q, k and v to one alignment rule, 16
+    bytes (a 16-byte cp.async in the decode kernel, a lane vector of at
+    most 16 bytes in the paged one): a start ``shift`` bytes off is
+    refused, an aligned one taken."""
+    B, H, K, hd = 2, 4, 2, 32
+    pos = torch.zeros(B, dtype=torch.int32)
+    pool, pt = torch.zeros(5, 4, K, hd), torch.zeros(B, 2, dtype=torch.int32)
+    cache = torch.zeros(B, 16, K, hd)
+
+    def call(q):
+        if wrapper == "decode":
+            da.check_args(q, cache, cache, None, None, pos, 0)
+        else:
+            pa.check_args(q, pool, pool, None, None, pt, pos, 0)
+
+    n = B * H * hd
+    call(torch.zeros(n).view(B, H, hd))
+    off = shift // 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(torch.zeros(n + off)[off:].view(B, H, hd))
+
+
+# --- the split-K algebra of the decode kernel ------------------------------
+
+
+def _split_decode(q, k, v, pos, window, chunk, splits, logit_cap=0.0):
+    """decode_attention.cu's arithmetic in plain torch (f32): block r of a
+    row's cluster takes chunks clo + r, clo + r + splits, ... of the live
+    range [lo, pos]; its partial (m, l, acc) runs an online softmax over
+    its chunks; the partials combine with weights exp(m_r - max m), where a
+    block with no live key offers (m = -inf, l = 0) and weighs 0."""
+    B, H, hd = q.shape
+    L, K = k.shape[1], k.shape[2]
+    G = H // K
+    out = torch.empty(B, H, hd)
+    for b in range(B):
+        p = min(max(int(pos[b]), 0), L - 1)
+        lo = max(p - window + 1, 0) if window > 0 else 0
+        clo = lo // chunk
+        nch = p // chunk - clo + 1
+        for kh in range(K):
+            qg = q[b, kh * G:(kh + 1) * G].float() * hd ** -0.5
+            ms, ls, accs = [], [], []
+            for r in range(splits):
+                m = torch.full((G,), -float("inf"))
+                l, acc = torch.zeros(G), torch.zeros(G, hd)
+                for c in range(clo + r, clo + nch, splits):
+                    t0, t1 = max(c * chunk, lo), min(c * chunk + chunk - 1, p)
+                    kk = k[b, t0:t1 + 1, kh].float()
+                    vv = v[b, t0:t1 + 1, kh].float()
+                    s = qg @ kk.T
+                    if logit_cap:
+                        s = logit_cap * torch.tanh(s / logit_cap)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp(m - m_new)
+                    e = torch.exp(s - m_new[:, None])
+                    l = l * corr + e.sum(-1)
+                    acc = acc * corr[:, None] + e @ vv
+                    m = m_new
+                ms.append(m), ls.append(l), accs.append(acc)
+            m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+            live = l > 0
+            assert bool(live.any(0).all())
+            top = torch.where(live, m, torch.full_like(m, -float("inf")))
+            w = torch.where(live, torch.exp(m - top.amax(0)),
+                            torch.zeros_like(m))
+            total = (w * l).sum(0).clamp(min=1e-37)
+            out[b, kh * G:(kh + 1) * G] = (w[..., None] * acc).sum(0) \
+                / total[:, None]
+    return out
+
+
+@pytest.mark.parametrize("L,hd,chunk,splits,window,cap,pos", [
+    # the kernel's geometry at f32 / hd 128: 64-key chunks, 16 of them
+    # over a cluster of 8 blocks
+    (1000, 128, 64, 8, 0, 0.0, [0, 63, 64, 999, 500, 130]),
+    (1000, 128, 64, 8, 300, 30.0,
+     [999, 299, 700, 64, 5, 650]),
+    # small chunks: blocks without a live key, windows past whole chunks
+    (100, 16, 16, 4, 0, 0.0, [0, 5, 99, 40, 15, 16]),
+    (100, 16, 16, 8, 30, 50.0, [99, 29, 31, 70, 47, 0]),
+    (96, 96, 32, 3, 0, 0.0, [95, 31, 32, 0, 64, 63]),
+])
+def test_split_decode_algebra_matches_plain(L, hd, chunk, splits, window, cap,
+                                            pos):
+    B, H, K = len(pos), 4, 2
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, hd), (B, L, K, hd), (B, L, K, hd)))
+    p = torch.tensor(pos, dtype=torch.int32)
+    want = da.decode_attention_plain(q, k, v, p, window, logit_cap=cap)
+    got = _split_decode(q, k, v, p, window, chunk, splits, logit_cap=cap)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+# --- the launchers, through stand-ins for the compiled functions -----------
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def _f32_at(ptr: int, n: int) -> torch.Tensor:
+    """n float32 values at address ``ptr``, as a tensor sharing them."""
+    return torch.from_numpy(np.ctypeslib.as_array(
+        (ctypes.c_float * n).from_address(ptr)))
+
+
+def test_decode_launcher_marshals_arguments(monkeypatch):
+    """``launch_cuda``'s argument order, scale and output allocation: a
+    stand-in for ``csrc/decode_attention.cu::decode_attention`` reads the
+    tensors back from the pointers it is given, writes the new rows and
+    the plain attention into them, and the wrapper returns that output."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    B, H, K, L, hd, window, cap = 3, 8, 2, 40, 96, 11, 30.0
+    pairs, (_, pos) = _decode_setup(12, B, H, K, L, hd, "float32")
+    (_, q), (_, k), (_, v), (_, nk), (_, nv) = pairs
+    kp, vp = k.clone(), v.clone()
+    want = da.decode_attention_fused_plain(q, kp, vp, nk, nv, pos, window,
+                                           logit_cap=cap)
+    seen = {}
+
+    def fake(dtype, q_p, k_p, v_p, nk_p, nv_p, pos_p, out_p, B_, H_, K_, L_,
+             hd_, window_, scale, cap_, stream):
+        seen.update(dtype=dtype, dims=(B_, H_, K_, L_, hd_), window=window_,
+                    scale=scale, cap=cap_, fused=nk_p is not None)
+        ptrs = (q_p, k_p, v_p, nk_p, nv_p, pos_p)
+        assert ptrs == tuple(t.data_ptr() for t in (q, k, v, nk, nv, pos))
+        qq = _f32_at(q_p, B_ * H_ * hd_).view(B_, H_, hd_)
+        kk, vv = (_f32_at(x, B_ * L_ * K_ * hd_).view(B_, L_, K_, hd_)
+                  for x in (k_p, v_p))
+        nkk, nvv = (_f32_at(x, B_ * K_ * hd_).view(B_, K_, hd_)
+                    for x in (nk_p, nv_p))
+        _f32_at(out_p, B_ * H_ * hd_).view(B_, H_, hd_).copy_(
+            da.decode_attention_fused_plain(qq, kk, vv, nkk, nvv, pos,
+                                            window_, logit_cap=cap_))
+        return 0
+
+    got = da.launch_cuda(fake, q, k, v, nk, nv, pos, window, cap)
+    assert seen == dict(dtype=0, dims=(B, H, K, L, hd), window=window,
+                        scale=pytest.approx(hd ** -0.5), cap=cap, fused=True)
+    assert torch.equal(got, want)
+    assert torch.equal(k, kp) and torch.equal(v, vp)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        da.launch_cuda(lambda *a: 9, q, k, v, None, None, pos, 0, 0.0)
+
+
+def test_flash_launcher_marshals_strides(monkeypatch):
+    """``launch_cuda``'s strides and outputs on the model's transposed
+    (B, S, H, hd) views: a stand-in for ``csrc/flash_attention.cu``
+    rebuilds q, k, v and o from pointers and element strides, writes the
+    plain attention and lse, and the wrapper returns o with q's strides."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    B, H, K, S, hd = 2, 4, 2, 24, 16
+    rng = np.random.default_rng(13)
+
+    def model_view(n):
+        x = rng.standard_normal((B, S, n, hd)).astype(np.float32)
+        return torch.from_numpy(x).transpose(1, 2)
+
+    q, k, v = model_view(H), model_view(K), model_view(K)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                              window=7, logit_cap=20.0)
+
+    def fake(dtype, q_p, k_p, v_p, o_p, lse_p, B_, H_, K_, Sq, Skv, hd_,
+             *rest):
+        strides, (causal, window, scale, cap, stream) = rest[:12], rest[12:]
+        assert dtype == 0 and scale == pytest.approx(hd_ ** -0.5)
+
+        def view(ptr, n, st):
+            return _f32_at(ptr, B_ * S * n * hd_).as_strided(
+                (B_, n, S, hd_), (*st, 1))
+        qq, kk, vv, oo = (view(p, n, strides[3 * i:3 * i + 3]) for i, (p, n)
+                          in enumerate(((q_p, H_), (k_p, K_), (v_p, K_),
+                                        (o_p, H_))))
+        o, lse = fa.flash_attention_plain(qq, kk, vv, causal=bool(causal),
+                                          window=window, logit_cap=cap)
+        oo.copy_(o)
+        _f32_at(lse_p, B_ * H_ * Sq).view(B_, H_, Sq).copy_(lse)
+        return 0
+
+    got, lse = fa.launch_cuda(fake, q, k, v, True, 7, 20.0)
+    assert got.stride() == q.stride()
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        fa.launch_cuda(lambda *a: 700, q, k, v, True, 0, 0.0)
+
+
+@pytest.mark.parametrize("source,name,argtypes", [
+    ("decode_attention", "decode_attention", da.ARGTYPES),
+    ("flash_attention", "flash_attention", fa.ARGTYPES),
+    ("paged_attention", "paged_decode_attention", pa.ARGTYPES),
+])
+def test_attention_c_interfaces_match_the_ctypes_declarations(source, name,
+                                                              argtypes):
+    """Each ``extern "C"`` attention entry point takes as many arguments,
+    pointers where pointers, as its ``ARGTYPES`` declares (ctypes cannot
+    check it)."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    params = [x.strip() for x in m.group(1).split(",")]
+    assert len(params) == len(argtypes)
+    assert ["*" in x for x in params] == \
+        [t is ctypes.c_void_p for t in argtypes]

@@ -293,6 +293,35 @@ def test_paged_attention_matches_jax(dtype, window, cap):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,K,G,window,cap", [(96, 2, 2, 0, 0.0),
+                                               (96, 1, 4, 11, 30.0),
+                                               (16, 4, 1, 11, 50.0)])
+def test_paged_attention_matches_jax_at_config_head_dims(dtype, hd, K, G,
+                                                         window, cap):
+    """phi3-mini-3.8b's head_dim 96 and the reduced configs' 16: the fused
+    plain version within the JAX tests' bound of the Pallas kernel
+    (interpret mode) and of ``paged_decode_attention_ref``, pools bitwise
+    equal to the kernel's write-back."""
+    pairs, pt, pos = _paged_setup(21, dtype, K=K, G=G, hd=hd)
+    (jq, tq), (jk, tk), (jv, tv), (jnk, tnk), (jnv, tnv) = pairs
+    jo, jck, jcv = jops.paged_decode_attention_fused(
+        jq, jk, jv, jnk, jnv, jnp.asarray(pt), jnp.asarray(pos),
+        jnp.int32(window), logit_cap=cap, interpret=True)
+    to = ops.paged_decode_attention_fused(tq, tk, tv, tnk, tnv,
+                                          torch.from_numpy(pt),
+                                          torch.from_numpy(pos), window,
+                                          logit_cap=cap)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(to), _f32(jo), rtol=tol, atol=tol)
+    np.testing.assert_array_equal(_bits(tk), _bits(jck))
+    np.testing.assert_array_equal(_bits(tv), _bits(jcv))
+    want = jref.paged_decode_attention_ref(jq, jck, jcv, jnp.asarray(pt),
+                                           jnp.asarray(pos), window,
+                                           logit_cap=cap)
+    np.testing.assert_allclose(_f32(to), _f32(want), rtol=tol, atol=tol)
+
+
 def test_fused_write_touches_only_boundary_rows():
     pairs, pt, pos = _paged_setup(8, "float32")
     (_, q), (_, k), (_, v), (_, nk), (_, nv) = pairs

@@ -91,6 +91,10 @@ def _assert_close(t, j, tol, what=""):
         (1, 6, 2, 128, 128, 64, True, 48, 0.0, 64, 64),     # local window
         (1, 4, 1, 64, 64, 128, True, 0, 50.0, 32, 32),      # softcap + MQA
         (1, 2, 2, 64, 128, 64, False, 0, 0.0, 64, 64),      # cross attn
+        (2, 4, 2, 64, 64, 16, True, 0, 0.0, 32, 32),        # reduced() hd
+        (1, 4, 2, 96, 96, 16, True, 24, 30.0, 32, 32),
+        (1, 4, 4, 64, 64, 96, True, 0, 0.0, 32, 32),        # phi3's hd
+        (1, 6, 2, 64, 96, 96, False, 0, 50.0, 32, 32),
     ])
 def test_flash_plain_matches_pallas_and_ref(dtype, B, H, Kh, Sq, Skv, hd,
                                             causal, window, cap, bq, bk):
@@ -163,8 +167,10 @@ def test_flash_check_args_refuses_what_the_kernel_does_not_take():
     from repro_torch.kernels import flash_attention as fa
     with pytest.raises(ValueError, match="no key"):
         fa.check_args(q, k, k, True, 16, 0.0)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.check_args(q[..., :16], k[..., :16], k[..., :16], True, 0, 0.0)
+    with pytest.raises(ValueError, match="head_dim"):   # no config's
+        fa.check_args(torch.zeros(1, 2, 40, 48), torch.zeros(1, 2, 8, 48),
+                      torch.zeros(1, 2, 8, 48), True, 0, 0.0)
+    fa.check_args(q[..., :16], k[..., :16], k[..., :16], True, 0, 0.0)
     fa.check_args(q.transpose(1, 2).contiguous().transpose(1, 2),
                   k, k, True, 0, 0.0)          # strided model layout
 
