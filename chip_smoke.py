@@ -2,6 +2,12 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --only decode,sampling,paged [--tree DIR]
+
+The second form runs phases 0, 1 and the named kernel phases only, of this
+checkout or of the checkout at DIR (an older commit unpacked into a
+directory ``.gitignore`` lists), to time two versions on one card in one
+call: parent, change, change, parent.
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -13,11 +19,15 @@ result line:
      with median times over 50 CUDA-event-timed runs (L2 flushed before
      each); the split-K decode kernel also at head_dims 16 and 96 and on
      its split edge cases (B = 1, L off the chunk grid, a window past whole
-     chunks, rows inside one chunk); the paged decode kernel over a page
-     pool at page sizes 8 and 16 and head_dims 16 and 96, half the rows
-     sharing a 512-token prefix and one free row on the TRASH page: output
-     within bound, write-back bitwise outside TRASH, pages past each row's
-     position ignored bit for bit;
+     chunks, rows inside one chunk); the sampler (split over a cluster)
+     also on a tie and a NaN across blocks of a row, rows of -inf, V = 31
+     and 1000, B = 1 and 64; the paged decode kernel (the same split-K
+     body) over a page pool at page sizes 8 and 16 and head_dims 16 and
+     96, half the rows sharing a 512-token prefix and one free row on the
+     TRASH page, and on its split cases (rows inside one chunk, page size
+     5, a window past whole chunks, rows at and past the end of their
+     table, three free rows): output within bound, write-back bitwise
+     outside TRASH, pages past each row's position ignored bit for bit;
   2c. the recurrent families' scans against their plain versions: the
      SSD chunked scan at mamba2-1.3b's prefill shape (B=4, S=2048, H=64,
      P=64, N=128, chunk 256) in bf16 and f32, from a zero and a nonzero
@@ -352,6 +362,71 @@ def phase_decode_attention(flush) -> dict:
             "library_ms": library_ms}
 
 
+def _check_sample(logits, temps, key, label: str):
+    """``fused_sample`` against ``torch.argmax`` (greedy rows, bitwise) and
+    the plain version (temperature rows, equal up to last-ulp ties);
+    returns the kernel's tokens and the largest score gap between the two
+    picks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sampling as sm
+    B = logits.shape[0]
+    got = ops.fused_sample(logits, temps, key)
+    want = sm.fused_sample_plain(logits, temps, key)
+    argmax = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    greedy = temps <= 0
+    check(torch.equal(got[greedy], argmax[greedy]),
+          f"{label}: greedy rows {got[greedy].tolist()} != torch.argmax "
+          f"{argmax[greedy].tolist()}")
+    score = sm.perturbed_logits(logits, temps, key)
+    rows = torch.arange(B, device=DEVICE)
+    gap = (score[rows, want.long()] - score[rows, got.long()]).abs()
+    diff = got != want
+    for b in torch.nonzero(diff).flatten().tolist():
+        top2 = torch.topk(score[b], 2).values
+        print(f"  {label} row {b}: kernel {int(got[b])} plain "
+              f"{int(want[b])} score gap {float(gap[b]):.3g}, top-2 gap "
+              f"{float(top2[0] - top2[1]):.3g}")
+        check(float(gap[b]) <= SAMPLE_TIE_REL * float(score[b].abs().max()),
+              f"{label} row {b} differs beyond a last-ulp tie")
+    blocks = sm.cluster_blocks(B, logits.shape[1], sm.sm_count(DEVICE))
+    print(f"fused_sample {label}: cluster of {blocks} blocks a row, greedy "
+          f"rows bitwise == torch.argmax, temperature rows "
+          f"{int((~diff).sum())}/{B} equal to plain")
+    return got, float(torch.where(diff, gap, torch.zeros_like(gap)).max())
+
+
+def _sample_split_cases(gen) -> None:
+    """The cases the split over a cluster creates: a tie and a NaN whose
+    occurrences lie in different blocks of one row's cluster, rows of all
+    -inf (greedy and at a temperature), a vocab of 31 and of 1000 (rows off
+    16-byte boundaries, a cluster of one), one row and 64 rows."""
+    key = torch.tensor([0x0BADF00D, 0x7FFFFFFF], dtype=torch.int64,
+                       device=DEVICE)
+    B, V = 8, 128256
+    logits = torch.randn(B, V, generator=gen, device=DEVICE) * 3.0
+    # S = 16 blocks of ~8016 logits each at B = 8 on 132 SMs
+    logits[0, [100, 100000]] = 80.0               # tie across blocks 0, 12
+    logits[1, [60000, 127000]] = 80.0             # tie across blocks 7, 15
+    logits[2, 90000] = logits[2, 120000] = float("nan")   # first NaN wins
+    logits[2, 10] = 1e30
+    logits[3] = float("-inf")
+    logits[4] = float("-inf")
+    logits[5, 70000] = logits[5, 5000] = float("nan")     # at a temperature
+    temps = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.9, 1.1, 0.6, 0.0],
+                         device=DEVICE)
+    _check_sample(logits, temps, key, "split B=8 V=128256 ties/NaN/-inf")
+    got = torch.argmax(logits[:4], dim=-1).tolist()
+    check(got == [100, 60000, 90000, 0], f"torch.argmax {got}")
+    for B, V in ((8, 31), (8, 1000), (1, 128256), (64, 128256)):
+        logits = torch.randn(B, V, generator=gen, device=DEVICE) * 3.0
+        logits[0, [V // 3, V - 1]] = 70.0          # a tie on a greedy row
+        temps = torch.where(torch.arange(B, device=DEVICE) % 2 == 0,
+                            torch.zeros(B, device=DEVICE),
+                            torch.full((B,), 0.8, device=DEVICE))
+        _check_sample(logits, temps, key, f"B={B} V={V}")
+
+
 def phase_sampling(flush) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import sampling as sm
@@ -366,28 +441,8 @@ def phase_sampling(flush) -> dict:
                          device=DEVICE)
     key = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64,
                        device=DEVICE)
-    got = ops.fused_sample(logits, temps, key)
-    want = sm.fused_sample_plain(logits, temps, key)
-    argmax = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    greedy = temps <= 0
-    check(torch.equal(got[greedy], argmax[greedy]),
-          f"greedy rows {got[greedy].tolist()} != torch.argmax "
-          f"{argmax[greedy].tolist()}")
+    got, err = _check_sample(logits, temps, key, f"B={B} V={V}")
     check(int(got[0]) == 5 and int(got[1]) == 3, "first-occurrence ties")
-    score = sm.perturbed_logits(logits, temps, key)
-    rows = torch.arange(B, device=DEVICE)
-    gap = (score[rows, want.long()] - score[rows, got.long()]).abs()
-    err = float(gap.max())
-    for b in torch.nonzero(got != want).flatten().tolist():
-        top2 = torch.topk(score[b], 2).values
-        print(f"  sample row {b}: kernel {int(got[b])} plain {int(want[b])}"
-              f" score gap {float(gap[b]):.3g}, top-2 gap "
-              f"{float(top2[0] - top2[1]):.3g}")
-        check(float(gap[b]) <= SAMPLE_TIE_REL * float(score[b].abs().max()),
-              f"sample row {b} differs beyond a last-ulp tie")
-    print(f"fused_sample B={B} V={V}: greedy rows bitwise == torch.argmax, "
-          f"temperature rows {int((got == want).sum())}/{B} equal to plain")
     ms = median_ms(lambda: ops.fused_sample(logits, temps, key), flush=flush)
     plain_ms = median_ms(lambda: sm.fused_sample_plain(logits, temps, key),
                          flush=flush)
@@ -399,9 +454,15 @@ def phase_sampling(flush) -> dict:
     t_b, t_f = nbytes / HBM_BYTES_PER_S, ops_count / F32_FLOPS_PER_S
     bound_ms, bound_by = max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f
                                                else "operations")
-    print(f"fused_sample: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.argmax {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by})")
+    # the same rows all greedy: what the temperature rows' hash, two IEEE
+    # logs and division cost on the blocks that take them
+    greedy = torch.zeros_like(temps)
+    greedy_ms = median_ms(lambda: ops.fused_sample(logits, greedy, key),
+                          flush=flush)
+    print(f"fused_sample: kernel {ms:.4f} ms (all rows greedy "
+          f"{greedy_ms:.4f}), plain {plain_ms:.4f} ms, torch.argmax "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    _sample_split_cases(gen)
     return {"name": "fused_sample", "route": "cuda",
             "source": "src/repro_torch/csrc/sampling.cu",
             "replaces": "src/repro/kernels/sampling.py:51",
@@ -413,26 +474,15 @@ def phase_sampling(flush) -> dict:
 # ---------------------------------------------------------------- phase 2b
 
 
-def _paged_inputs(gen, dtype, ps, B=8, H=32, K=8, hd=128, L=1024,
-                  prefix=512):
-    """llama3-8b decode shapes over a page pool of B * nb pages + TRASH:
+def _paged_inputs(gen, dtype, ps, H=32, K=8, hd=128, L=1024, prefix=512):
+    """llama3-8b decode shapes over a page pool of 8 * nb pages + TRASH:
     rows 0-3 share a ``prefix``-token prefix (rows 1-3 map row 0's
     pages), rows 4-6 are private, row 7 is a free slot mapping every page
     to TRASH; positions are ragged and every live boundary page is
     private."""
-    nb = L // ps
-    P = B * nb + 1
-
-    def r(*shape):
-        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
-
-    pt = torch.arange(B * nb, dtype=torch.int32, device=DEVICE).view(B, nb)
-    pt[1:4, :prefix // ps] = pt[0, :prefix // ps]
-    pt[7] = P - 1
-    pos = torch.tensor([prefix, prefix + 1, 640, L - 1, 0, 127, 300, 5],
-                       dtype=torch.int32, device=DEVICE)
-    return (r(B, H, hd), r(P, ps, K, hd), r(P, ps, K, hd), r(B, K, hd),
-            r(B, K, hd), pt.contiguous(), pos)
+    return _paged_pool(gen, dtype, ps, L // ps,
+                       [prefix, prefix + 1, 640, L - 1, 0, 127, 300, 5],
+                       shared=prefix // ps, free=(7,), H=H, K=K, hd=hd)
 
 
 def _live_rows(pt, pos, ps, window=0):
@@ -463,11 +513,119 @@ def _paged_bound(q, k, pt, pos):
             len(distinct), keys)
 
 
+def _check_paged(label, dtype, window, cap, q, k, v, nk, nv, pt, pos, *,
+                 free=()) -> float:
+    """The fused paged kernel against its plain version on one pool (TRASH
+    the last page; ``free`` the rows mapping every page to it): live rows'
+    output within the JAX tests' bound (all rows' when at most one is
+    free, as then nothing races on TRASH), the write-back bitwise on every
+    page but TRASH, only each live row's (pt[b, pos/ps], pos%ps) changed
+    (nothing for a row past its table), keys past each live row's pos
+    poisoned with no effect on its output.  Returns max |err|."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    ps, nb = k.shape[1], pt.shape[1]
+    live_rows = [b for b in range(len(pos)) if b not in free]
+    k0, v0 = k.clone(), v.clone()
+    kp, vp = k.clone(), v.clone()
+    want = pa.paged_decode_attention_fused_plain(
+        q, kp, vp, nk, nv, pt, pos, window, logit_cap=cap)
+    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos, window,
+                                           logit_cap=cap)
+    torch.cuda.synchronize()
+    rows = slice(None) if len(free) <= 1 else live_rows
+    err = _close(got[rows], want[rows], dtype, what=f"paged {label}")
+    live = slice(0, k.shape[0] - 1)            # every page but TRASH
+    check(torch.equal(k[live], kp[live]) and torch.equal(v[live], vp[live]),
+          f"paged {label}: write-back differs from plain")
+    changed = ((k != k0).any(dim=(2, 3)) | (v != v0).any(dim=(2, 3)))[live]
+    allowed = torch.zeros_like(changed)
+    for b in live_rows:
+        p = int(pos[b])
+        if p // ps < nb:
+            allowed[int(pt[b, p // ps]), p % ps] = True
+    check(not bool((changed & ~allowed).any()),
+          f"paged {label}: a pool row other than a live row's "
+          f"(page, pos % ps) changed")
+    base = ops.paged_decode_attention(q, k, v, pt, pos, window,
+                                      logit_cap=cap)
+    for b in live_rows:
+        p = int(pos[b])
+        if p // ps >= nb:
+            continue
+        for t in (k, v):
+            t[pt[b, p // ps + 1:].long()] = 1e9
+            t[int(pt[b, p // ps]), p % ps + 1:] = 1e9
+    poisoned = ops.paged_decode_attention(q, k, v, pt, pos, window,
+                                          logit_cap=cap)
+    torch.cuda.synchronize()
+    check(torch.equal(base[live_rows], poisoned[live_rows]),
+          f"paged {label}: keys past pos changed the output")
+    print(f"paged_decode_attention {label}: max|err| {err:.3g} vs plain "
+          f"(tol {TOL[dtype]}), write-back bitwise outside TRASH, pages "
+          f"past pos ignored")
+    return err
+
+
+def _paged_pool(gen, dtype, ps, nb, pos, *, shared=0, free=(), H=32, K=8,
+                hd=128):
+    """Pools of B * nb pages + TRASH (the last) for rows at ``pos``: the
+    second to fourth live rows map the first live row's first ``shared``
+    pages (each live boundary page stays private), the rows in ``free`` map
+    every page to TRASH."""
+    B = len(pos)
+    P = B * nb + 1
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    pt = torch.arange(B * nb, dtype=torch.int32, device=DEVICE).view(B, nb)
+    live = [b for b in range(B) if b not in free]
+    for b in live[1:4]:
+        check(shared == 0 or min(pos[b], pos[live[0]]) // ps >= shared,
+              "a shared page would hold a live row's boundary")
+        pt[b, :shared] = pt[live[0], :shared]
+    pt[list(free)] = P - 1
+    pos = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    return (r(B, H, hd), r(P, ps, K, hd), r(P, ps, K, hd), r(B, K, hd),
+            r(B, K, hd), pt.contiguous(), pos)
+
+
+def _paged_split_cases(gen) -> None:
+    """The cases the split over a cluster creates, f32 (64-key chunks) and
+    bf16 (128): rows whose live keys fit one chunk; page size 5, so chunk
+    boundaries fall inside pages; a window that skips whole chunks; rows
+    at and past the end of their table (no write, the last key nb*ps - 1);
+    a pool with three free slots on TRASH."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("one chunk", 8, 16, [40, 17, 63, 24, 0, 3, 7, 60], 2, (), 0, 0.0),
+        ("ps=5", 5, 205, [127, 128, 129, 640, 1024, 300, 999, 5], 20, (),
+         0, 0.0),
+        ("ps=5 window=150 cap=30", 5, 205,
+         [1024, 640, 149, 450, 129, 700, 999, 5], 20, (), 150, 30.0),
+        ("window=200 skips chunks", 8, 128,
+         [1023, 640, 199, 450, 900, 256, 700, 64], 8, (), 200, 0.0),
+        ("pos past the table", 8, 32, [256, 259, 255, 300, 100, 128, 255, 3],
+         0, (), 0, 0.0),
+        ("pos past the table window=40", 8, 32,
+         [256, 259, 255, 270, 100, 128, 255, 3], 0, (), 40, 0.0),
+        ("3 free slots", 8, 128, [512, 513, 640, 1023, 700, 5, 5, 9], 64,
+         (5, 6, 7), 0, 0.0)]
+    for label, ps, nb, pos, shared, free, window, cap in cases:
+        for name, dtype in (("f32", f32), ("bf16", bf16)):
+            inputs = _paged_pool(gen, dtype, ps, nb, pos, shared=shared,
+                                 free=free)
+            _check_paged(f"{name} {label}", dtype, window, cap, *inputs,
+                         free=free)
+
+
 def phase_paged_attention(flush) -> dict:
     """The paged decode kernel against its plain version at llama3-8b
     shapes, ps 8 and 16: output within the JAX tests' bound, the fused
     write-back bitwise on every page but TRASH, pages past each row's
-    position ignored bit for bit; then times at ps 8, bf16."""
+    position ignored bit for bit; times at ps 8, bf16; then the split
+    cases (``_paged_split_cases``)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=DEVICE)
@@ -486,41 +644,9 @@ def phase_paged_attention(flush) -> dict:
               for extra, window, cap in (("", 0, 0.0),
                                          (" window=11 cap=50", 11, 50.0))]
     for ps, label, dtype, window, cap, shape in cases:
-        q, k, v, nk, nv, pt, pos = _paged_inputs(gen, dtype, ps, **shape)
-        k0, v0 = k.clone(), v.clone()
-        kp, vp = k.clone(), v.clone()
-        want = pa.paged_decode_attention_fused_plain(
-            q, kp, vp, nk, nv, pt, pos, window, logit_cap=cap)
-        got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos,
-                                               window, logit_cap=cap)
-        torch.cuda.synchronize()
-        err = _close(got, want, dtype, what=f"paged {label}")
-        live = slice(0, k.shape[0] - 1)            # every page but TRASH
-        check(torch.equal(k[live], kp[live]) and
-              torch.equal(v[live], vp[live]),
-              f"paged ps={ps} {label}: write-back differs from plain")
-        changed = ((k != k0).any(dim=(2, 3)) | (v != v0).any(dim=(2, 3))
-                   )[live]
-        allowed = torch.zeros_like(changed)
-        for b, p in enumerate(pos.tolist()[:7]):
-            allowed[int(pt[b, p // ps]), p % ps] = True
-        check(not bool((changed & ~allowed).any()),
-              f"paged ps={ps} {label}: a pool row other than a live "
-              f"row's (page, pos % ps) changed")
-        base = ops.paged_decode_attention(q, k, v, pt, pos, window,
-                                          logit_cap=cap)
-        for b, p in enumerate(pos.tolist()[:7]):
-            for t in (k, v):
-                t[pt[b, p // ps + 1:].long()] = 1e9
-                t[int(pt[b, p // ps]), p % ps + 1:] = 1e9
-        poisoned = ops.paged_decode_attention(q, k, v, pt, pos, window,
-                                              logit_cap=cap)
-        torch.cuda.synchronize()
-        check(torch.equal(base[:7], poisoned[:7]),
-              f"paged ps={ps} {label}: keys past pos changed the output")
-        print(f"paged_decode_attention ps={ps} {label}: max|err| "
-              f"{err:.3g} vs plain (tol {TOL[dtype]}), write-back "
-              f"bitwise outside TRASH, pages past pos ignored")
+        inputs = _paged_inputs(gen, dtype, ps, **shape)
+        _check_paged(f"ps={ps} {label}", dtype, window, cap, *inputs,
+                     free=(7,))
     q, k, v, nk, nv, pt, pos = _paged_inputs(gen, torch.bfloat16, 8)
     kp, vp = k.clone(), v.clone()
     want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, pos)
@@ -582,6 +708,7 @@ def phase_paged_attention(flush) -> dict:
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (the "
           f"faster of the two) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by})")
+    _paged_split_cases(gen)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:48",
@@ -1937,11 +2064,49 @@ def phase_pipeline() -> None:
           f"6-9.5 MB, SOT 8.5-13 MB; paper 7 and 10)")
 
 
+KERNEL_PHASES = {"decode": "phase_decode_attention",
+                 "sampling": "phase_sampling",
+                 "paged": "phase_paged_attention",
+                 "ssd": "phase_ssd_scan", "rglru": "phase_rglru_scan",
+                 "flash": "phase_flash_attention"}
+
+
+def kernel_phases(names, tree) -> None:
+    """Phases 0 and 1 and the kernel phases ``names`` (keys of
+    ``KERNEL_PHASES``) of the smoke in checkout ``tree``: this one, or
+    another's ``chip_smoke.py`` and ``src/`` (an older commit unpacked
+    beside this one), so that two versions of a kernel are timed on one
+    card in one call.  Prints their kernels line; no result line."""
+    import importlib.util
+    root = Path(tree).resolve() if tree else ROOT
+    sys.path.insert(0, str(root / "src"))
+    spec = importlib.util.spec_from_file_location("smoke_of_tree",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    print(f"kernel phases {names} of {root}")
+    smoke.phase_card()
+    smoke.phase_build()
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    rows = [getattr(smoke, KERNEL_PHASES[n])(scratch.zero_) for n in names]
+    print(json.dumps({"kernels": rows}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: the smoke needs a "
               "CUDA card", file=sys.stderr)
         sys.exit(2)
+    if len(sys.argv) > 1:
+        import argparse
+        ap = argparse.ArgumentParser(description="kernel phases only")
+        ap.add_argument("--only", required=True,
+                        help=f"comma-separated of {sorted(KERNEL_PHASES)}")
+        ap.add_argument("--tree", help="the checkout whose smoke and "
+                        "kernels run (default: this one)")
+        args = ap.parse_args()
+        kernel_phases(args.only.split(","), args.tree)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

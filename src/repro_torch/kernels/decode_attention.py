@@ -5,7 +5,8 @@ through ``decode_attention`` and ``decode_attention_fused``).  One query
 row per slot attends that slot's cache prefix ``k_idx <= pos[b]``, inside
 its local window when ``window > 0``; the fused variant first writes the
 new token's K/V row at ``pos[b]``.  The CUDA kernel is
-``csrc/decode_attention.cu``: the keys of a row are split into chunks of
+``csrc/decode_attention.cu`` on the body it shares with the paged kernel
+(``csrc/split_decode.cuh``): the keys of a row are split into chunks of
 32-256 keys over a cluster of up to 8 blocks whose partial softmax states
 combine in the same launch; its design note says what bounds it.
 
@@ -21,7 +22,7 @@ import torch
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # every head_dim of the configs
-MAX_GROUP = 32          # q heads of a kv group (the paged kernel: a warp each)
+MAX_GROUP = 32          # q heads of a kv group (their q and acc in smem)
 
 
 def decode_attention_plain(q, k, v, pos, window=0, *, logit_cap=0.0):

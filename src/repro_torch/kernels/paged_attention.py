@@ -9,8 +9,9 @@ slot: row b's logical key ``t`` lives at physical page
 keys ``[max(pos[b] - window + 1, 0), pos[b]]`` (``window <= 0`` = global);
 the fused variant first writes the new token's K/V row at ``pos[b]``
 through the page table, into the row's private boundary page.  The CUDA
-kernel is ``csrc/paged_attention.cu``; its design note says what bounds
-it.
+kernel is ``csrc/paged_attention.cu``, the dense decode kernel's split-K
+cluster body (``csrc/split_decode.cuh``) with a key's row found through
+the page table; its design note says what bounds it.
 
 Layouts (as in the JAX package):
   q (B, H, hd); k/v pools (P, ps, K, hd); page_table (B, nb) int32;
@@ -118,10 +119,11 @@ def check_args(q, k, v, new_k, new_v, page_table, pos, window):
         if not t.is_contiguous():
             raise ValueError("q, k, v, page_table and pos must be "
                              "contiguous")
-    # a lane's vector load is at most 16 bytes
-    for t in (q, k, v):
+    # 16-byte copies of K/V rows (cp.async) and of the new rows
+    for t in (q, k, v) + ((new_k, new_v) if new_k is not None else ()):
         if t.data_ptr() % 16:
-            raise ValueError("q, k and v must be 16-byte aligned")
+            raise ValueError("q, k, v and the new rows must be 16-byte "
+                             "aligned")
 
 
 def launch_cuda(fn, q, k, v, new_k, new_v, page_table, pos, window,

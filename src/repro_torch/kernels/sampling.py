@@ -6,7 +6,9 @@ logits.  Temperature rows take the argmax of ``x / max(t, 1e-6) + g``, a
 Gumbel-max draw from ``softmax(x / t)``, with ``g`` derived from a
 murmur3-finalizer hash of (key words, flat index ``b*V + v``): given the
 same two key words both versions here, and the JAX kernel, pick the same
-tokens.  The CUDA kernel is ``csrc/sampling.cu``.
+tokens.  The CUDA kernel is ``csrc/sampling.cu``: each row is split over a
+cluster of ``cluster_blocks(B, V, SMs)`` blocks that combine in the same
+launch.
 
 Layouts: logits (B, V) f32; temps (B,) f32; key (2,) int64 holding two
 uint32 words -> (B,) int32.
@@ -14,11 +16,13 @@ uint32 words -> (B,) int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 M32 = 0xFFFFFFFF
-THREADS = 1024
+THREADS = 512           # threads a block
+MAX_CLUSTER = 16        # blocks a row: the H100's non-portable cluster size
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -79,6 +83,22 @@ def check_args(logits, temps, key):
                          f"{key.dtype}")
 
 
+def cluster_blocks(B: int, V: int, sms: int) -> int:
+    """Blocks that split each of ``B`` rows of ``V`` logits on a card of
+    ``sms`` SMs: enough that the B rows cover the SMs, at most
+    ``MAX_CLUSTER``, and at most one block per ``THREADS`` 16-byte pieces of
+    a row, so that every thread of a block gets a piece (a short vocab runs
+    as a cluster of one)."""
+    per_row = -(-sms // max(B, 1))
+    by_size = max(1, V // (4 * THREADS))
+    return max(1, min(MAX_CLUSTER, per_row, by_size))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def launch_cuda(fn, logits, temps, key):
     """Launch ``fused_sample`` from ``csrc/sampling.cu`` on the current
     stream.  Returns (B,) int32 tokens."""
@@ -86,10 +106,11 @@ def launch_cuda(fn, logits, temps, key):
     out = torch.empty(B, dtype=torch.int32, device=logits.device)
     err = fn(
         logits.data_ptr(), temps.data_ptr(), key.data_ptr(), out.data_ptr(),
-        B, V, THREADS, torch.cuda.current_stream(logits.device).cuda_stream)
+        B, V, THREADS, cluster_blocks(B, V, sm_count(logits.device)),
+        torch.cuda.current_stream(logits.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_sample launch failed: CUDA error {err}")
     return out
 
 
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

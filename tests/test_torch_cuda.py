@@ -115,24 +115,40 @@ def test_decode_attention_split_edge_cases(dev, dtype, B, L, window, pos):
     assert bool(torch.isfinite(got.float()).all())
 
 
-@pytest.mark.parametrize("V", [128256, 1000, 31])
-def test_fused_sample_kernel_matches_plain(dev, V):
-    B = 6
+@pytest.mark.parametrize("B,V", [(6, 128256), (6, 1000), (6, 31),
+                                 (1, 128256), (64, 128256)])
+def test_fused_sample_kernel_matches_plain(dev, B, V):
+    """Greedy rows bitwise torch.argmax, temperature rows the plain
+    version's tokens up to last-ulp ties, on rows split over a cluster: a
+    tie and a NaN whose occurrences lie in different blocks of a row, rows
+    of -inf, a short vocab (a cluster of one) and one or 64 rows."""
     g = torch.Generator(device=dev).manual_seed(1)
     logits = torch.randn(B, V, generator=g, device=dev) * 3
+    temps = torch.rand(B, generator=g, device=dev) * 2
+    temps[::3] = 0.0
     logits[0, [1, V - 1]] = 90.0                       # first-occurrence tie
-    temps = torch.tensor([0.0, -1.0, 0.5, 1.0, 2.0, 0.0], device=dev)
+    temps[0] = 0.0
+    if B > 1:
+        temps[1] = -1.0
+        logits[1, [V // 2, V // 3, V - 2]] = float("nan")  # first NaN wins
+        logits[2 % B] = float("-inf")
+        logits[B - 1] = float("-inf")                  # at a temperature
+        temps[B - 1] = 0.7
     key = torch.tensor([3, 0xFFFFFFFF], dtype=torch.int64, device=dev)
+    before = ops.launches["fused_sample"]
     got = ops.fused_sample(logits, temps, key)
     want = sm.fused_sample_plain(logits, temps, key)
+    assert ops.launches["fused_sample"] == before + 1
     assert got.dtype == torch.int32 and int(got[0]) == 1
     greedy = temps <= 0
     assert torch.equal(got[greedy],
                        torch.argmax(logits, -1).to(torch.int32)[greedy])
+    if B > 1:
+        assert int(got[1]) == V // 3 and int(got[B - 1]) == 0
     score = sm.perturbed_logits(logits, temps, key)
-    rows = torch.arange(B, device=dev)
-    gap = score[rows, want.long()] - score[rows, got.long()]
-    assert float(gap.abs().max()) <= 1e-5 * float(score.abs().max())
+    for b in torch.nonzero(got != want).flatten().tolist():
+        gap = float(score[b, int(want[b])] - score[b, int(got[b])])
+        assert abs(gap) <= 1e-5 * float(score[b].abs().max())
 
 
 def _zipf(n, footprint, seed, theta=1.3):
@@ -231,6 +247,71 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, B, H, K, hd, ps,
                                          logit_cap=cap)
     torch.testing.assert_close(unfused.float(), want.float(), atol=tol,
                                rtol=tol)
+
+
+def _paged_pool(dev, dtype, ps, nb, pos, shared, free, seed, H=32, K=8,
+                hd=128):
+    """Pools of B * nb pages + TRASH (the last) for rows at ``pos``: the
+    second to fourth live rows map the first live row's first ``shared``
+    pages, the rows in ``free`` map every page to TRASH."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    B = len(pos)
+    P = B * nb + 1
+    pt = torch.arange(B * nb, dtype=torch.int32, device=dev).view(B, nb)
+    live = [b for b in range(B) if b not in free]
+    for b in live[1:4]:
+        pt[b, :shared] = pt[live[0], :shared]
+    pt[list(free)] = P - 1
+    return (r(B, H, hd), r(P, ps, K, hd), r(P, ps, K, hd), r(B, K, hd),
+            r(B, K, hd), pt.contiguous(),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,nb,pos,shared,free,window", [
+    (8, 16, [40, 17, 63, 24, 0, 3, 7, 60], 2, (), 0),    # inside one chunk
+    (5, 205, [127, 128, 129, 640, 1024, 300, 999, 5], 20, (), 0),   # ps 5
+    (5, 205, [1024, 640, 149, 450, 129, 700, 999, 5], 20, (), 150),
+    (8, 128, [1023, 640, 199, 450, 900, 256, 700, 64], 8, (), 200),
+    (8, 32, [256, 259, 255, 300, 100, 128, 255, 3], 0, (), 0),  # past nb*ps
+    (8, 32, [256, 259, 255, 270, 100, 128, 255, 3], 0, (), 40),
+    (8, 128, [512, 513, 640, 1023, 700, 5, 5, 9], 64, (5, 6, 7), 0),
+])
+def test_paged_attention_split_edge_cases(dev, dtype, ps, nb, pos, shared,
+                                          free, window):
+    """The split-K paged kernel on rows inside one chunk, chunk boundaries
+    inside pages (ps 5), a window that skips whole chunks, rows at and past
+    the end of their table (no write, the last key nb*ps - 1), shared
+    prefixes and three free slots racing on TRASH: live rows within the
+    bound of the plain version, the write-back bitwise outside TRASH, only
+    each live row's (pt[b, pos/ps], pos%ps) changed."""
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, nk, nv, pt, p = _paged_pool(dev, dtype, ps, nb, pos, shared,
+                                         free, 8)
+    live = [b for b in range(len(pos)) if b not in free]
+    k0, v0 = k.clone(), v.clone()
+    kp, vp = k.clone(), v.clone()
+    want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, p,
+                                                 window)
+    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, p, window)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=tol)
+    assert bool(torch.isfinite(got[live].float()).all())
+    pages = slice(0, k.shape[0] - 1)           # every page but TRASH
+    assert torch.equal(k[pages], kp[pages]) and torch.equal(v[pages],
+                                                            vp[pages])
+    changed = ((k != k0).any(dim=(2, 3)) | (v != v0).any(dim=(2, 3)))[pages]
+    allowed = torch.zeros_like(changed)
+    for b in live:
+        if pos[b] // ps < nb:
+            allowed[int(pt[b, pos[b] // ps]), pos[b] % ps] = True
+    assert not bool((changed & ~allowed).any())
 
 
 def test_paged_engine_kernel_matches_reference(dev):

@@ -297,9 +297,8 @@ def test_check_args_take_16_and_96_and_refuse_48(hd, ok):
 @pytest.mark.parametrize("shift", [4, 8])
 def test_decode_and_paged_check_args_refuse_unaligned_rows(wrapper, shift):
     """Both decode wrappers hold q, k and v to one alignment rule, 16
-    bytes (a 16-byte cp.async in the decode kernel, a lane vector of at
-    most 16 bytes in the paged one): a start ``shift`` bytes off is
-    refused, an aligned one taken."""
+    bytes (the 16-byte cp.async of the split body both kernels run): a
+    start ``shift`` bytes off is refused, an aligned one taken."""
     B, H, K, hd = 2, 4, 2, 32
     pos = torch.zeros(B, dtype=torch.int32)
     pool, pt = torch.zeros(5, 4, K, hd), torch.zeros(B, 2, dtype=torch.int32)
@@ -321,19 +320,24 @@ def test_decode_and_paged_check_args_refuse_unaligned_rows(wrapper, shift):
 # --- the split-K algebra of the decode kernel ------------------------------
 
 
-def _split_decode(q, k, v, pos, window, chunk, splits, logit_cap=0.0):
-    """decode_attention.cu's arithmetic in plain torch (f32): block r of a
+def _split_decode(q, k, v, pos, window, chunk, splits, logit_cap=0.0,
+                  paged=False):
+    """split_decode.cuh's arithmetic in plain torch (f32): block r of a
     row's cluster takes chunks clo + r, clo + r + splits, ... of the live
-    range [lo, pos]; its partial (m, l, acc) runs an online softmax over
+    range [lo, last]; its partial (m, l, acc) runs an online softmax over
     its chunks; the partials combine with weights exp(m_r - max m), where a
-    block with no live key offers (m = -inf, l = 0) and weighs 0."""
+    block with no live key offers (m = -inf, l = 0) and weighs 0.  k, v are
+    (B, L, K, hd): a dense cache, or with ``paged`` each row's pages
+    gathered, under the paged key policy's span (pos not clamped, last =
+    min(pos, L - 1))."""
     B, H, hd = q.shape
     L, K = k.shape[1], k.shape[2]
     G = H // K
     out = torch.empty(B, H, hd)
     for b in range(B):
-        p = min(max(int(pos[b]), 0), L - 1)
+        p = int(pos[b]) if paged else min(max(int(pos[b]), 0), L - 1)
         lo = max(p - window + 1, 0) if window > 0 else 0
+        p = min(p, L - 1)
         clo = lo // chunk
         nch = p // chunk - clo + 1
         for kh in range(K):
@@ -391,6 +395,145 @@ def test_split_decode_algebra_matches_plain(L, hd, chunk, splits, window, cap,
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("ps,nb,chunk,splits,window,cap,pos", [
+    # bf16/hd 128 geometry at the smoke's pool: 128-key chunks, 8 blocks
+    (8, 128, 128, 8, 0, 0.0, [512, 513, 640, 1023, 0, 127, 300]),
+    # page size 5: chunk boundaries inside pages; rows at and past the end
+    # of the table (keys up to nb*ps - 1)
+    (5, 41, 64, 4, 0, 0.0, [204, 205, 230, 63, 64, 129]),
+    (5, 41, 64, 4, 40, 30.0, [204, 230, 63, 64, 129, 10]),
+    # a window that skips whole chunks, rows inside one chunk
+    (8, 32, 32, 8, 50, 0.0, [255, 100, 31, 32, 0, 7]),
+])
+def test_split_paged_algebra_matches_plain(ps, nb, chunk, splits, window,
+                                           cap, pos):
+    """The paged instantiation of the split body: the same algebra over
+    each row's gathered pages, with the paged span, equals the paged plain
+    version, through shared pages and rows past the table."""
+    B, H, K, hd = len(pos), 4, 2, 32
+    rng = np.random.default_rng(12)
+    P = B * nb + 1
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((P, ps, K, hd)).astype(
+        np.float32)) for _ in range(2))
+    pt = torch.arange(B * nb, dtype=torch.int32).view(B, nb)
+    pt[1:3, :4] = pt[0, :4]                    # rows 0-2 share 4 pages
+    p = torch.tensor(pos, dtype=torch.int32)
+    want = pa.paged_decode_attention_plain(q, k, v, pt, p, window,
+                                           logit_cap=cap)
+    got = _split_decode(q, pa.gather_pages(k, pt), pa.gather_pages(v, pt),
+                        p, window, chunk, splits, logit_cap=cap, paged=True)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+# --- the sampler's split over a cluster ------------------------------------
+
+
+def _better(a, ia, b, ib) -> bool:
+    """sampling.cu's order: the larger value, ties to the smaller index,
+    NaN above any number, the first NaN first."""
+    na, nb = np.isnan(a), np.isnan(b)
+    if na or nb:
+        return bool(na and (not nb or ia < ib))
+    return bool(a > b or (a == b and ia < ib))
+
+
+def _split_argmax(x: np.ndarray, blocks: int, head: int) -> int:
+    """sampling.cu's partition of one row of scores: ``head`` scalars before
+    the first 16-byte boundary (block 0), the whole 4-element pieces in
+    ``blocks`` contiguous slices, the scalars after them (the last block);
+    each block's (best, index) and then the cluster's, under ``_better``."""
+    V = x.shape[0]
+    head = min(V, head)
+    npieces = (V - head) // 4
+    tail = head + 4 * npieces
+    parts = []
+    for r in range(blocks):
+        idx = list(range(head + 4 * (npieces * r // blocks),
+                         head + 4 * (npieces * (r + 1) // blocks)))
+        if r == 0:
+            idx = list(range(head)) + idx
+        if r == blocks - 1:
+            idx += list(range(tail, V))
+        best, bi = -np.inf, 2 ** 31 - 1
+        for i in idx:
+            if _better(x[i], i, best, bi):
+                best, bi = x[i], i
+        parts.append((best, bi))
+    best, bi = -np.inf, 2 ** 31 - 1
+    for pb, pi in parts:
+        if _better(pb, pi, best, bi):
+            best, bi = pb, pi
+    return bi
+
+
+@pytest.mark.parametrize("V,blocks,head", [
+    (4096, 16, 0), (4099, 7, 3), (1000, 1, 2), (31, 1, 1), (9, 4, 0),
+    (5, 3, 3)])
+def test_split_argmax_is_torch_argmax(V, blocks, head):
+    """The sampler's split of a row over a cluster picks torch.argmax's
+    index (the plain version's rule) whatever the slices: ties and NaNs
+    whose occurrences fall in different blocks, a row of -inf, blocks with
+    no piece."""
+    rng = np.random.default_rng(V + blocks)
+    rows = []
+    x = rng.standard_normal(V).astype(np.float32)
+    x[[V // 5, V - 1]] = 9.0                   # a tie across blocks
+    rows.append(x)
+    x = rng.standard_normal(V).astype(np.float32)
+    x[[V // 2, V // 4, V - 2]] = np.nan        # the first NaN wins
+    rows.append(x)
+    rows.append(np.full(V, -np.inf, np.float32))
+    for x in rows:
+        want = int(torch.argmax(torch.from_numpy(x)))
+        assert _split_argmax(x, blocks, head) == want
+
+
+@pytest.mark.parametrize("B,V,sms,want", [
+    (8, 128256, 132, 16),     # the smoke's rows: 16 blocks a row
+    (64, 128256, 132, 3),     # B * 3 >= 132
+    (1, 128256, 132, 16),     # the cluster's limit
+    (8, 31, 132, 1),          # a short vocab runs as a cluster of one
+    (8, 1000, 132, 1),
+    (8, 4096, 132, 2),        # one block per THREADS 16-byte pieces
+    (200, 128256, 132, 1),    # more rows than SMs
+    (0, 128256, 132, 16),
+])
+def test_sample_cluster_blocks(B, V, sms, want):
+    assert sm.cluster_blocks(B, V, sms) == want
+
+
+def test_sample_launcher_marshals_arguments(monkeypatch):
+    """``launch_cuda``'s argument order: THREADS and the cluster size
+    ``cluster_blocks`` gives for the card's SM count, then the stream; a
+    stand-in for ``csrc/sampling.cu::fused_sample`` writes the plain
+    tokens, and a CUDA error raises."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    monkeypatch.setattr(sm, "sm_count", lambda dev: 132)
+    lg = torch.from_numpy(_logits(3, 4, 9000))
+    temps = torch.tensor([0.0, 0.5, 1.0, 0.0])
+    key = torch.tensor([7, 9], dtype=torch.int64)
+    seen = {}
+
+    def fake(lg_p, t_p, k_p, out_p, B, V, threads, blocks, stream):
+        seen.update(ptrs=(lg_p, t_p, k_p), dims=(B, V), threads=threads,
+                    blocks=blocks)
+        out = torch.from_numpy(np.ctypeslib.as_array(
+            (ctypes.c_int32 * B).from_address(out_p)))
+        out.copy_(sm.fused_sample_plain(lg, temps, key))
+        return 0
+
+    got = sm.launch_cuda(fake, lg, temps, key)
+    assert seen == dict(ptrs=(lg.data_ptr(), temps.data_ptr(),
+                              key.data_ptr()), dims=(4, 9000),
+                        threads=sm.THREADS, blocks=4)
+    assert torch.equal(got, sm.fused_sample_plain(lg, temps, key))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        sm.launch_cuda(lambda *a: 1, lg, temps, key)
 
 
 # --- the launchers, through stand-ins for the compiled functions -----------
@@ -490,12 +633,13 @@ def test_flash_launcher_marshals_strides(monkeypatch):
     ("decode_attention", "decode_attention", da.ARGTYPES),
     ("flash_attention", "flash_attention", fa.ARGTYPES),
     ("paged_attention", "paged_decode_attention", pa.ARGTYPES),
+    ("sampling", "fused_sample", sm.ARGTYPES),
 ])
 def test_attention_c_interfaces_match_the_ctypes_declarations(source, name,
                                                               argtypes):
-    """Each ``extern "C"`` attention entry point takes as many arguments,
-    pointers where pointers, as its ``ARGTYPES`` declares (ctypes cannot
-    check it)."""
+    """Each ``extern "C"`` attention and sampling entry point takes as many
+    arguments, pointers where pointers, as its ``ARGTYPES`` declares
+    (ctypes cannot check it)."""
     src = (_build.CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
     params = [x.strip() for x in m.group(1).split(",")]
