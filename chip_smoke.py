@@ -4,10 +4,13 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --only decode,sampling,paged [--tree DIR]
 
-The second form runs phases 0, 1 and the named kernel phases only, of this
-checkout or of the checkout at DIR (an older commit unpacked into a
-directory ``.gitignore`` lists), to time two versions on one card in one
-call: parent, change, change, parent.
+The second form runs phases 0, 1 and the named kernel phases only (of
+``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
+``cachesim``), of this checkout or of the checkout at DIR (an older commit
+unpacked into a directory ``.gitignore`` lists), to time two versions on
+one card in one call: parent, change, change, parent.  A phase that DIR's
+smoke lacks runs from this file on DIR's kernels (``cachesim`` times both
+LRU ops through their public calls at slice C's shapes).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -49,8 +52,12 @@ result line:
      against their plain versions at shapes slice C does not reach: a
      whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
      accesses, and per-point caches with odd set counts, one set, and 1,
-     4 and 16 ways; 0 mismatching counts; the time of one link of the
-     longest dependent chain;
+     4 and 16 ways; then the edge cases of the bucket -> collapse -> walk
+     design: one set without a repeat (ways + 1 tags in turn), one tag T
+     times, T = 0, 1 and 12345, more than 65,536 sets (three radix
+     passes), rungs of one set and of at least T sets, W = 1 and 5; 0
+     mismatching counts; the time of one dependent update, from one set of
+     65,536 accesses without a repeat;
   3b. the launchers with their defaults: ``launch.serve`` (reduced
      llama3-8b, head_dim 16, through the decode kernel and the sampler)
      and ``launch.train --reduced`` (head_dim 16, through the flash
@@ -112,7 +119,11 @@ result line:
      bit for bit to the 64 per-point ``simulate_reference`` runs and to
      the plain ladder, the 16 rungs of trace 0 to an OrderedDict LRU
      carried here, the 3 MB rung of trace 0 to the per-point plain
-     version; kernels and plain versions timed at these shapes; then
+     version; kernels and plain versions timed at these shapes, the
+     ladder's ten CUDA kernels each between CUDA events, and one set of
+     2**22 accesses without a repeat (the chain no collapse shortens); the
+     longest per-set chain before and after the collapse of repeated hits
+     and the critical path it gives at phase 3's time an update; then
      ``iso_area(dram_model="trace")`` and ``dram_reduction_curve`` at 1:1
      beside the analytic miss model;
   7. the DeepNVM++ pipeline on the card against the same code on the CPU:
@@ -1008,11 +1019,45 @@ def _bound(nbytes: float, int_ops: float):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def _point_vs_plain(sid, tag, ns: int, ways: int, what: str):
+    """``ops.cache_sim`` against ``cache_sim_plain`` on the card, bit for
+    bit; returns the counts."""
+    from repro_torch.kernels import cache_sim as cs
+    from repro_torch.kernels import ops
+    sid, tag = sid.to(DEVICE, torch.int32), tag.to(DEVICE, torch.int32)
+    got = ops.cache_sim(sid, tag, num_sets=ns, ways=ways)
+    want = cs.cache_sim_plain(sid, tag, num_sets=ns, ways=ways)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"cache_sim {what} ns={ns} ways={ways}: "
+          f"kernel {got.tolist()} != plain {want.tolist()}")
+    check(int(got.sum()) == sid.numel(), f"cache_sim {what}: hits + misses "
+          f"!= T")
+    return got.tolist()
+
+
+def _ladder_vs_plain(traces, ladder, ways: int, what: str):
+    """``ops.cache_sim_ladder`` against ``cache_sim_ladder_plain`` on the
+    card, bit for bit; returns the counts."""
+    from repro_torch.kernels import cache_sim as cs
+    from repro_torch.kernels import ops
+    traces = traces.to(DEVICE, torch.int32).contiguous()
+    got = ops.cache_sim_ladder(traces, num_sets=ladder, ways=ways)
+    want = cs.cache_sim_ladder_plain(traces, ladder, ways=ways)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    check(bad == 0, f"cache_sim_ladder {what}: {bad} counts differ from "
+          f"plain")
+    check(bool((got.sum(2) == traces.shape[1]).all()),
+          f"cache_sim_ladder {what}: hits + misses != T")
+    return got
+
+
 def phase_cache_sim(flush, T: int = 65536) -> float:
     """Both LRU kernels against their plain versions on the card, over
     traces of ``T`` accesses, at shapes beside slice C's: odd and ragged
-    set counts, one set, 1, 4 and 16 ways.  Returns the time of one link
-    of the longest dependent chain, in ns."""
+    set counts, one set, 1, 4 and 16 ways; then the edge cases of the
+    bucket -> collapse -> walk design.  Returns the time of one dependent
+    update (one link of a set's chain), in ns."""
     from repro_torch.core.cachesim import _ladder_sets, synthetic_traces
     from repro_torch.core.constants import GPU_L2_MB, LINE_BYTES, MB
     from repro_torch.core.sweep import capacity_ladder
@@ -1024,39 +1069,61 @@ def phase_cache_sim(flush, T: int = 65536) -> float:
     host = synthetic_traces(T, int(256 * MB) // (LINE_BYTES * scale),
                             seeds=(0, 1))
     traces = torch.from_numpy(host.astype(np.int32)).to(DEVICE)
-    got = ops.cache_sim_ladder(traces, num_sets=ladder, ways=ways)
-    want = cs.cache_sim_ladder_plain(traces, ladder, ways=ways)
-    torch.cuda.synchronize()
-    bad = int((got != want).sum())
-    check(bad == 0, f"cache_sim_ladder: {bad} counts differ from plain")
-    check(bool((got.sum(2) == T).all()), "ladder hits + misses != T")
+    got = _ladder_vs_plain(traces, ladder, ways, "whole octaves")
     print(f"cache_sim_ladder W={got.shape[0]} T={T} rungs {ladder} (ways "
           f"{ways}, 1:{scale}): 0 of {got.numel()} counts differ from plain")
 
     line = torch.from_numpy(host[0].astype(np.int64)).to(DEVICE)
     for ns, w in ((1, 1), (1, 16), (81, 4), (362, 1), (1536, 16),
                   (11585, 16), (97, 4)):
-        sid, tag = (line % ns).int(), (line // ns).int()
-        got = ops.cache_sim(sid, tag, num_sets=ns, ways=w)
-        want = cs.cache_sim_plain(sid, tag, num_sets=ns, ways=w)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"cache_sim ns={ns} ways={w}: kernel "
-              f"{got.tolist()} != plain {want.tolist()}")
-        check(int(got.sum()) == T, "cache_sim hits + misses != T")
+        got = _point_vs_plain(line % ns, line // ns, ns, w, "zipf")
         print(f"cache_sim ns={ns} ways={w} tile="
-              f"{cs.largest_divisor_tile(ns)}: [hits, misses] "
-              f"{got.tolist()} == plain")
-    # every access to set 0 of a 256-set tile: one thread applies all T
-    # updates in order while the block's 256 threads stage the trace, as
-    # the hottest set's thread does in the full-scale runs; the time per
-    # access is one link of the critical path
-    hot = (tag * 256).view(1, -1)
-    chain_ms = median_ms(lambda: ops.cache_sim_ladder(hot, num_sets=(256,),
-                                                      ways=16), runs=5,
+              f"{cs.largest_divisor_tile(ns)}: [hits, misses] {got} == "
+              f"plain")
+
+    # edge cases, each bit for bit against the plain version
+    n = 4000
+    cyc = torch.arange(n) % (ways + 1)
+    check(_point_vs_plain(torch.zeros(n), cyc, 1, ways, "no repeats")
+          == [0, n], "no-repeat stream: not every access a miss")
+    _ladder_vs_plain(cyc.view(1, n) * 3, (1, 3), ways, "no repeats")
+    check(_point_vs_plain(torch.zeros(n), torch.full((n,), 9), 1, ways,
+                          "one tag") == [n - 1, 1],
+          "one tag repeated: not T - 1 hits")
+    _ladder_vs_plain(torch.full((2, n), 777), (1, 16, 5000), ways, "one tag")
+    for n in (0, 1, 12345):
+        tr = traces[:, :n]
+        for ns in (1, 97, 1536):
+            _point_vs_plain(tr[0] % ns, tr[0] // ns, ns, ways, f"T={n}")
+        _ladder_vs_plain(tr, (1, 97, 1536), ways, f"T={n}")
+    rng = np.random.RandomState(5)
+    wide = torch.from_numpy(np.repeat(rng.randint(0, 2 ** 22, 100000), 2))
+    for ns in (65537, 2 ** 17 + 3):
+        _point_vs_plain(wide % ns, wide // ns, ns, 8, "three passes")
+    _ladder_vs_plain(wide.view(1, -1), (256, 4096, 70001), 8, "three passes")
+    _ladder_vs_plain(traces[:, :3000], (1, 5, 3000, 9000), ways,
+                     "ns = 1 and ns >= T")
+    for W in (1, 5):
+        tr = torch.from_numpy(synthetic_traces(
+            9000, 5000, seeds=range(W)).astype(np.int32))
+        _ladder_vs_plain(tr, (1, 3, 23, 96, 300), 4, f"W={W}")
+    print("cache_sim edge cases == plain: one set with no repeats (ways + 1 "
+          "tags in turn), one tag T times, T = 0, 1, 12345, 65,537 and "
+          "131,075 sets (three radix passes), rungs of 1 set and of >= T "
+          "sets, W = 1 and 5")
+
+    # one set, ways + 1 tags in turn: every access misses and the collapse
+    # drops none, so the kernel applies all T updates one after another,
+    # as the longest bucket's thread does in the full-scale runs; the time
+    # per access is one link of the critical path
+    sid = torch.zeros(T, dtype=torch.int32, device=DEVICE)
+    cyc = (torch.arange(T, device=DEVICE) % (ways + 1)).int()
+    chain_ms = median_ms(lambda: ops.cache_sim(sid, cyc, num_sets=1,
+                                               ways=ways), runs=5,
                          flush=flush)
-    print(f"cache_sim_ladder, all {T} accesses on one set of a 256-set "
-          f"tile, 16 ways: {chain_ms:.4f} ms = {chain_ms * 1e6 / T:.2f} ns "
-          f"per dependent update")
+    print(f"cache_sim, one set, {T} accesses without a repeat, {ways} ways: "
+          f"{chain_ms:.4f} ms = {chain_ms * 1e6 / T:.2f} ns per dependent "
+          f"update")
     return chain_ms * 1e6 / T
 
 
@@ -1857,8 +1924,134 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
-                  scale: int = 1):
+def slice_c_workload(W: int = 4, T: int = 2 ** 22, scale: int = 1,
+                     ways: int = 16):
+    """Slice C's inputs: the 16-rung iso-area ladder (0.5-64 MB with 3 MB)
+    at 1:``scale`` and ``W`` zipf traces of ``T`` accesses over 256 MB.
+    Returns (rungs in MB, set counts, traces on the host)."""
+    from repro_torch.core.cachesim import _ladder_sets, synthetic_traces
+    from repro_torch.core.constants import GPU_L2_MB, LINE_BYTES, MB
+    from repro_torch.core.sweep import capacity_ladder
+    footprint = int(256 * MB) // (LINE_BYTES * scale)
+    ladder_mb = capacity_ladder(include=(GPU_L2_MB,))
+    check(len(ladder_mb) == 16, f"ladder has {len(ladder_mb)} rungs")
+    t0 = time.perf_counter()
+    traces = synthetic_traces(T, footprint, seeds=range(W))
+    print(f"slice C: {W} zipf traces x {T} accesses over {footprint} lines "
+          f"made in {time.perf_counter() - t0:.2f} s; rungs (MB) "
+          f"{[round(c, 3) for c in ladder_mb]}")
+    return ladder_mb, _ladder_sets(ladder_mb, scale=scale, ways=ways), traces
+
+
+def set_chains(lines, ladder):
+    """Per (trace, rung) problem, with torch on the card: the longest
+    per-set chain of accesses, the longest after the collapse of repeated
+    hits, and the kept (not collapsed) accesses; (W, L) int64 arrays."""
+    W, L = lines.shape[0], len(ladder)
+    raw, col, kept = (np.zeros((W, L), np.int64) for _ in range(3))
+    for w in range(W):
+        x = lines[w].long()
+        for l, ns in enumerate(ladder):
+            s = x % ns
+            order = torch.argsort(s, stable=True)
+            ss, xs = s[order], x[order]
+            keep = torch.ones_like(xs, dtype=torch.bool)
+            keep[1:] = xs[1:] != xs[:-1]       # same line: same set and tag
+            raw[w, l] = int(torch.bincount(s).max())
+            col[w, l] = int(torch.bincount(ss[keep]).max())
+            kept[w, l] = int(keep.sum())
+    return raw, col, kept
+
+
+def cachesim_bound(n_access: int, kept: int, ways: int, nbytes: int):
+    """Least time of the counts: ``nbytes`` in and out once; per access a
+    set/tag split and a compare with its set's previous tag, and ``ways``
+    compares for each kept one (the repeats need no more)."""
+    return _bound(nbytes, 2 * n_access + kept * ways)
+
+
+def time_cachesim(lines, ladder, ladder_mb, ways: int, kept, flush,
+                  runs: int = 3):
+    """Both ops through their public calls at slice C's shapes, and one
+    set of T accesses without a repeat (the chain the collapse cannot
+    shorten), CUDA-event medians of ``runs``; each ladder kernel once
+    between CUDA events where the tree's launcher times them.  Returns the
+    times and bounds by name."""
+    from repro_torch.core.constants import GPU_L2_MB
+    from repro_torch.kernels import cache_sim as cs
+    from repro_torch.kernels import ops
+    W, T = lines.shape
+    L = len(ladder)
+    r = {"ladder_ms": median_ms(lambda: ops.cache_sim_ladder(
+        lines, num_sets=ladder, ways=ways), runs=runs, warm=1, flush=flush)}
+    r["ladder_bound"] = cachesim_bound(W * L * T, int(kept.sum()), ways,
+                                       W * T * 4 + W * L * 2 * 8)
+    i3 = ladder_mb.index(GPU_L2_MB)
+    ns3 = ladder[i3]
+    sid, tag = lines[0] % ns3, lines[0] // ns3
+    r["ns3"], r["point_args"] = ns3, (sid, tag)
+    r["point_ms"] = median_ms(lambda: ops.cache_sim(
+        sid, tag, num_sets=ns3, ways=ways), runs=runs, warm=1, flush=flush)
+    r["point_bound"] = cachesim_bound(T, int(kept[0, i3]), ways,
+                                      2 * T * 4 + 2 * 8)
+    zero = torch.zeros(T, dtype=torch.int32, device=DEVICE)
+    cyc = (torch.arange(T, device=DEVICE) % (ways + 1)).int()
+    r["worst_ms"] = median_ms(lambda: ops.cache_sim(
+        zero, cyc, num_sets=1, ways=ways), runs=runs, warm=1, flush=flush)
+    print(f"cache_sim_ladder W={W} T={T} L={L} ways={ways}: "
+          f"{r['ladder_ms']:.3f} ms (median of {runs}), bound "
+          f"{r['ladder_bound'][0]:.5f} ms ({r['ladder_bound'][1]}); cache_sim "
+          f"at {ns3} sets (3 MB), trace 0: {r['point_ms']:.3f} ms, bound "
+          f"{r['point_bound'][0]:.5f} ms ({r['point_bound'][1]}); one set, "
+          f"{T} accesses without a repeat: {r['worst_ms']:.3f} ms = "
+          f"{r['worst_ms'] * 1e6 / T:.2f} ns an access")
+    if hasattr(cs, "stage_names"):
+        stages = []
+        flush()
+        cs.launch_ladder_cuda(ops._cache_sim_fns("cache_sim_ladder"), lines,
+                              ladder, ways, cs.TILE, stage_ms=stages)
+        names = cs.stage_names(max(ladder))
+        r["stages"] = dict(zip(names, stages))
+        print(f"cache_sim_ladder kernels, one call between CUDA events "
+              f"({sum(stages):.3f} ms in all): " + ", ".join(
+                  f"{n} {t:.3f}" for n, t in zip(names, stages)))
+    return r
+
+
+def _cachesim_rows(t, plain=None):
+    """The two LRU kernels' rows of the kernels line from
+    ``time_cachesim``'s times; ``plain`` (name -> (ms, max_abs_err))."""
+    plain = plain or {}
+    rows = []
+    for name, key, line in (("cache_sim_ladder", "ladder", 110),
+                            ("cache_sim", "point", 38)):
+        p_ms, err = plain.get(name, (None, None))
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/cache_sim.cu",
+                     "replaces": f"src/repro/kernels/cache_sim.py:{line}",
+                     "max_abs_err": err, "ms": t[f"{key}_ms"],
+                     "plain_ms": p_ms, "bound_ms": t[f"{key}_bound"][0],
+                     "bound_by": t[f"{key}_bound"][1], "library_ms": None})
+    return rows
+
+
+def phase_cachesim(flush):
+    """Kernel phase ``cachesim``: both LRU ops timed at slice C's shapes,
+    without the plain checks (slice C makes them), so that two trees'
+    kernels can be timed in one call.  Returns their rows."""
+    ways = 16
+    ladder_mb, ladder, traces = slice_c_workload(ways=ways)
+    lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
+    raw, col, kept = set_chains(lines, ladder)
+    print(f"slice C shapes: longest per-set chain {int(raw.max())}, "
+          f"{int(col.max())} after the collapse; {int(kept.sum())} of "
+          f"{raw.shape[0] * len(ladder) * lines.shape[1]} accesses kept")
+    return _cachesim_rows(time_cachesim(lines, ladder, ladder_mb, ways, kept,
+                                        flush))
+
+
+def phase_slice_c(ns_per_update: float, flush, W: int = 4,
+                  T: int = 2 ** 22, scale: int = 1):
     """The simulator at full scale: 16 rungs at 1:``scale``, ``W`` traces
     of ``T`` accesses.  Every (trace, rung) count is held against the
     plain ladder (independent of the update the two kernels share) and
@@ -1866,28 +2059,17 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
     LRU, and the 3 MB rung of trace 0 against the per-point plain
     version.  Returns the launches of the main path and the kernels' rows
     for the JSON line, timed at these shapes."""
-    from repro_torch.core.cachesim import (ANALYTIC_TOL_PCT, _ladder_sets,
-                                           capacity_lines,
+    from repro_torch.core.cachesim import (ANALYTIC_TOL_PCT, capacity_lines,
                                            dram_reduction_curve,
                                            simulate_ladder,
-                                           simulate_reference,
-                                           synthetic_traces)
-    from repro_torch.core.constants import GPU_L2_MB, LINE_BYTES, MB
+                                           simulate_reference)
     from repro_torch.core.dram import dram_reduction_pct, dram_scale
     from repro_torch.core.iso import iso_area, iso_area_capacities
-    from repro_torch.core.sweep import capacity_ladder
     from repro_torch.kernels import cache_sim as cs
     from repro_torch.kernels import ops
     ways = 16
-    footprint = int(256 * MB) // (LINE_BYTES * scale)
-    ladder_mb = capacity_ladder(include=(GPU_L2_MB,))
+    ladder_mb, ladder, traces = slice_c_workload(W, T, scale, ways)
     L = len(ladder_mb)
-    check(L == 16, f"ladder has {L} rungs")
-    t0 = time.perf_counter()
-    traces = synthetic_traces(T, footprint, seeds=range(W))
-    print(f"slice C: {W} zipf traces x {T} accesses over {footprint} lines "
-          f"made in {time.perf_counter() - t0:.2f} s; rungs (MB) "
-          f"{[round(c, 3) for c in ladder_mb]}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1914,7 +2096,6 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
           f"{peak / 1e9:.3f} GB; ladder == {W * L} per-point runs bit for "
           f"bit; launches {launches}")
 
-    ladder = _ladder_sets(ladder_mb, scale=scale, ways=ways)
     t0 = time.perf_counter()
     for i, ns in enumerate(ladder):
         oracle = lru_oracle(traces[0], ns, ways)
@@ -1926,65 +2107,50 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
 
     lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
     torch.cuda.reset_peak_memory_stats()
-    plain, plain_ms = timed_once(
+    plain, ladder_plain_ms = timed_once(
         lambda: cs.cache_sim_ladder_plain(lines, ladder, ways=ways))
     plain_peak = torch.cuda.max_memory_allocated()
     plain = plain.cpu().numpy()
     check(np.array_equal(counts, plain),
           f"ladder != plain at {np.argwhere(counts != plain)[:4]}")
-    ms = median_ms(lambda: ops.cache_sim_ladder(lines, num_sets=ladder,
-                                                ways=ways), runs=3, warm=1)
-    bound_ms, bound_by = _bound(W * T * 4 + W * L * 2 * 8,
-                                W * T * L * (1 + ways))
-    print(f"slice C: all {W * L} (trace, rung) counts == plain ladder "
-          f"bit for bit; cache_sim_ladder kernel {ms:.3f} ms (median of 3), "
-          f"plain {plain_ms:.1f} ms (once, peak memory "
-          f"{plain_peak / 1e9:.3f} GB), bound {bound_ms:.5f} ms "
-          f"({bound_by}); no library call")
-    ladder_row = {"name": "cache_sim_ladder", "route": "cuda",
-                  "source": "src/repro_torch/csrc/cache_sim.cu",
-                  "replaces": "src/repro/kernels/cache_sim.py:110",
-                  "max_abs_err": float(np.abs(counts - plain).max()),
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": None}
+    print(f"slice C: all {W * L} (trace, rung) counts == plain ladder bit "
+          f"for bit; plain {ladder_plain_ms:.1f} ms (once, peak memory "
+          f"{plain_peak / 1e9:.3f} GB); no library call")
+    ladder_err = float(np.abs(counts - plain).max())
     del plain
     torch.cuda.empty_cache()
 
-    ns3 = ladder[ladder_mb.index(GPU_L2_MB)]
-    sid, tag = lines[0] % ns3, lines[0] // ns3
+    raw, col, kept = set_chains(lines, ladder)
+    t = time_cachesim(lines, ladder, ladder_mb, ways, kept, flush)
+    ns3, (sid, tag) = t["ns3"], t["point_args"]
     got = ops.cache_sim(sid, tag, num_sets=ns3, ways=ways)
-    want, plain_ms = timed_once(
+    want, point_plain_ms = timed_once(
         lambda: cs.cache_sim_plain(sid, tag, num_sets=ns3, ways=ways))
     check(torch.equal(got, want), f"cache_sim at 3 MB, trace 0: kernel "
           f"{got.tolist()} != plain {want.tolist()}")
-    ms = median_ms(lambda: ops.cache_sim(sid, tag, num_sets=ns3, ways=ways),
-                   runs=3, warm=1)
-    pbound_ms, pbound_by = _bound(2 * T * 4 + 2 * 8, T * (1 + ways))
     print(f"slice C: 3 MB rung of trace 0 ({ns3} sets): cache_sim == "
-          f"cache_sim_plain {want.tolist()}; kernel {ms:.3f} ms (median of "
-          f"3), plain {plain_ms:.1f} ms (once), bound {pbound_ms:.5f} ms "
-          f"({pbound_by}); no library call")
-    point_row = {"name": "cache_sim", "route": "cuda",
-                 "source": "src/repro_torch/csrc/cache_sim.cu",
-                 "replaces": "src/repro/kernels/cache_sim.py:38",
-                 "max_abs_err": float((got - want).abs().max()),
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": pbound_ms,
-                 "bound_by": pbound_by, "library_ms": None}
+          f"cache_sim_plain {want.tolist()}; plain {point_plain_ms:.1f} ms "
+          f"(once); no library call")
+    rows = _cachesim_rows(t, {
+        "cache_sim_ladder": (ladder_plain_ms, ladder_err),
+        "cache_sim": (point_plain_ms, float((got - want).abs().max()))})
 
     ratio = counts[:, :, 1] / T
     print("slice C: miss ratio per rung, trace 0: " + ", ".join(
         f"{c:g}MB {r:.4f}" for c, r in zip(ladder_mb, ratio[0])))
-    # the longest per-set chain: the critical path of both kernels
-    chain, where = 0, None
-    for w, tr in enumerate(traces):
-        for c, ns in zip(ladder_mb, ladder):
-            n = int(np.bincount(tr % ns).max())
-            if n > chain:
-                chain, where = n, (w, c)
-    print(f"slice C: longest per-set chain {chain} accesses ({chain / T:.3f}"
-          f" of a trace; trace {where[0]}, {where[1]:g} MB) x "
-          f"{ns_per_update:.2f} ns per dependent update = "
-          f"{chain * ns_per_update / 1e6:.2f} ms critical path")
+    # the longest per-set chain, before and after the collapse of repeated
+    # hits: the critical path of both kernels' walks
+    for name, c in (("longest per-set chain", raw),
+                    ("longest collapsed chain", col)):
+        w, l = np.unravel_index(int(c.argmax()), c.shape)
+        n = int(c[w, l])
+        print(f"slice C: {name} {n} accesses ({n / T:.4f} of a trace; "
+              f"trace {w}, {ladder_mb[l]:g} MB) x {ns_per_update:.2f} ns "
+              f"per dependent update = {n * ns_per_update / 1e6:.3f} ms")
+    print("slice C: collapsed chain per rung (max over traces): " + ", ".join(
+        f"{c:g}MB {int(n)}" for c, n in zip(ladder_mb, col.max(0))))
+    print(f"slice C: {int(kept.sum())} of {W * L * T} accesses kept after "
+          f"the collapse ({kept.sum() / (W * L * T):.4f})")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2006,7 +2172,7 @@ def phase_slice_c(ns_per_update: float, W: int = 4, T: int = 2 ** 22,
               f"1:{scale}) vs {dram_reduction_pct(c):.2f}% (analytic); band "
               f"+/-{ANALYTIC_TOL_PCT} points is the CPU tests' at 1:32, "
               f"not gated here")
-    return launches, [ladder_row, point_row]
+    return launches, rows
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2068,7 +2234,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "sampling": "phase_sampling",
                  "paged": "phase_paged_attention",
                  "ssd": "phase_ssd_scan", "rglru": "phase_rglru_scan",
-                 "flash": "phase_flash_attention"}
+                 "flash": "phase_flash_attention",
+                 "cachesim": "phase_cachesim"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -2076,7 +2243,9 @@ def kernel_phases(names, tree) -> None:
     ``KERNEL_PHASES``) of the smoke in checkout ``tree``: this one, or
     another's ``chip_smoke.py`` and ``src/`` (an older commit unpacked
     beside this one), so that two versions of a kernel are timed on one
-    card in one call.  Prints their kernels line; no result line."""
+    card in one call; a phase the other tree's smoke lacks runs from this
+    file, on that tree's kernels.  Prints their kernels line; no result
+    line."""
     import importlib.util
     root = Path(tree).resolve() if tree else ROOT
     sys.path.insert(0, str(root / "src"))
@@ -2088,7 +2257,12 @@ def kernel_phases(names, tree) -> None:
     smoke.phase_card()
     smoke.phase_build()
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
-    rows = [getattr(smoke, KERNEL_PHASES[n])(scratch.zero_) for n in names]
+    rows = []
+    for n in names:
+        phase = getattr(smoke, KERNEL_PHASES[n], None) or globals()[
+            KERNEL_PHASES[n]]
+        row = phase(scratch.zero_)
+        rows += row if isinstance(row, list) else [row]
     print(json.dumps({"kernels": rows}))
 
 
@@ -2157,7 +2331,9 @@ def main() -> None:
         phase_slice_u(Path(tmp))
     torch.cuda.empty_cache()
     stamp("slices T, U")
-    launches_c, rows = phase_slice_c(ns_per_update)
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    launches_c, rows = phase_slice_c(ns_per_update, scratch.zero_)
+    del scratch
     kernels += rows
     stamp("slice C")
     phase_pipeline()

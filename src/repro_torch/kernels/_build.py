@@ -82,13 +82,14 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def function(source: str, name: str, argtypes):
+def function(source: str, name: str, argtypes, restype=ctypes.c_int):
     """The C function ``name`` of ``csrc/<source>.cu``, declared with
-    ``argtypes`` and an ``int`` result (the CUDA error code)."""
+    ``argtypes`` and ``restype`` (by default ``int``: the CUDA error
+    code)."""
     if source not in _libs:
         build_all()
     fn = getattr(_libs[source], name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn

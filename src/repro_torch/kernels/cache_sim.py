@@ -4,7 +4,7 @@ launchers.
 Replaces ``repro/kernels/cache_sim.py``: ``_cachesim_kernel`` (per point,
 ``cache_sim``: one cache size over precomputed set ids and tags) and
 ``_ladder_kernel`` (``cache_sim_ladder``: every (trace x ladder rung) pair
-in one launch, set and tag derived from raw line ids).  The CUDA kernels
+in one call, set and tag derived from raw line ids).  The CUDA kernels
 are ``csrc/cache_sim.cu``.
 
 LRU semantics, shared by every version and bit-exact with the reference:
@@ -21,14 +21,14 @@ independent and the stable sort keeps each set's order, so this is exact.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 EMPTY = -1            # empty-way tag sentinel
 MAX_WAYS = 16         # ways the CUDA kernels hold per set (registers)
-MAX_TILE = 1024       # sets per block: one thread per set
-TILE = 256            # sets per block the wrappers choose by default
+MAX_TILE = 1024       # threads per block of the CUDA walk
+TILE = 256            # sets per tile the wrappers choose by default
 MAX_LEN = 2 ** 31 - 4097   # trace length the kernels' int offsets reach
 
 
@@ -117,35 +117,54 @@ def cache_sim_ladder_plain(traces: torch.Tensor,
 
 
 # --------------------------------------------------------------- CUDA
+#
+# ``csrc/cache_sim.cu`` buckets each problem's accesses by set (LSD radix
+# passes), drops the accesses that repeat their set's previous tag (hits on
+# the most recently used way), and walks each set's remaining accesses with
+# one thread.  A problem is one trace against one set count: the per-point
+# call is one, the ladder W x L (problem q: rung q // W, trace q % W).
+
+
+SCRATCH_CAP = 2 ** 32   # bytes of scratch a ladder call groups its problems in
+MAX_GROUP = 65535       # problems per group (the kernels' grid.y)
+RADIX_BITS = 8
 
 
 def largest_divisor_tile(num_sets: int, sets_tile: int = TILE) -> int:
     """Largest set-tile <= ``sets_tile`` that divides ``num_sets`` (the
-    per-point kernel takes whole tiles only)."""
+    default ``sets_tile`` of the per-point call, as the JAX signature
+    has it)."""
     for tile in range(min(int(sets_tile), int(num_sets)), 0, -1):
         if num_sets % tile == 0:
             return tile
     return 1
 
 
-def ladder_tiles(num_sets_ladder: Sequence[int], sets_tile: int
-                 ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...],
-                            Tuple[int, ...]]:
-    """(tile, per-tile set count, per-tile first set, per-tile rung) over
-    a ladder: rung ``l`` with ``ns`` sets contributes ``ceil(ns / tile)``
-    tiles; the kernel ignores accesses outside ``[base, base + tile)``, so
-    ``ns`` need not be a multiple of the tile."""
+def ladder_tile(num_sets_ladder: Sequence[int], sets_tile: int) -> int:
+    """The walk's block size over a ladder: ``sets_tile`` cut to the
+    largest rung, as the Pallas kernel cuts its tile of sets.  Raises on
+    an empty ladder or a rung of no sets."""
     ladder = tuple(int(n) for n in num_sets_ladder)
     if not ladder or min(ladder) < 1:
         raise ValueError(f"bad set-count ladder {ladder!r}")
-    tile = min(int(sets_tile), max(ladder))
-    ns_of, base_of, rung_of = [], [], []
-    for l, ns in enumerate(ladder):
-        for base in range(0, ns, tile):
-            ns_of.append(ns)
-            base_of.append(base)
-            rung_of.append(l)
-    return tile, tuple(ns_of), tuple(base_of), tuple(rung_of)
+    if max(ladder) >= 2 ** 31:
+        raise ValueError(f"set counts must fit int32; got {max(ladder)}")
+    return min(int(sets_tile), max(ladder))
+
+
+def radix_passes(num_sets: int) -> int:
+    """Bucketing passes of the CUDA kernels for ``num_sets`` sets."""
+    return -(-(int(num_sets) - 1).bit_length() // RADIX_BITS)
+
+
+def stage_names(max_ns: int) -> Tuple[str, ...]:
+    """The CUDA kernels of one call over a ladder whose largest rung has
+    ``max_ns`` sets, in launch order."""
+    names = []
+    for p in range(radix_passes(max_ns)):
+        names += [f"histogram {p}", f"scan {p}", f"scatter {p}"]
+    return tuple(names + ["collapse count", "collapse scan",
+                          "collapse write", "walk"])
 
 
 def _check_common(ways: int, tile: int) -> None:
@@ -186,45 +205,81 @@ def check_ladder_args(traces, ways: int, sets_tile: int) -> None:
     _check_common(ways, sets_tile)
 
 
-def launch_cuda(fn, set_ids, tags, num_sets: int, ways: int,
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_cuda(fns, set_ids, tags, num_sets: int, ways: int,
                 sets_tile: int) -> torch.Tensor:
-    """Launch ``cache_sim`` from ``csrc/cache_sim.cu``: one block per tile
-    of ``sets_tile`` sets.  Returns (2,) int64 [hits, misses]."""
-    n_tiles = num_sets // sets_tile
-    dev = set_ids.device
-    out = torch.empty(n_tiles, 2, dtype=torch.int32, device=dev)
-    err = fn(set_ids.data_ptr(), tags.data_ptr(), out.data_ptr(),
-             set_ids.numel(), n_tiles, sets_tile, ways,
-             torch.cuda.current_stream(dev).cuda_stream)
+    """Run ``cache_sim`` from ``csrc/cache_sim.cu`` (``fns``: it and
+    ``cache_sim_scratch_bytes``) over one cache, walk blocks of
+    ``sets_tile`` threads.  Returns (2,) int64 [hits, misses]."""
+    run, scratch_bytes = fns
+    T, dev = set_ids.numel(), set_ids.device
+    nbytes = scratch_bytes(1, T, num_sets, 0)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    err = run(set_ids.data_ptr(), tags.data_ptr(), out.data_ptr(),
+              scratch.data_ptr(), nbytes, T, num_sets, sets_tile, ways,
+              _stream(dev))
     if err:
         raise RuntimeError(f"cache_sim launch failed: CUDA error {err}")
-    return out.sum(0, dtype=torch.int64)
+    return out.to(torch.int64)
 
 
-def launch_ladder_cuda(fn, traces, num_sets_ladder: Sequence[int],
-                       ways: int, sets_tile: int) -> torch.Tensor:
-    """Launch ``cache_sim_ladder`` from ``csrc/cache_sim.cu``: one block
-    per (trace, rung tile).  Returns (W, L, 2) int64 [hits, misses]."""
+def ladder_groups(n_problems: int, bytes_of) -> Tuple[int, int]:
+    """(problems per group, scratch bytes of a group): as many problems as
+    fit ``SCRATCH_CAP`` (``bytes_of(n)`` the scratch of n problems), at
+    least one and at most ``MAX_GROUP``."""
+    size = max(1, min(n_problems, MAX_GROUP,
+                      SCRATCH_CAP // max(bytes_of(1), 1)))
+    while size > 1 and bytes_of(size) > SCRATCH_CAP:
+        size -= 1
+    return size, bytes_of(size)
+
+
+def launch_ladder_cuda(fns, traces, num_sets_ladder: Sequence[int],
+                       ways: int, sets_tile: int,
+                       stage_ms: Optional[list] = None) -> torch.Tensor:
+    """Run ``cache_sim_ladder`` from ``csrc/cache_sim.cu`` (``fns``: it
+    and ``cache_sim_scratch_bytes``) over every (trace, rung) problem, in
+    groups whose scratch stays under ``SCRATCH_CAP`` (a problem alone may
+    pass it: about 8.2 bytes an access), walk blocks of the tile
+    ``ladder_tile`` cuts.  With ``stage_ms`` (a list, one group only) the
+    kernels are timed between CUDA events and their ms appended in the
+    order of ``stage_names``.  Returns (W, L, 2) int64 [hits, misses]."""
+    run, scratch_bytes = fns
     W, T = traces.shape
     dev = traces.device
-    tile, ns_of, base_of, rung_of = ladder_tiles(num_sets_ladder, sets_tile)
-    G = len(ns_of)
-    meta = torch.tensor([ns_of, base_of], dtype=torch.int32).to(dev)
-    out = torch.empty(W, G, 2, dtype=torch.int32, device=dev)
-    err = fn(traces.data_ptr(), meta[0].data_ptr(), meta[1].data_ptr(),
-             out.data_ptr(), W, T, G, tile, ways,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"cache_sim_ladder launch failed: CUDA error "
-                           f"{err}")
-    # tile -> rung reduction, in int64
-    rung = torch.tensor(rung_of, dtype=torch.int64).to(dev)
-    per_rung = torch.zeros(len(num_sets_ladder), W, 2, dtype=torch.int64,
-                           device=dev)
-    per_rung.index_add_(0, rung, out.transpose(0, 1).to(torch.int64))
-    return per_rung.transpose(0, 1).contiguous()
+    ladder = tuple(int(n) for n in num_sets_ladder)
+    tile = ladder_tile(ladder, sets_tile)
+    L, max_ns = len(ladder), max(ladder)
+    P = W * L
+    size, nbytes = ladder_groups(
+        P, lambda n: scratch_bytes(n, T, max_ns, 1))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ns = torch.tensor(ladder, dtype=torch.int32).to(dev)
+    out = torch.empty(P, 2, dtype=torch.int32, device=dev)
+    times = None
+    if stage_ms is not None:
+        if size < P:
+            raise ValueError("stage timing takes a ladder of one group")
+        times = (ctypes.c_float * len(stage_names(max_ns)))()
+    for q0 in range(0, P, size):
+        n = min(size, P - q0)
+        err = run(traces.data_ptr(), ns.data_ptr(), out[q0:].data_ptr(),
+                  scratch.data_ptr(), nbytes, W, T, q0, n, max_ns, tile,
+                  ways, times, _stream(dev))
+        if err:
+            raise RuntimeError(f"cache_sim_ladder launch failed: CUDA "
+                               f"error {err}")
+    if times is not None:
+        stage_ms.extend(float(t) for t in times)
+    return out.view(L, W, 2).transpose(0, 1).to(torch.int64)
 
 
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-LADDER_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+LADDER_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+SCRATCH_ARGTYPES = [ctypes.c_int] * 4

@@ -10,6 +10,7 @@ can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -162,38 +163,49 @@ def fused_sample(logits, temps, key):
     return out
 
 
+def _cache_sim_fns(name: str):
+    """The C entry ``name`` of ``csrc/cache_sim.cu`` and its scratch
+    sizer."""
+    argtypes = _cs.ARGTYPES if name == "cache_sim" else _cs.LADDER_ARGTYPES
+    return (_build.function("cache_sim", name, argtypes),
+            _build.function("cache_sim", "cache_sim_scratch_bytes",
+                            _cs.SCRATCH_ARGTYPES, ctypes.c_longlong))
+
+
 def cache_sim(set_ids, tags, *, num_sets: int, ways: int,
               sets_tile: Optional[int] = None):
-    """LRU hits and misses of one trace of precomputed set ids and tags
-    (T,) int32 against a cache of ``num_sets`` x ``ways``; one block per
-    tile of ``sets_tile`` sets (``num_sets`` a multiple of it; by default
-    the largest divisor of ``num_sets`` up to 256).  Returns (2,) int64
-    [hits, misses]."""
+    """LRU hits and misses of one trace of precomputed set ids (in [0,
+    ``num_sets``)) and tags (T,) int32 against a cache of ``num_sets`` x
+    ``ways``.  ``sets_tile`` is the JAX signature's tile of sets, checked
+    as there (``num_sets`` a multiple of it; by default the largest
+    divisor of ``num_sets`` up to 256); the CUDA kernel buckets the trace
+    by set and walks each set with one thread, ``sets_tile`` threads a
+    block.  Returns (2,) int64 [hits, misses]."""
     if not _on_cuda(set_ids, tags):
         return _cs.cache_sim_plain(set_ids, tags, num_sets=num_sets,
                                    ways=ways)
     if sets_tile is None:
         sets_tile = _cs.largest_divisor_tile(num_sets)
     _cs.check_args(set_ids, tags, num_sets, ways, sets_tile)
-    fn = _build.function("cache_sim", "cache_sim", _cs.ARGTYPES)
-    out = _cs.launch_cuda(fn, set_ids, tags, num_sets, ways, sets_tile)
+    out = _cs.launch_cuda(_cache_sim_fns("cache_sim"), set_ids, tags,
+                          num_sets, ways, sets_tile)
     launches["cache_sim"] += 1
     return out
 
 
 def cache_sim_ladder(traces, *, num_sets: Sequence[int], ways: int,
                      sets_tile: int = _cs.TILE):
-    """LRU hits and misses of every (trace, rung) pair in one launch:
-    traces (W, T) int32 line ids, ``num_sets`` the per-rung set counts;
-    one block per tile of ``sets_tile`` sets (cut to the largest rung), a
-    rung's last tile may be partial.  Returns (W, L, 2) int64 [hits,
-    misses]."""
+    """LRU hits and misses of every (trace, rung) pair in one call: traces
+    (W, T) int32 line ids >= 0, ``num_sets`` the per-rung set counts.
+    ``sets_tile`` is the JAX signature's tile of sets, cut to the largest
+    rung; the CUDA kernels bucket every (trace, rung) problem by set and
+    walk each set with one thread, that many threads a block.  Returns
+    (W, L, 2) int64 [hits, misses]."""
     if not _on_cuda(traces):
         return _cs.cache_sim_ladder_plain(traces, num_sets, ways=ways)
     _cs.check_ladder_args(traces, ways, sets_tile)
-    fn = _build.function("cache_sim", "cache_sim_ladder",
-                         _cs.LADDER_ARGTYPES)
-    out = _cs.launch_ladder_cuda(fn, traces, num_sets, ways, sets_tile)
+    out = _cs.launch_ladder_cuda(_cache_sim_fns("cache_sim_ladder"),
+                                 traces, num_sets, ways, sets_tile)
     launches["cache_sim_ladder"] += 1
     return out
 

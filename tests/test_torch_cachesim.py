@@ -7,8 +7,9 @@ kernels' oracle, to the Pallas kernels (interpret mode, as
 ``tests/test_cachesim.py`` runs them) and to the reference's numpy and
 OrderedDict oracles.  Every count is compared exactly.  They also pin what
 the CUDA wrappers do around the kernels: argument checks, device dispatch,
-launch counting, and the tile bookkeeping, through a stand-in for the
-compiled library that computes each tile's counts with the numpy oracle.
+launch counting, scratch sizing and problem groups, through stand-ins for
+the compiled library that compute each problem's counts with the numpy
+oracle, and the collapse of repeated hits the CUDA kernels rely on.
 """
 import ctypes
 import re
@@ -173,12 +174,19 @@ def test_dram_curves_match_jax():
 
 
 def test_ladder_tiles_match_the_pallas_bookkeeping():
+    """The CUDA ladder's walk block is the Pallas kernel's tile (cut to
+    the largest rung), and both refuse the same bad ladders."""
     for ladder, tile in (((1, 3, 7, 20, 33), 8), ((16, 23, 96), 32),
                          ((256, 362, 1536), 256), ((5,), 1024)):
-        assert ks.ladder_tiles(ladder, tile) == jks.ladder_tiles(ladder,
-                                                                 tile)
-    with pytest.raises(ValueError, match="ladder"):
-        ks.ladder_tiles((4, 0), 8)
+        assert ks.ladder_tile(ladder, tile) == jks.ladder_tiles(ladder,
+                                                                tile)[0]
+    for bad in ((4, 0), ()):
+        with pytest.raises(ValueError, match="ladder"):
+            jks.ladder_tiles(bad, 8)
+        with pytest.raises(ValueError, match="ladder"):
+            ks.ladder_tile(bad, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ks.ladder_tile((2 ** 31,), 8)
 
 
 def test_plain_path_counts_no_launches_and_odd_devices_raise():
@@ -230,67 +238,175 @@ def _array(ptr: int, n: int) -> np.ndarray:
         ptr))[:n]
 
 
-def _fake_cache_sim(sid_p, tag_p, out_p, T, n_tiles, tile, ways, stream):
-    """Stand-in for ``csrc/cache_sim.cu::cache_sim``: each tile's counts
-    from the numpy oracle over the accesses of its sets."""
+def _fake_scratch_bytes(problems, T, max_ns, ladder):
+    """Stand-in for ``csrc/cache_sim.cu::cache_sim_scratch_bytes``."""
+    return problems * (1000 + T * (4 if ladder else 8)) + max_ns
+
+
+def _fake_cache_sim(sid_p, tag_p, out_p, scratch_p, nbytes, T, num_sets,
+                    tile, ways, stream):
+    """Stand-in for ``csrc/cache_sim.cu::cache_sim``: the counts of the
+    numpy oracle, into its int32 pair."""
+    assert nbytes >= _fake_scratch_bytes(1, T, num_sets, 0)
     sid, tags = _array(sid_p, T), _array(tag_p, T)
-    out = _array(out_p, 2 * n_tiles).reshape(n_tiles, 2)
-    for b in range(n_tiles):
-        sel = (sid >= b * tile) & (sid < (b + 1) * tile)
-        out[b] = jref.cache_sim_numpy(sid[sel] - b * tile, tags[sel],
-                                      num_sets=tile, ways=ways)
+    _array(out_p, 2)[:] = jref.cache_sim_numpy(sid, tags, num_sets=num_sets,
+                                               ways=ways)
     return 0
 
 
-def _fake_ladder(tr_p, ns_p, base_p, out_p, W, T, G, tile, ways, stream):
-    """Stand-in for ``csrc/cache_sim.cu::cache_sim_ladder``."""
+def _fake_ladder(tr_p, ns_p, out_p, scratch_p, nbytes, W, T, q0, P, max_ns,
+                 tile, ways, stage_ms, stream, calls):
+    """Stand-in for ``csrc/cache_sim.cu::cache_sim_ladder``: problems q0
+    .. q0 + P - 1 (rung q // W, trace q % W) from the numpy oracle."""
+    calls.append((q0, P, tile))
+    assert nbytes >= _fake_scratch_bytes(P, T, max_ns, 1)
     traces = _array(tr_p, W * T).reshape(W, T)
-    ns, base = _array(ns_p, G), _array(base_p, G)
-    out = _array(out_p, W * G * 2).reshape(W, G, 2)
-    for w in range(W):
-        for g in range(G):
-            sid, tags = traces[w] % ns[g], traces[w] // ns[g]
-            sel = (sid >= base[g]) & (sid < base[g] + tile)
-            out[w, g] = jref.cache_sim_numpy(sid[sel], tags[sel],
-                                             num_sets=ns[g], ways=ways)
+    ns = _array(ns_p, (q0 + P - 1) // W + 1)
+    out = _array(out_p, 2 * P).reshape(P, 2)
+    for q in range(q0, q0 + P):
+        n, line = int(ns[q // W]), traces[q % W]
+        out[q - q0] = jref.cache_sim_numpy(line % n, line // n, num_sets=n,
+                                           ways=ways)
+    if stage_ms is not None:
+        for k in range(len(stage_ms)):
+            stage_ms[k] = k + 0.5
     return 0
 
 
 def test_launchers_marshal_and_reduce_tiles(monkeypatch):
-    """The launchers' argument order, tile metadata and tile -> rung sums,
-    on CPU tensors through stand-ins for the compiled functions."""
+    """The launchers' argument order, scratch sizing, problem groups under
+    the scratch cap and problem -> (trace, rung) layout, stage timing, and
+    errors, on CPU tensors through stand-ins for the compiled functions."""
     class _Stream:
         cuda_stream = 0
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     traces = np.stack([_zipf_trace(700, 900, seed=s) for s in (5, 6, 7)])
     ladder = (1, 3, 7, 20, 33, 96)
-    got = ks.launch_ladder_cuda(_fake_ladder, _i32(traces), ladder, 4, 8)
-    np.testing.assert_array_equal(
-        got.numpy(), jref.cache_sim_ladder_numpy(traces, ladder, ways=4))
+    want = jref.cache_sim_ladder_numpy(traces, ladder, ways=4)
+    per_problem = _fake_scratch_bytes(1, 700, 96, 1)
+    for cap, groups in ((2 ** 32, [(0, 18)]),
+                        (5 * per_problem, [(0, 5), (5, 5), (10, 5),
+                                           (15, 3)]),
+                        (1, [(q, 1) for q in range(18)])):
+        monkeypatch.setattr(ks, "SCRATCH_CAP", cap)
+        calls = []
+        fns = (lambda *a: _fake_ladder(*a, calls=calls), _fake_scratch_bytes)
+        got = ks.launch_ladder_cuda(fns, _i32(traces), ladder, 4, 8)
+        assert got.dtype == torch.int64 and got.shape == (3, 6, 2)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert [c[:2] for c in calls] == groups
+        assert {c[2] for c in calls} == {8}           # the walk's block
+    monkeypatch.setattr(ks, "SCRATCH_CAP", 2 ** 32)
+    calls, stages = [], []
+    fns = (lambda *a: _fake_ladder(*a, calls=calls), _fake_scratch_bytes)
+    ks.launch_ladder_cuda(fns, _i32(traces), (1, 300), 4, 512,
+                          stage_ms=stages)
+    assert calls == [(0, 6, 300)]
+    assert len(stages) == len(ks.stage_names(300)) == 3 * 2 + 4
+    assert stages == [k + 0.5 for k in range(10)]
+    monkeypatch.setattr(ks, "SCRATCH_CAP", 1)
+    with pytest.raises(ValueError, match="one group"):
+        ks.launch_ladder_cuda(fns, _i32(traces), ladder, 4, 8, stage_ms=[])
+
     sid, tags = traces[0] % 96, traces[0] // 96
-    got = ks.launch_cuda(_fake_cache_sim, _i32(sid), _i32(tags), 96, 16, 32)
+    got = ks.launch_cuda((_fake_cache_sim, _fake_scratch_bytes), _i32(sid),
+                         _i32(tags), 96, 16, 32)
+    assert got.dtype == torch.int64
     assert tuple(got.tolist()) == jref.cache_sim_numpy(sid, tags,
                                                        num_sets=96, ways=16)
 
     def failing(*args):
         return 9
     with pytest.raises(RuntimeError, match="CUDA error 9"):
-        ks.launch_ladder_cuda(failing, _i32(traces), ladder, 4, 8)
+        ks.launch_ladder_cuda((failing, _fake_scratch_bytes), _i32(traces),
+                              ladder, 4, 8)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
-        ks.launch_cuda(failing, _i32(sid), _i32(tags), 96, 16, 32)
+        ks.launch_cuda((failing, _fake_scratch_bytes), _i32(sid),
+                       _i32(tags), 96, 16, 32)
+
+
+_CTYPES_OF = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+              "int": ctypes.c_int, "long long": ctypes.c_longlong}
 
 
 def test_c_interface_matches_the_ctypes_declarations():
-    """The ``extern "C"`` functions of ``csrc/cache_sim.cu`` take as many
-    arguments as ``ARGTYPES`` declares (ctypes cannot check it)."""
+    """The ``extern "C"`` functions of ``csrc/cache_sim.cu`` take the
+    argument and result types their ctypes declarations give (ctypes
+    cannot check it), and the source's limits are the wrappers'."""
     src = (_build.CSRC / "cache_sim.cu").read_text()
-    for name, argtypes in (("cache_sim", ks.ARGTYPES),
-                           ("cache_sim_ladder", ks.LADDER_ARGTYPES)):
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-        params = [p.strip() for p in m.group(1).split(",")]
-        assert len(params) == len(argtypes), name
-        pointers = [p.endswith(("void* stream",)) or "*" in p
-                    for p in params]
-        assert pointers == [t is ctypes.c_void_p for t in argtypes], name
+    for name, argtypes, restype in (
+            ("cache_sim", ks.ARGTYPES, "int"),
+            ("cache_sim_ladder", ks.LADDER_ARGTYPES, "int"),
+            ("cache_sim_scratch_bytes", ks.SCRATCH_ARGTYPES, "long long")):
+        m = re.search(r'extern "C" (int|long long) ' + name + r"\(([^)]*)\)",
+                      src)
+        assert m and m.group(1) == restype, name
+        params = [" ".join(p.split()) for p in m.group(2).split(",")]
+        types = [_CTYPES_OF[p.rsplit(" ", 1)[0]] for p in params]
+        assert types == list(argtypes), name
     assert f"kMaxWays = {ks.MAX_WAYS};" in src
     assert f"kMaxTile = {ks.MAX_TILE};" in src
+    assert f"kRadixBits = {ks.RADIX_BITS};" in src
+    assert f"T > {2 ** 31 - 1} - 4096" in src and ks.MAX_LEN == 2 ** 31 - 4097
+    assert f"kMaxProblems = {ks.MAX_GROUP};" in src
+    ops_src = (_build.CSRC.parent / "kernels" / "ops.py").read_text()
+    assert "ctypes.c_longlong" in ops_src
+
+
+@pytest.mark.parametrize("ns,want", [(1, 0), (2, 1), (256, 1), (257, 2),
+                                     (65536, 2), (65537, 3),
+                                     (2 ** 24 + 1, 4), (2 ** 31 - 1, 4)])
+def test_radix_passes_and_stage_names(ns, want):
+    """As many 8-bit passes as the largest set id has digits; each pass is
+    three kernels, the collapse three more and the walk one."""
+    assert ks.radix_passes(ns) == want
+    names = ks.stage_names(ns)
+    assert len(names) == 3 * want + 4 and names[-1] == "walk"
+
+
+def _collapse(sid: np.ndarray, tags: np.ndarray):
+    """The kernels' collapse on the host: (repeats, kept mask in trace
+    order), a repeat being an access whose predecessor in its set's bucket
+    (stable order by set) has the same tag."""
+    order = np.argsort(sid, kind="stable")
+    s, t = sid[order], tags[order]
+    repeat = np.zeros(len(sid), bool)
+    repeat[1:] = (s[1:] == s[:-1]) & (t[1:] == t[:-1])
+    kept = np.ones(len(sid), bool)
+    kept[order[repeat]] = False
+    return int(repeat.sum()), kept
+
+
+def _cycling(n, k):
+    return np.arange(n) % k
+
+
+@pytest.mark.parametrize("case", [
+    "zipf", "one_way", "one_set", "equal_tags", "cycling", "cycling_one_set",
+    "pairs"])
+@pytest.mark.parametrize("ways", [1, 2, 4, 16])
+def test_collapse_of_repeated_hits_is_exact(case, ways):
+    """Counting each in-bucket repeat as a hit and simulating the rest
+    gives the counts of simulating everything, for every ways >= 1."""
+    n, rng = 900, np.random.RandomState(ways)
+    nsets = {"one_set": 1, "cycling_one_set": 1, "one_way": 7}.get(case, 13)
+    w = 1 if case == "one_way" else ways
+    sid = rng.randint(0, nsets, n)
+    tags = {"equal_tags": np.full(n, 5),
+            "cycling": _cycling(n, w + 1),
+            "cycling_one_set": _cycling(n, w + 1),
+            "pairs": rng.randint(0, 3, n)}.get(case,
+                                               _zipf_trace(n, 60, seed=w))
+    if case == "pairs":             # runs of repeats across other sets
+        sid = np.repeat(rng.randint(0, nsets, n // 4), 4)
+    want = jref.cache_sim_numpy(sid, tags, num_sets=nsets, ways=w)
+    full = ks.cache_sim_plain(_i32(sid), _i32(tags), num_sets=nsets, ways=w)
+    assert tuple(full.tolist()) == want
+    repeats, kept = _collapse(sid, tags)
+    rest = ks.cache_sim_plain(_i32(sid[kept]), _i32(tags[kept]),
+                              num_sets=nsets, ways=w)
+    assert (repeats + int(rest[0]), int(rest[1])) == want
+    if case == "equal_tags":
+        assert repeats == n - len(set(sid.tolist()))
+    if case == "cycling_one_set":
+        assert repeats == 0 and want == (0, n)   # the no-repeat worst case

@@ -189,6 +189,111 @@ def test_cache_sim_ladder_kernel_matches_plain(dev, ways, num_sets, tile):
     assert bool((got.sum(2) == traces.shape[1]).all())
 
 
+def _point_matches_plain(dev, sid, tags, ns, ways, tile=None):
+    from repro_torch.kernels import cache_sim as cs
+    sid = torch.as_tensor(sid, dtype=torch.int32).to(dev)
+    tags = torch.as_tensor(tags, dtype=torch.int32).to(dev)
+    want = cs.cache_sim_plain(sid, tags, num_sets=ns, ways=ways)
+    got = ops.cache_sim(sid, tags, num_sets=ns, ways=ways, sets_tile=tile)
+    torch.cuda.synchronize()
+    assert got.tolist() == want.tolist() and int(got.sum()) == sid.numel()
+    return got.tolist()
+
+
+def _ladder_matches_plain(dev, traces, ladder, ways, tile=256):
+    from repro_torch.kernels import cache_sim as cs
+    traces = torch.as_tensor(traces, dtype=torch.int32).to(dev)
+    want = cs.cache_sim_ladder_plain(traces, ladder, ways=ways)
+    got = ops.cache_sim_ladder(traces, num_sets=ladder, ways=ways,
+                               sets_tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got.sum(2) == traces.shape[1]).all())
+    return got
+
+
+@pytest.mark.parametrize("ways", [1, 4, 16])
+def test_cache_sim_no_repeats_on_one_set(dev, ways):
+    """One set, ``ways + 1`` tags in turn: every access misses and the
+    collapse drops none, a chain of T dependent updates."""
+    T = 3000
+    tags = torch.arange(T) % (ways + 1)
+    assert _point_matches_plain(dev, torch.zeros(T), tags, 1, ways) == [0, T]
+    got = _ladder_matches_plain(dev, tags.view(1, T) * 7, (1, 7), ways)
+    assert got[0, 0].tolist() == [0, T]
+
+
+@pytest.mark.parametrize("ns", [1, 8, 300])
+def test_cache_sim_one_tag_repeated(dev, ns):
+    """One line T times: one cold miss, T - 1 hits the collapse takes."""
+    T = 5000
+    assert _point_matches_plain(dev, torch.zeros(T), torch.full((T,), 3), ns,
+                                16) == [T - 1, 1]
+    got = _ladder_matches_plain(dev, torch.full((2, T), 12345), (1, ns, 5000),
+                                4)
+    assert (got[:, :, 0] == T - 1).all() and (got[:, :, 1] == 1).all()
+
+
+@pytest.mark.parametrize("T", [0, 1, 2, 8191, 8193, 17161, 12345])
+def test_cache_sim_trace_lengths(dev, T):
+    """Empty, single-access, and lengths that are a multiple of no chunk
+    or block size."""
+    line = _zipf(T, 5000, T)
+    for ns, ways in ((1, 4), (81, 16), (1536, 16)):
+        _point_matches_plain(dev, line % ns, line // ns, ns, ways)
+    _ladder_matches_plain(dev, torch.stack([line, line.flip(0)]),
+                          (1, 16, 96, 1536), 16)
+
+
+def test_cache_sim_more_than_65536_sets(dev):
+    """Set counts of three radix passes, per point and in a ladder with
+    rungs of one and two passes; every line twice in a row."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    line = torch.from_numpy(np.repeat(rng.randint(0, 2 ** 22, 150000),
+                                      2).astype("int32"))
+    for ns in (65537, 70001, 2 ** 17 + 3):
+        _point_matches_plain(dev, line % ns, line // ns, ns, 8)
+    _ladder_matches_plain(dev, line.view(1, -1), (200, 4096, 70001), 8)
+
+
+def test_cache_sim_ladder_rungs_of_one_set_and_of_more_sets_than_accesses(
+        dev):
+    T = 3000
+    traces = torch.stack([_zipf(T, 40000, s) for s in (3, 4)])
+    _ladder_matches_plain(dev, traces, (1, 5, T, 3 * T, 10 * T), 16)
+    line = traces[0].long()
+    _point_matches_plain(dev, line % (3 * T), line // (3 * T), 3 * T, 4,
+                         tile=1000)
+
+
+@pytest.mark.parametrize("W", [1, 5])
+def test_cache_sim_ladder_trace_counts(dev, W):
+    traces = torch.stack([_zipf(9000, 5000, s) for s in range(W)])
+    _ladder_matches_plain(dev, traces, (1, 3, 16, 23, 96, 300), 4, tile=32)
+
+
+def test_cache_sim_ladder_groups_and_stage_times(dev, monkeypatch):
+    """Problems in groups under a small scratch cap (groups that split a
+    rung's traces) give the counts of one group; one group's kernels time
+    between CUDA events."""
+    from repro_torch.kernels import cache_sim as cs
+    traces = torch.stack([_zipf(7000, 5000, s) for s in range(5)]).to(dev)
+    ladder = (1, 23, 300, 1536)
+    whole = _ladder_matches_plain(dev, traces, ladder, 16)
+    per_problem = ops._cache_sim_fns("cache_sim_ladder")[1](1, 7000, 1536, 1)
+    monkeypatch.setattr(cs, "SCRATCH_CAP", 3 * per_problem)
+    got = _ladder_matches_plain(dev, traces, ladder, 16)
+    assert torch.equal(got, whole)
+    monkeypatch.setattr(cs, "SCRATCH_CAP", 2 ** 32)
+    stages = []
+    got = cs.launch_ladder_cuda(ops._cache_sim_fns("cache_sim_ladder"),
+                                traces, ladder, 16, 256, stage_ms=stages)
+    assert torch.equal(got, whole)
+    assert len(stages) == len(cs.stage_names(1536)) == 10
+    assert all(t > 0 for t in stages)
+
+
 def test_cache_sim_kernels_refuse_more_than_16_ways(dev):
     x = torch.zeros(2, 64, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="ways"):
