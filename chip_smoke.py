@@ -6,11 +6,13 @@
 
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
-``cachesim``), of this checkout or of the checkout at DIR (an older commit
-unpacked into a directory ``.gitignore`` lists), to time two versions on
-one card in one call: parent, change, change, parent.  A phase that DIR's
-smoke lacks runs from this file on DIR's kernels (``cachesim`` times both
-LRU ops through their public calls at slice C's shapes).
+``cachesim``, ``recurrent``), of this checkout or of the checkout at DIR
+(an older commit unpacked into a directory ``.gitignore`` lists), to time
+two versions on one card in one call: parent, change, change, parent.  A
+phase that DIR's smoke lacks runs from this file on DIR's kernels
+(``cachesim`` times both LRU ops through their public calls at slice C's
+shapes; ``recurrent`` runs slice F's and G's ``Model.prefill`` on 4 x 2048
+tokens and a traced slice G decode window).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -32,12 +34,16 @@ result line:
      table, three free rows): output within bound, write-back bitwise
      outside TRASH, pages past each row's position ignored bit for bit;
   2c. the recurrent families' scans against their plain versions: the
-     SSD chunked scan at mamba2-1.3b's prefill shape (B=4, S=2048, H=64,
-     P=64, N=128, chunk 256) in bf16 and f32, from a zero and a nonzero
-     state, y and the final state within the JAX kernel test's bounds;
-     the RG-LRU recurrence at recurrentgemma-2b's width (R=2560) at the
-     decode tick (8, 1) and the prefill (4, 2048), from a nonzero h0;
-     both timed as phase 2's kernels;
+     SSD chunked scan (five kernels a call) at mamba2-1.3b's prefill shape
+     (B=4, S=2048, H=64, P=64, N=128, chunk 256) in bf16 and f32, from a
+     zero and a nonzero state, y and the final state within the JAX kernel
+     test's bounds, timed in both types with each kernel's time; the
+     RG-LRU scan at recurrentgemma-2b's width (R=2560) at the decode tick
+     (8, 1) and the prefill (4, 2048), from a nonzero h0, both entries bit
+     for bit with their plain versions: the recurrence (f32 a, b) and the
+     gated scan (bf16 x, r, i, Lambda; the gates in the launch), the
+     latter timed beside the unfused path (torch prologue + recurrence);
+     all timed as phase 2's kernels;
   2d. the flash-attention kernel (bf16: TMA and wgmma) against its plain
      version on the five shapes of ``tests/test_kernels.py`` (Pallas
      layout), a ragged one (Sq = Skv = 1000, window 256, softcap 30),
@@ -89,8 +95,8 @@ result line:
      state banks): every request DONE, no host sync inside a window,
      exact ``fused_sample`` and ``rglru_scan`` launch counts, a traced
      decode window; then ``Model.prefill`` on 4 prompts of 2048 tokens,
-     one ``ssd_scan`` (mamba2) or ``rglru_scan`` (each R layer of
-     recurrentgemma) launch per layer;
+     one ``ssd_scan`` (mamba2) or ``rglru_scan`` (the gated entry, each R
+     layer of recurrentgemma) launch per layer;
   5d. slice H: both families at full width, 4 layers, f32: the kernel
      ``Engine`` at K=1 and K=4 equals ``EngineReference`` token for token
      with an eos exit, and ``Model.prefill`` over 1024 tokens matches the
@@ -733,24 +739,44 @@ def phase_paged_attention(flush) -> dict:
 
 def _ssd_bound(b, S, H, P, N, Q, elt, s0: bool):
     """Least time of one scan: inputs read once, y and the final state
-    written once; the products the function needs on the CUDA cores' f32
-    rate: C.B^T on the lower triangle once per (batch, chunk), and per
-    (batch, head, chunk) the weights times x on the triangle, C . s and
-    the state update."""
+    written once; the products the function needs, C.B^T on the lower
+    triangle once per (batch, chunk), and per (batch, head, chunk) the
+    weights times x on the triangle, C . s and the state update, at the
+    rate of the inputs' type: bf16 on the tensor cores (their products are
+    exact there, as the flash bound counts them), f32 outside them.
+    Returns (ms, bound_by, flops, the rate's name)."""
     nc, tri = S // Q, Q * (Q + 1) // 2
     nbytes = (2 * b * S * H * P * elt + 2 * b * S * H * elt
               + 2 * b * S * N * elt + (2 if s0 else 1) * b * H * P * N * 4)
     flops = b * nc * (2 * tri * N + H * (2 * tri * P + 4 * Q * P * N))
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    rate, name = ((BF16_FLOPS_PER_S, "bf16 tensor 989 TFLOP/s") if elt == 2
+                  else (F32_FLOPS_PER_S, "f32 67 TFLOP/s"))
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
-            flops)
+            flops, name)
+
+
+def _ssd_stage_ms(args, Q, flush, runs: int = 20):
+    """Median time of each of the scan's five kernels (CUDA events between
+    them, ``ssd_scan.STAGE_NAMES`` order) over ``runs`` calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    rows = []
+    for _ in range(runs):
+        flush()
+        rows.append([])
+        ssd.launch_cuda(ops.ssd_scan_fns(), *args, Q, None,
+                        stage_ms=rows[-1])
+    return {n: statistics.median(r[k] for r in rows)
+            for k, n in enumerate(ssd.STAGE_NAMES)}
 
 
 def phase_ssd_scan(flush) -> dict:
-    """The SSD kernel against its plain version at mamba2-1.3b's prefill
+    """The SSD kernels against their plain version at mamba2-1.3b's prefill
     shape (B=4, S=2048, H=64, P=64, N=128, chunk 256, bf16), from a zero
     and from a nonzero state: y and the final state within the JAX kernel
-    test's bf16 bound (5e-2); then f32 at the same shape (5e-4)."""
+    test's bf16 bound (5e-2); then f32 at the same shape (5e-4).  Timed in
+    both types, with each of the five kernels' times."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device=DEVICE)
@@ -767,8 +793,10 @@ def phase_ssd_scan(flush) -> dict:
                 r(b, S, N, scale=0.3).to(dtype))
 
     main = None
+    by_dtype = {}
     for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 5e-4)):
         args = inputs(dtype)
+        by_dtype[dtype] = args
         s0 = torch.randn(b, H, P, N, generator=gen, device=DEVICE)
         for label, init in (("s0 = 0", None), ("s0 != 0", s0)):
             want_y, want_s = ssd.ssd_scan_plain(*args, chunk=Q, s0=init)
@@ -781,59 +809,125 @@ def phase_ssd_scan(flush) -> dict:
                   f"plain (tol {tol})")
             if dtype == torch.bfloat16 and init is None:
                 main = dict(args=args, err=max(ey, es))
-    args = main["args"]
-    ms = median_ms(lambda: ops.ssd_scan(*args, chunk=Q), flush=flush)
-    plain_ms = median_ms(lambda: ssd.ssd_scan_plain(*args, chunk=Q),
-                         flush=flush)
-    bound_ms, bound_by, flops = _ssd_bound(b, S, H, P, N, Q, 2, False)
-    print(f"ssd_scan bf16 B={b} S={S} H={H} P={P} N={N} chunk {Q}: kernel "
-          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
-          f"{flops / 1e9:.2f} GFLOP needed), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}); no single PyTorch call "
-          f"computes it")
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:22",
-            "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    for dtype, args in by_dtype.items():
+        elt = 2 if dtype == torch.bfloat16 else 4
+        ms = median_ms(lambda: ops.ssd_scan(*args, chunk=Q), flush=flush)
+        plain_ms = median_ms(lambda: ssd.ssd_scan_plain(*args, chunk=Q),
+                             flush=flush)
+        stages = _ssd_stage_ms(args, Q, flush)
+        bound_ms, bound_by, flops, rate = _ssd_bound(b, S, H, P, N, Q, elt,
+                                                     False)
+        f32_ms = _ssd_bound(b, S, H, P, N, Q, 4, False)[0] if elt == 2 \
+            else bound_ms
+        print(f"ssd_scan {dtype} B={b} S={S} H={H} P={P} N={N} chunk {Q}: "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"{flops / 1e9:.2f} GFLOP needed), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}, {rate}; at the f32 "
+              f"rate {f32_ms:.5f}); no single PyTorch call computes it")
+        print("  stages (median of 20, ms): " + ", ".join(
+            f"{n} {t:.4f}" for n, t in stages.items())
+            + f"; sum {sum(stages.values()):.4f}")
+        if dtype == torch.bfloat16:
+            row = {"name": "ssd_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/ssd_scan.cu",
+                   "replaces": "src/repro/kernels/ssd_scan.py:22",
+                   "max_abs_err": main["err"], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+    return row
 
 
-def _rglru_bound(B, S, R):
-    nbytes = 3 * B * S * R * 4 + 2 * B * R * 4    # a, b, y; h0, h_final
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * B * S * R / F32_FLOPS_PER_S
+def _rglru_bound(B, S, R, elt: int = 4, gated: bool = False):
+    """Least time of one scan: the inputs (a, b; or x, r, i and lam) read
+    once, y written once, h0 read and h_final written; per element 2 flops
+    (the gates' 6 flops and 3 transcendentals more), f32 rate."""
+    n = B * S * R
+    if gated:
+        nbytes = 4 * n * elt + R * elt + 2 * B * R * 4
+        ops_n = 11 * n
+    else:
+        nbytes = 3 * n * 4 + 2 * B * R * 4
+        ops_n = 2 * n
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def _unfused_gated(x, r, i, lam, h0):
+    """The parent tree's R-layer path: the gate prologue in torch (about 16
+    launches), then the recurrence through ``ops.rglru_scan``."""
+    from repro_torch.kernels import ops
+    lamf = lam.float()
+    log_a = -8.0 * torch.logaddexp(lamf, torch.zeros_like(lamf)) * r.float()
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
+    y, h = ops.rglru_scan(torch.exp(log_a).contiguous(),
+                          (beta * i.float() * x.float()).contiguous(), h0)
+    return y.to(x.dtype), h
+
+
 def phase_rglru_scan(flush) -> dict:
-    """The RG-LRU kernel against its plain version at recurrentgemma-2b's
-    width (R=2560): the decode tick (8, 1) and the prefill (4, 2048), from
-    a nonzero h0; y and h_final within the JAX kernel test's f32 bound
-    (1e-4; the kernel rounds as the plain version does, so it is exact).
-    The row is the decode tick's shape, which the main path launches."""
+    """Both RG-LRU entries against their plain versions at
+    recurrentgemma-2b's width (R=2560), at the decode tick (8, 1) and the
+    prefill (4, 2048), from a nonzero h0: the recurrence (``rglru_scan``,
+    f32 a and b) and the gated scan (``rglru_gated_scan``, bf16 x, r, i
+    and Lambda, the gates formed in the launch), each bit for bit (the
+    JAX kernel test's f32 bound is 1e-4); the gated entry timed beside the
+    parent's unfused path.  The row is the gated entry at the decode
+    tick, which the main path launches."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(5)
     R = 2560
     row = None
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
     for B, S in ((8, 1), (4, 2048)):
-        a = torch.sigmoid(torch.randn(B, S, R, generator=gen,
-                                      device=DEVICE) + 2.0)
-        bb = torch.randn(B, S, R, generator=gen, device=DEVICE) * 0.1
-        h0 = torch.randn(B, R, generator=gen, device=DEVICE)
+        a = torch.sigmoid(r(B, S, R) + 2.0)
+        bb = r(B, S, R) * 0.1
+        h0 = r(B, R)
         want = rg.rglru_scan_plain(a, bb, h0)
         got = ops.rglru_scan(a, bb, h0)
         torch.cuda.synchronize()
         err = max(_close(got[0], want[0], tol=1e-4, what=f"rglru y {B, S}"),
                   _close(got[1], want[1], tol=1e-4, what=f"rglru h {B, S}"))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"rglru_scan {B, S} not bitwise equal to its plain version")
         ms = median_ms(lambda: ops.rglru_scan(a, bb, h0), flush=flush)
         plain_ms = median_ms(lambda: rg.rglru_scan_plain(a, bb, h0),
                              runs=RUNS if S == 1 else 5, flush=flush)
         bound_ms, bound_by = _rglru_bound(B, S, R)
-        print(f"rglru_scan f32 B={B} S={S} R={R}: max|err| {err:.3g} vs "
-              f"plain (bitwise: {torch.equal(got[0], want[0])}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f}"
-              f" ms ({bound_by}); no single PyTorch call computes it")
+        print(f"rglru_scan f32 B={B} S={S} R={R}: bitwise equal to plain; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call "
+              f"computes it")
+
+        dtype = torch.bfloat16
+        x = r(B, S, R).to(dtype)
+        rr = torch.sigmoid(r(B, S, R)).to(dtype)
+        ii = torch.sigmoid(r(B, S, R)).to(dtype)
+        lam = r(R).to(dtype)
+        args = (x, rr, ii, lam, h0)
+        want = rg.rglru_gated_scan_plain(*args)
+        got = ops.rglru_gated_scan(*args)
+        old = _unfused_gated(*args)
+        torch.cuda.synchronize()
+        err = max(_close(got[0], want[0], tol=1e-4, what=f"gated y {B, S}"),
+                  _close(got[1], want[1], tol=1e-4, what=f"gated h {B, S}"))
+        check(all(torch.equal(g, w) for g, w in zip(got + old, want + want)),
+              f"rglru_gated_scan {B, S}: kernel or unfused path not bitwise "
+              "equal to the plain composition")
+        ms = median_ms(lambda: ops.rglru_gated_scan(*args), flush=flush)
+        old_ms = median_ms(lambda: _unfused_gated(*args), flush=flush)
+        plain_ms = median_ms(lambda: rg.rglru_gated_scan_plain(*args),
+                             runs=RUNS if S == 1 else 5, flush=flush)
+        bound_ms, bound_by = _rglru_bound(B, S, R, 2, gated=True)
+        print(f"rglru_gated_scan bf16 B={B} S={S} R={R}: bitwise equal to "
+              f"the plain composition and the unfused path; kernel {ms:.4f} "
+              f"ms (one launch), unfused path (torch prologue + "
+              f"rglru_scan) {old_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
         if row is None:
             row = {"name": "rglru_scan", "route": "cuda",
                    "source": "src/repro_torch/csrc/rglru_scan.cu",
@@ -1578,6 +1672,29 @@ def phase_slice_g() -> dict:
     return launches
 
 
+def phase_recurrent_walls(flush) -> list:
+    """Slices F's and G's sequence paths and G's decode tick alone, for
+    ``--only recurrent`` beside another tree: ``Model.prefill`` on 4 x 2048
+    tokens for mamba2-1.3b and recurrentgemma-2b at full width and depth,
+    then a traced decode window of recurrentgemma-2b (launches per tick).
+    No kernel row."""
+    from repro_torch.models.transformer import hybrid_pattern
+    from repro_torch.serve import Engine
+    model, params = _recurrent_model("mamba2-1.3b")
+    _prefill_4x2048("slice F", model, params, "ssd_scan",
+                    model.cfg.num_layers)
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = _recurrent_model("recurrentgemma-2b")
+    n_rec = hybrid_pattern(model.cfg).count("R")
+    _prefill_4x2048("slice G", model, params, "rglru_scan", n_rec)
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8)
+    trace_window(eng, model.cfg.vocab_size, prompt_lens=(16, 32))
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return []
+
+
 def _eos_exiting_early(outputs):
     """A token at index >= 1 of some output that is no output's first
     token: the eos run then ends that request at length > 1 and none at
@@ -2235,7 +2352,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "paged": "phase_paged_attention",
                  "ssd": "phase_ssd_scan", "rglru": "phase_rglru_scan",
                  "flash": "phase_flash_attention",
-                 "cachesim": "phase_cachesim"}
+                 "cachesim": "phase_cachesim",
+                 "recurrent": "phase_recurrent_walls"}
 
 
 def kernel_phases(names, tree) -> None:

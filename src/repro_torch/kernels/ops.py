@@ -220,10 +220,17 @@ def ssd_scan(x, dt, dtA, Bm, Cm, *, chunk: int,
     if not _on_cuda(*(t for t in (x, dt, dtA, Bm, Cm, s0) if t is not None)):
         return _ssd.ssd_scan_plain(x, dt, dtA, Bm, Cm, chunk=chunk, s0=s0)
     _ssd.check_args(x, dt, dtA, Bm, Cm, chunk, s0)
-    fn = _build.function("ssd_scan", "ssd_scan", _ssd.ARGTYPES)
-    out = _ssd.launch_cuda(fn, x, dt, dtA, Bm, Cm, chunk, s0)
+    out = _ssd.launch_cuda(ssd_scan_fns(), x, dt, dtA, Bm, Cm, chunk, s0)
     launches["ssd_scan"] += 1
     return out
+
+
+def ssd_scan_fns():
+    """The C entry ``ssd_scan`` of ``csrc/ssd_scan.cu`` and its scratch
+    sizer."""
+    return (_build.function("ssd_scan", "ssd_scan", _ssd.ARGTYPES),
+            _build.function("ssd_scan", "ssd_scan_scratch_bytes",
+                            _ssd.SCRATCH_ARGTYPES, ctypes.c_longlong))
 
 
 def rglru_scan(a, b, h0: Optional[torch.Tensor] = None
@@ -236,5 +243,22 @@ def rglru_scan(a, b, h0: Optional[torch.Tensor] = None
     _rg.check_args(a, b, h0)
     fn = _build.function("rglru_scan", "rglru_scan", _rg.ARGTYPES)
     out = _rg.launch_cuda(fn, a, b, h0)
+    launches["rglru_scan"] += 1
+    return out
+
+
+def rglru_gated_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU gates and recurrence in one launch: x, r, i (B,S,R) and lam
+    (R,) of one float dtype; h0 (B,R) f32 or None (zero start).  ``a =
+    exp(-8 softplus(lam) r)``, ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t
+    x_t``, in f32.  Returns (y (B,S,R) in x's dtype, h_final (B,R) f32);
+    counted under ``rglru_scan``."""
+    if not _on_cuda(*(t for t in (x, r, i, lam, h0) if t is not None)):
+        return _rg.rglru_gated_scan_plain(x, r, i, lam, h0)
+    _rg.check_gated_args(x, r, i, lam, h0)
+    fn = _build.function("rglru_scan", "rglru_gated_scan",
+                         _rg.GATED_ARGTYPES)
+    out = _rg.launch_gated_cuda(fn, x, r, i, lam, h0)
     launches["rglru_scan"] += 1
     return out

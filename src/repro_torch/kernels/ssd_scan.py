@@ -8,7 +8,8 @@ dt_j x_j``, the inter-chunk term ``exp(cum_i) (C_i . s)`` from the carried
 cum_j) dt_j x_j B_j^T``; all in float32.  Beyond the TPU kernel it takes an
 optional initial state and returns the final one, which the model's
 prefill needs (the TPU kernel's zero start is ``s0=None``).  The CUDA
-kernel is ``csrc/ssd_scan.cu``.
+kernels are ``csrc/ssd_scan.cu``: one call is five launches
+(``STAGE_NAMES``), chunk-parallel, with the products on the tensor cores.
 
 Layouts are the model's (``repro/models/ssm.py::ssd_chunked``), not the
 TPU kernel's head-major ones: x (b, S, H, P); dt, dtA (b, S, H); Bm, Cm
@@ -23,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 P_MAX, N_MAX = 64, 128        # what one CUDA block covers
-CHUNK_MAX = 4096              # its cumsum and dt rows live in shared memory
+CHUNK_MAX = 4096              # bounds the (b, S / chunk, chunk, chunk) C.B^T
+STAGE_NAMES = ("cumsum", "cb", "chunk_state", "state_pass", "chunk_out")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -97,22 +99,34 @@ def check_args(x, dt, dtA, Bm, Cm, chunk, s0):
         raise ValueError("x, dt, dtA, B and C must be contiguous")
 
 
-def launch_cuda(fn, x, dt, dtA, Bm, Cm, chunk, s0):
-    """Launch ``ssd_scan`` from ``csrc/ssd_scan.cu`` on the current stream.
-    Returns (y like x, final state (b,H,P,N) f32)."""
+def launch_cuda(fns, x, dt, dtA, Bm, Cm, chunk, s0,
+                stage_ms: Optional[list] = None):
+    """Run ``ssd_scan`` from ``csrc/ssd_scan.cu`` (``fns``: it and
+    ``ssd_scan_scratch_bytes``) on the current stream, its scratch from
+    ``torch.empty``.  With ``stage_ms`` (a list) the five kernels are timed
+    between CUDA events and their ms appended in the order of
+    ``STAGE_NAMES``.  Returns (y like x, final state (b,H,P,N) f32)."""
+    run, scratch_bytes = fns
     b, S, H, P = x.shape
     N = Bm.shape[-1]
+    nbytes = scratch_bytes(_DTYPE_CODE[x.dtype], b, S, H, P, N, chunk)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     y = torch.empty_like(x)
     s_out = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
-             dtA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-             s0.data_ptr() if s0 is not None else None, y.data_ptr(),
-             s_out.data_ptr(), b, S, H, P, N, chunk,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    times = (ctypes.c_float * len(STAGE_NAMES))() \
+        if stage_ms is not None else None
+    err = run(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+              dtA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+              s0.data_ptr() if s0 is not None else None, y.data_ptr(),
+              s_out.data_ptr(), scratch.data_ptr(), nbytes, b, S, H, P, N,
+              chunk, times, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    if times is not None:
+        stage_ms.extend(float(t) for t in times)
     return y, s_out
 
 
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [ctypes.c_void_p])
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+SCRATCH_ARGTYPES = [ctypes.c_int] * 7

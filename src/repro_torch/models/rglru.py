@@ -8,10 +8,10 @@ Recurrence (per channel):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 Wrapped in the Griffin recurrent block: linear_in -> [gate branch (GeLU)] x
-[conv1d(4) -> RG-LRU branch] -> linear_out.  The gate prologue is plain
-torch; the recurrence runs through ``kernels.ops.rglru_scan``
-(``impl="kernel"``: the CUDA kernel on CUDA tensors) or its plain version
-(``impl="plain"``) in every mode, the decode step (S = 1) included.
+[conv1d(4) -> RG-LRU branch] -> linear_out.  The gates (a, sqrt(1 - a^2)
+i x) and the recurrence run as one call, ``kernels.ops.rglru_gated_scan``
+(``impl="kernel"``: one CUDA launch on CUDA tensors) or its plain version
+(``impl="plain"``), in every mode, the decode step (S = 1) included.
 """
 from __future__ import annotations
 
@@ -22,10 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.rglru_scan import rglru_scan_plain
-from repro_torch.models.common import ParamDef, ParamDefs, Params, softplus
+from repro_torch.kernels.rglru_scan import rglru_gated_scan_plain
+from repro_torch.models.common import ParamDef, ParamDefs, Params
 
-_C = 8.0
 SCAN_IMPLS = ("plain", "kernel")
 
 
@@ -51,18 +50,16 @@ def rglru_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None, *,
     """x, r, i: (B, S, R); lam: (R,); h0 (B, R) or None.  Returns (y
     (B,S,R) in x's dtype, h_final (B,R) f32).  The gates are formed in f32
     as the JAX package forms them; the recurrence itself is sequential
-    (the JAX package's associative scan sums in another order)."""
+    (the JAX package's associative scan sums in another order).  Gates and
+    recurrence are one call: ``kernels.ops.rglru_gated_scan`` (one launch
+    on CUDA tensors) or its plain version."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"scan impl {impl!r} not in {SCAN_IMPLS}")
-    log_a = -_C * softplus(lam.float()) * r.float()
-    a = torch.exp(log_a)
-    # sqrt(1 - a^2) computed stably via expm1
-    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
-    gated = beta * i.float() * x.float()
-    scan = kernel_ops.rglru_scan if impl == "kernel" else rglru_scan_plain
-    y, h = scan(a.contiguous(), gated.contiguous(),
+    scan = kernel_ops.rglru_gated_scan if impl == "kernel" \
+        else rglru_gated_scan_plain
+    return scan(x.contiguous(), r.contiguous(), i.contiguous(),
+                lam.contiguous(),
                 h0.float().contiguous() if h0 is not None else None)
-    return y.to(x.dtype), h
 
 
 def rglru_block(

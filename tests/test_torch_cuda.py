@@ -472,6 +472,8 @@ def _ssd_inputs(dev, dtype, b, S, H, P, N, seed, s0=False):
     (2, 128, 4, 32, 16, 32, True),
     (1, 200, 3, 24, 40, 100, True),     # ragged tiles: Q, P, N off 64
     (2, 11, 2, 32, 16, 11, False),      # a short prefill: one 11-row chunk
+    (2, 2048, 4, 64, 128, 256, True),   # 8 chunks: the state passing
+    (1, 512, 3, 64, 128, 512, True),    # chunk = S, 8 row tiles a chunk
 ])
 def test_ssd_scan_kernel_matches_plain(dev, dtype, b, S, H, P, N, chunk,
                                        s0):
@@ -505,6 +507,21 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(dev):
                      dtA, Bm, Cm, chunk=32)
 
 
+def test_ssd_scan_stage_times(dev):
+    """With ``stage_ms`` the launcher times its five kernels between CUDA
+    events and returns what the untimed call returns."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args = _ssd_inputs(dev, torch.bfloat16, 2, 512, 4, 64, 128, 7, True)
+    stage_ms = []
+    got = ssd.launch_cuda(ops.ssd_scan_fns(), *args[:5], 256, args[5],
+                          stage_ms=stage_ms)
+    want = ops.ssd_scan(*args[:5], chunk=256, s0=args[5])
+    torch.cuda.synchronize()
+    assert len(stage_ms) == len(ssd.STAGE_NAMES) == 5
+    assert all(t > 0 for t in stage_ms)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("B,S,R,h0", [
     (8, 1, 2560, True),      # a recurrentgemma-2b decode tick
     (4, 2048, 2560, True),   # its prefill shape
@@ -524,6 +541,64 @@ def test_rglru_scan_kernel_equals_plain_bitwise(dev, B, S, R, h0):
     torch.cuda.synchronize()
     assert ops.launches["rglru_scan"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("R,offset", [(37, 0), (100, 1), (2560, 2)])
+def test_rglru_scan_kernel_copy_paths_bitwise(dev, R, offset):
+    """The plain entry's narrower copies: rows of 37 floats (4-byte
+    cp.async) and inputs that start 4 or 8 bytes past a 16-byte boundary;
+    bit for bit with the plain version."""
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, S = 3, 45
+    n = B * S * R
+    a = torch.rand(n + offset, generator=g, device=dev)[offset:].view(B, S, R)
+    b = (torch.randn(n + offset, generator=g, device=dev) * 0.1)[
+        offset:].view(B, S, R)
+    h = torch.randn(B, R, generator=g, device=dev)
+    want = rg.rglru_scan_plain(a, b, h)
+    got = ops.rglru_scan(a, b, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _ulps(got, want):
+    """Largest distance in f32 ulps (bf16 values compared as f32)."""
+    g, w = (t.float().contiguous().view(torch.int32).long() for t in
+            (got, want))
+    g = torch.where(g < 0, -(g & 0x7FFFFFFF), g)
+    w = torch.where(w < 0, -(w & 0x7FFFFFFF), w)
+    return int((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R", [
+    (8, 1, 2560),            # a recurrentgemma-2b decode tick
+    (4, 2048, 2560),         # its prefill shape
+    (3, 37, 100),            # ragged: S off the tile, R off the block
+    (2, 70, 37),             # odd rows: 4-byte (f32) and element (bf16) copies
+])
+def test_rglru_gated_scan_kernel_matches_plain(dev, dtype, B, S, R):
+    """The gated entry (gates and recurrence in one launch) against the
+    plain composition on the same card, from a nonzero h0: bit for bit."""
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = r(B, S, R).to(dtype)
+    rr, ii = torch.sigmoid(r(B, S, R)).to(dtype), \
+        torch.sigmoid(r(B, S, R)).to(dtype)
+    lam = r(R).to(dtype)
+    h = r(B, R)
+    want = rg.rglru_gated_scan_plain(x, rr, ii, lam, h)
+    before = ops.launches["rglru_scan"]
+    got = ops.rglru_gated_scan(x, rr, ii, lam, h)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan"] == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert (_ulps(got[0], want[0]), _ulps(got[1], want[1])) == (0, 0)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])

@@ -10,8 +10,12 @@ Tolerances: the scans' plain versions are held to the JAX kernel tests'
 bounds (``tests/test_kernels.py``: ssd f32 5e-4 / bf16 5e-2; rglru f32
 1e-4 / bf16 3e-2); blocks, prefill and decode to 1e-4 in f32 (sums in
 another order than XLA's; the RG-LRU recurrence is sequential here and
-an associative scan there).
+an associative scan there).  A torch mirror of the CUDA SSD kernels'
+five stages is held to 2e-5 in f32 (the same sums in another grouping).
+The CUDA launchers are driven through stand-ins for the compiled
+functions, which check the arguments and write the plain results.
 """
+import ctypes
 import functools
 
 import jax
@@ -148,6 +152,145 @@ def test_ssd_scan_chunk_must_divide_s():
                            z(1, 64, 8), z(1, 64, 8), chunk=24)
 
 
+def _ssd_stages(x, dt, dtA, Bm, Cm, chunk, s0=None, tile=64):
+    """A torch mirror of ``csrc/ssd_scan.cu``'s five kernels, every chunk
+    at once, in f32: (1) cum, the cumsum of dtA over each chunk; (2) CB =
+    C.B^T once per (batch, chunk), shared by the heads; (3) each chunk's
+    own state; (4) the states entering each chunk and the final state;
+    (5) the output by row and column tiles of ``tile``, a tile below the
+    diagonal with its decay factored through its last row m."""
+    b, S, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = S // Q
+    xf = x.float().reshape(b, nc, Q, H, P)
+    dtf = dt.float().reshape(b, nc, Q, H)
+    Bf = Bm.float().reshape(b, nc, Q, N)
+    Cf = Cm.float().reshape(b, nc, Q, N)
+    cum = torch.cumsum(dtA.float().reshape(b, nc, Q, H), dim=2)      # (1)
+    cb = torch.einsum("bcin,bcjn->bcij", Cf, Bf)                      # (2)
+    w = torch.exp(cum[:, :, -1:] - cum) * dtf                         # (3)
+    own = torch.einsum("bcjhp,bcjn->bchpn", xf * w[..., None], Bf)
+    s = torch.zeros(b, H, P, N) if s0 is None else s0.float()         # (4)
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = s * torch.exp(cum[:, c, -1])[..., None, None] + own[:, c]
+    ent = torch.stack(entering, dim=1)                    # (b, nc, H, P, N)
+    y = torch.einsum("bcin,bchpn->bcihp", Cf, ent) \
+        * torch.exp(cum)[..., None]                                   # (5)
+    for i0 in range(0, Q, tile):
+        ri = slice(i0, min(i0 + tile, Q))
+        for j0 in range(0, i0 + 1, tile):
+            rj = slice(j0, min(j0 + tile, Q))
+            ci, cj = cum[:, :, ri], cum[:, :, rj]          # (b, nc, t, H)
+            if j0 < i0:     # below the diagonal: through m, no masking
+                cm = cj[:, :, -1:]
+                wts = cb[:, :, ri, rj, None] \
+                    * (torch.exp(cm - cj) * dtf[:, :, rj])[:, :, None]
+                part = torch.einsum("bcijh,bcjhp->bcihp", wts, xf[:, :, rj])
+                y[:, :, ri] += torch.exp(ci - cm)[..., None] * part
+            else:           # the diagonal tile: exp only where j <= i
+                li = ci[:, :, :, None] - cj[:, :, None]
+                ii = torch.arange(i0, ri.stop)[:, None]
+                jj = torch.arange(j0, rj.stop)[None, :]
+                decay = torch.exp(torch.where((jj <= ii)[..., None], li,
+                                              float("-inf")))
+                wts = cb[:, :, ri, rj, None] * decay \
+                    * dtf[:, :, rj][:, :, None]
+                y[:, :, ri] += torch.einsum("bcijh,bcjhp->bcihp", wts,
+                                            xf[:, :, rj])
+    return y.reshape(b, S, H, P).to(x.dtype), s
+
+
+@pytest.mark.parametrize("b,S,H,P,N,chunk,tile,with_s0", [
+    (2, 64, 3, 8, 16, 16, 16, True),      # one tile a chunk, 4 chunks
+    (1, 96, 2, 16, 8, 48, 8, False),      # 6 tiles a chunk
+    (2, 60, 2, 8, 12, 20, 8, True),       # ragged tiles: 20 rows of 8
+    (1, 11, 2, 4, 8, 11, 64, False),      # one 11-row chunk
+])
+def test_ssd_stage_mirror_matches_plain_and_jax(b, S, H, P, N, chunk, tile,
+                                                with_s0):
+    """The five-stage decomposition against ``ssd_scan_plain`` and the JAX
+    ``ssd_chunked`` on the same inputs, y and the final state, f32 2e-5."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, (b, S, H, P))
+    dt = np.log1p(np.exp(_rand(rng, (b, S, H))))
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32) * 0.3
+    Bm, Cm = _rand(rng, (b, S, N), 0.5), _rand(rng, (b, S, N), 0.5)
+    s0 = _rand(rng, (b, H, P, N)) if with_s0 else None
+    dtA = dt * A
+    y, s = _ssd_stages(_t(x), _t(dt), _t(dtA), _t(Bm), _t(Cm), chunk,
+                       None if s0 is None else _t(s0), tile=tile)
+    py, ps = ssd.ssd_scan_plain(_t(x), _t(dt), _t(dtA), _t(Bm), _t(Cm),
+                                chunk=chunk,
+                                s0=None if s0 is None else _t(s0))
+    jy, js = jssm.ssd_chunked(_j(x), _j(dt), _j(A), _j(Bm), _j(Cm), chunk,
+                              initial_state=None if s0 is None else _j(s0))
+    for want_y, want_s in ((py, ps), (jy, js)):
+        _close(y, want_y, 2e-5)
+        _close(s, want_s, 2e-5)
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def _f32_at(ptr: int, n: int) -> torch.Tensor:
+    return torch.from_numpy(np.ctypeslib.as_array(
+        (ctypes.c_float * n).from_address(ptr)))
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_ssd_launcher_marshals_arguments(monkeypatch, dtype, code):
+    """``ssd_scan.launch_cuda``: the scratch sized by the C sizer for the
+    dtype, the argument order of ``csrc/ssd_scan.cu::ssd_scan``, the stage
+    times handed back; a stand-in writes the plain results, and a CUDA
+    error raises."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    rng = np.random.default_rng(12)
+    b, S, H, P, N, Q = 2, 32, 3, 8, 4, 16
+    dt = np.log1p(np.exp(_rand(rng, (b, S, H))))
+    args = [_t(a, dtype) for a in (_rand(rng, (b, S, H, P)), dt,
+                                   dt * -0.5, _rand(rng, (b, S, N)),
+                                   _rand(rng, (b, S, N)))]
+    s0 = _t(_rand(rng, (b, H, P, N)))
+    want = ssd.ssd_scan_plain(*args, chunk=Q, s0=s0)
+    seen = {}
+
+    def sizer(dcode, *dims):
+        seen["sizer"] = (dcode, dims)
+        return 1000
+
+    def fake(dcode, x_p, dt_p, dtA_p, B_p, C_p, s0_p, y_p, s_p, sc_p,
+             nbytes, *rest):
+        dims, stage, stream = rest[:6], rest[6], rest[7]
+        seen.update(dtype=dcode, dims=dims, nbytes=nbytes, s0=s0_p,
+                    ptrs=(x_p, dt_p, dtA_p, B_p, C_p), stream=stream)
+        if stage is not None:
+            for k in range(len(ssd.STAGE_NAMES)):
+                stage[k] = k + 0.5
+        if dtype == torch.float32:
+            _f32_at(y_p, b * S * H * P).copy_(want[0].flatten())
+        _f32_at(s_p, b * H * P * N).copy_(want[1].flatten())
+        return 0
+
+    stage_ms = []
+    y, s = ssd.launch_cuda((fake, sizer), *args, Q, s0, stage_ms=stage_ms)
+    assert seen["sizer"] == (code, (b, S, H, P, N, Q))
+    assert seen["dtype"] == code and seen["nbytes"] == 1000
+    assert seen["dims"] == (b, S, H, P, N, Q) and seen["stream"] == 0
+    assert seen["ptrs"] == tuple(a.data_ptr() for a in args)
+    assert seen["s0"] == s0.data_ptr()
+    assert stage_ms == [0.5, 1.5, 2.5, 3.5, 4.5]
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert torch.equal(s, want[1])
+    if dtype == torch.float32:
+        assert torch.equal(y, want[0])
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        ssd.launch_cuda((lambda *a: 7, sizer), *args, Q, None)
+
+
 # --- the RG-LRU scan ---------------------------------------------------------
 
 
@@ -196,6 +339,114 @@ def test_rglru_model_scan_with_h0_matches_jax(S):
                                 impl=impl)
         _close(y, jy)
         _close(h, jh)
+
+
+@pytest.mark.parametrize("S", [1, 40, 256, 512])
+def test_rglru_gated_scan_plain_matches_jax_model_scan(S):
+    """``rglru_gated_scan_plain`` (the gate prologue the model ran before
+    the recurrence, now the fused kernel's oracle) against the JAX model's
+    ``rglru_scan`` with h0, at that test's bounds."""
+    rng = np.random.default_rng(14)
+    B, R = 3, 24
+    x = _rand(rng, (B, S, R))
+    r = 1 / (1 + np.exp(-_rand(rng, (B, S, R))))
+    i = 1 / (1 + np.exp(-_rand(rng, (B, S, R))))
+    lam = _rand(rng, (R,))
+    h0 = _rand(rng, (B, R))
+    jy, jh = jrglru.rglru_scan(_j(x), _j(r), _j(i), _j(lam), _j(h0))
+    y, h = rg.rglru_gated_scan_plain(_t(x), _t(r), _t(i), _t(lam), _t(h0))
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    _close(y, jy)
+    _close(h, jh)
+
+
+def test_scan_ops_on_cpu_take_the_plain_versions_and_count_nothing():
+    """``ops.ssd_scan``, ``ops.rglru_scan`` and ``ops.rglru_gated_scan`` on
+    CPU tensors equal their plain versions bit for bit and count no
+    launch."""
+    rng = np.random.default_rng(15)
+    ops.reset_launches()
+    x, dt = _t(_rand(rng, (1, 32, 2, 8))), _t(np.abs(_rand(rng, (1, 32, 2))))
+    Bm, Cm = _t(_rand(rng, (1, 32, 4))), _t(_rand(rng, (1, 32, 4)))
+    got = ops.ssd_scan(x, dt, -dt, Bm, Cm, chunk=16)
+    want = ssd.ssd_scan_plain(x, dt, -dt, Bm, Cm, chunk=16)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    a, bb = _t(rng.random((2, 9, 5))), _t(_rand(rng, (2, 9, 5)))
+    got = ops.rglru_scan(a, bb)
+    want = rg.rglru_scan_plain(a, bb)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    xs = [_t(_rand(rng, (2, 9, 5)), torch.bfloat16)] + [
+        _t(1 / (1 + np.exp(-_rand(rng, (2, 9, 5)))), torch.bfloat16)
+        for _ in range(2)]                # x, then the gates r and i
+    lam, h0 = _t(_rand(rng, (5,)), torch.bfloat16), _t(_rand(rng, (2, 5)))
+    got = ops.rglru_gated_scan(*xs, lam, h0)
+    want = rg.rglru_gated_scan_plain(*xs, lam, h0)
+    assert got[0].dtype == torch.bfloat16
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(v == 0 for v in ops.launches.values())
+
+
+@pytest.mark.parametrize("B,R,sms,want", [
+    (4, 2560, 132, 80),       # slice G's prefill: 128 blocks in one wave
+    (8, 2560, 132, 160),      # its decode tick: 128 blocks
+    (1, 2560, 132, 32),       # at least a warp's worth of chains
+    (64, 2560, 132, 256),     # at most one chain a thread
+    (3, 100, 132, 32),
+])
+def test_rglru_channels_per_block(B, R, sms, want):
+    assert rg.channels_per_block(B, R, sms) == want
+    assert want % 8 == 0
+
+
+def test_rglru_gated_check_args():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="share float32 or bfloat16"):
+        rg.check_gated_args(z(2, 3, 4), z(2, 3, 4), z(2, 3, 4),
+                            z(4, dtype=torch.bfloat16), None)
+    with pytest.raises(ValueError, match="lam"):
+        rg.check_gated_args(z(2, 3, 4), z(2, 3, 4), z(2, 3, 4), z(5), None)
+    with pytest.raises(ValueError, match="h0"):
+        rg.check_gated_args(z(2, 3, 4), z(2, 3, 4), z(2, 3, 4), z(4),
+                            z(2, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.check_gated_args(z(2, 4, 3).transpose(1, 2), z(2, 3, 4),
+                            z(2, 3, 4), z(4), None)
+    rg.check_gated_args(z(2, 3, 4), z(2, 3, 4), z(2, 3, 4), z(4), z(2, 4))
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_rglru_gated_launcher_marshals_arguments(monkeypatch, dtype, code):
+    """``launch_gated_cuda``: the argument order of
+    ``csrc/rglru_scan.cu::rglru_gated_scan``, the channels a block for the
+    card's SM count; a stand-in writes the plain results, and a CUDA error
+    raises."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    monkeypatch.setattr(rg, "sm_count", lambda dev: 132)
+    rng = np.random.default_rng(16)
+    B, S, R = 4, 5, 40
+    xs = [_t(_rand(rng, (B, S, R)), dtype)] + [
+        _t(1 / (1 + np.exp(-_rand(rng, (B, S, R)))), dtype)
+        for _ in range(2)]                # x, then the gates r and i
+    lam, h0 = _t(_rand(rng, (R,)), dtype), _t(_rand(rng, (B, R)))
+    want = rg.rglru_gated_scan_plain(*xs, lam, h0)
+    seen = {}
+
+    def fake(dcode, x_p, r_p, i_p, lam_p, h0_p, y_p, h_p, B_, S_, R_, ch,
+             stream):
+        seen.update(dtype=dcode, dims=(B_, S_, R_), ch=ch, stream=stream,
+                    ptrs=(x_p, r_p, i_p, lam_p, h0_p))
+        _f32_at(h_p, B_ * R_).copy_(want[1].flatten())
+        return 0
+
+    y, h = rg.launch_gated_cuda(fake, *xs, lam, h0)
+    assert seen == dict(dtype=code, dims=(B, S, R),
+                        ch=rg.channels_per_block(B, R, 132), stream=0,
+                        ptrs=tuple(t.data_ptr() for t in (*xs, lam, h0)))
+    assert y.dtype == dtype and y.shape == (B, S, R)
+    assert torch.equal(h, want[1])
+    with pytest.raises(RuntimeError, match="CUDA error 3"):
+        rg.launch_gated_cuda(lambda *a: 3, *xs, lam, None)
 
 
 # --- blocks and the model ----------------------------------------------------
