@@ -6,13 +6,14 @@
 
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
-``cachesim``, ``recurrent``), of this checkout or of the checkout at DIR
-(an older commit unpacked into a directory ``.gitignore`` lists), to time
-two versions on one card in one call: parent, change, change, parent.  A
-phase that DIR's smoke lacks runs from this file on DIR's kernels
-(``cachesim`` times both LRU ops through their public calls at slice C's
-shapes; ``recurrent`` runs slice F's and G's ``Model.prefill`` on 4 x 2048
-tokens and a traced slice G decode window).
+``cachesim``, ``recurrent``, ``serve``), of this checkout or of the
+checkout at DIR (an older commit unpacked into a directory ``.gitignore``
+lists), to time two versions on one card in one call: parent, change,
+change, parent.  A phase that DIR's smoke lacks runs from this file on
+DIR's kernels (``cachesim`` times both LRU ops through their public calls
+at slice C's shapes; ``recurrent`` runs slice F's and G's ``Model.prefill``
+on 4 x 2048 tokens and a traced slice G decode window; ``serve`` times
+slice F's and G's serving runs, with the traffic recorded and without).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -136,6 +137,18 @@ result line:
      the quickstart's five steps, ``tune_all()`` and ``paper_profiles()``;
      identical Algorithm-1 selections and iso-area capacities, PPA and
      traffic fields within rel 1e-6;
+  7b. the NVM verdicts of the full-width slices' own traffic: slices A,
+     D, F and G (each engine's first decode window, counted under
+     ``OpCounter`` inside the sync-error check of phase 4, and the first
+     prefill of each padded length) and T (the first train window); each
+     record's flops and bytes, its dominant term and its STT/SOT energy
+     and EDP ratios against SRAM at the modeled TPU tier, all finite and
+     positive; the counted window's wall beside an uncounted one is
+     printed by each slice;
+  7c. the traffic count on the card against the CPU: reduced llama3-8b
+     (f32) through ``Engine`` (4 slots x 64, 8 requests) and a reduced
+     ``TrainWindow`` (remat full), the same weights and requests on both:
+     every counted program's ``OpStats`` equal, op for op;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, F's ``Model.prefill`` for the SSD scan, G's serving for the
@@ -1261,19 +1274,32 @@ def phase_launchers(tmp: Path) -> None:
 # ---------------------------------------------------------------- phase 4
 
 
-def _no_sync_in_window(eng) -> None:
+def _no_sync_in_window(eng, label: str) -> None:
     """A decode window must not wait on the card: admit one request, then
-    run one window under the "error" sync-debug mode, where any host sync
-    inside it raises."""
+    run two windows under the "error" sync-debug mode, where any host sync
+    inside them raises.  The engine's first window is the one whose
+    traffic it counts (``OpCounter``), so the count is held to the same
+    rule; its wall is printed beside the second, uncounted window's."""
     from repro_torch.serve import Request
     eng.submit(Request(uid=-1, prompt=list(range(1, 40)), max_new_tokens=9))
     eng._admit()
     eng._pre_window()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._window()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._window()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(eng._traffic["decode"] is not None,
+          f"{label}: the first decode window was not counted")
+    print(f"{label}: no host sync inside a decode window, counted or not; "
+          f"window of {eng.ticks_per_sync} ticks with its traffic counted "
+          f"{walls[0] * 1e3:.2f} ms, uncounted {walls[1] * 1e3:.2f} ms")
     eng.reset()
 
 
@@ -1288,7 +1314,7 @@ def _serve_stats(reqs, wall):
             f"{itl['p99'] * 1e3:.2f} ms")
 
 
-def phase_slice_a():
+def phase_slice_a(records: dict):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -1308,8 +1334,7 @@ def phase_slice_a():
           f"{cfg.d_model} {cfg.dtype}: weights {wbytes / 1e9:.2f} GB "
           f"(made in {time.perf_counter() - t:.1f} s), KV "
           f"{kvbytes / 1e9:.2f} GB at 8 slots x 1024")
-    _no_sync_in_window(eng)
-    print("slice A: no host sync inside a decode window")
+    _no_sync_in_window(eng, "slice A")
     reqs = mixed_requests(16, seed=0, vocab=cfg.vocab_size,
                           prompt_lens=(16, 300), max_new=(16, 64))
     torch.cuda.synchronize()
@@ -1332,6 +1357,7 @@ def phase_slice_a():
           "fused_sample launches != ticks + prefill calls")
     print(f"slice A: 16/16 DONE, {_serve_stats(reqs, wall)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    records["slice A"] = ("serve", eng.serve_records())
     trace_window(eng, cfg.vocab_size)
     return launches, model, params, eng
 
@@ -1395,7 +1421,7 @@ def _shared_prefix_workload(n, vocab, max_len, ps=8):
         suffix_lens=(2, 8), max_new=(2, max(2, max_len // 8)))
 
 
-def phase_slice_d(model, params, dense) -> dict:
+def phase_slice_d(model, params, dense, records: dict) -> dict:
     """Paged serving at full width and depth on slice A's weights: 16
     shared-prefix requests through PagedEngine on the paged kernel; then
     the same requests through slice A's dense Engine, for comparison."""
@@ -1406,8 +1432,7 @@ def phase_slice_d(model, params, dense) -> dict:
     eng = PagedEngine(model, params, slots=8, max_len=1024, page_size=8,
                       ticks_per_sync=8, attn_impl="kernel",
                       sample_impl="kernel")
-    _no_sync_in_window(eng)
-    print("slice D: no host sync inside a paged decode window")
+    _no_sync_in_window(eng, "slice D")
     reqs = _shared_prefix_workload(16, cfg.vocab_size, 1024)
     print(f"slice D: llama3-8b, 8 slots x 1024, page size 8: 16 requests "
           f"over 4 templates of {_template_len(1024)} tokens, 2-8-token "
@@ -1439,6 +1464,7 @@ def phase_slice_d(model, params, dense) -> dict:
           f"{st['prefix_hits']} hits), CoW copies {st['cow_copies']}, "
           f"pages_hwm {st['pages_hwm']} of the dense capacity "
           f"{eng.slots * eng.nb}; pool conserved")
+    records["slice D"] = ("serve", eng.serve_records())
     trace_window(eng, cfg.vocab_size)
     del eng
     torch.cuda.empty_cache()
@@ -1563,7 +1589,8 @@ def _recurrent_model(arch: str, **overrides):
     return model, params
 
 
-def _serve_recurrent(label: str, model, params, n_rec: int) -> dict:
+def _serve_recurrent(label: str, model, params, n_rec: int,
+                     records: dict) -> dict:
     """Slice A's workload through ``Engine`` on a recurrent family: no host
     sync inside a window, 16/16 DONE, exact launch counts; a traced
     window.  Returns the launch counts of the serving run."""
@@ -1578,8 +1605,7 @@ def _serve_recurrent(label: str, model, params, n_rec: int) -> dict:
     print(f"{label}: {cfg.arch} {cfg.num_layers} layers d_model "
           f"{cfg.d_model} {cfg.dtype}: weights {wbytes / 1e9:.2f} GB, slot "
           f"state {sbytes / 1e9:.3f} GB at 8 slots x 1024")
-    _no_sync_in_window(eng)
-    print(f"{label}: no host sync inside a decode window")
+    _no_sync_in_window(eng, label)
     reqs = mixed_requests(16, seed=0, vocab=cfg.vocab_size,
                           prompt_lens=(16, 300), max_new=(16, 64))
     torch.cuda.synchronize()
@@ -1606,6 +1632,7 @@ def _serve_recurrent(label: str, model, params, n_rec: int) -> dict:
           f"{label}: a sequence or attention kernel ran while serving")
     print(f"{label}: 16/16 DONE, {_serve_stats(reqs, wall)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    records[label] = ("serve", eng.serve_records())
     trace_window(eng, cfg.vocab_size, prompt_lens=(16, 32))
     return launches
 
@@ -1649,25 +1676,25 @@ def _prefill_4x2048(label: str, model, params, kernel: str,
     return n
 
 
-def phase_slice_f() -> dict:
+def phase_slice_f(records: dict) -> dict:
     """mamba2-1.3b at full width and depth: serving (no kernel of this
     slice in the tick: the decode step is the recurrent update) and the
     sequence path, where ``ssd_scan`` runs once per layer."""
     model, params = _recurrent_model("mamba2-1.3b")
-    launches = _serve_recurrent("slice F", model, params, n_rec=0)
+    launches = _serve_recurrent("slice F", model, params, 0, records)
     launches["ssd_scan"] = _prefill_4x2048("slice F", model, params,
                                            "ssd_scan", model.cfg.num_layers)
     return launches
 
 
-def phase_slice_g() -> dict:
+def phase_slice_g(records: dict) -> dict:
     """recurrentgemma-2b at full width and depth: serving (``rglru_scan``
     once per R layer in every decode tick and prefill-scan step) and the
     sequence path."""
     from repro_torch.models.transformer import hybrid_pattern
     model, params = _recurrent_model("recurrentgemma-2b")
     n_rec = hybrid_pattern(model.cfg).count("R")
-    launches = _serve_recurrent("slice G", model, params, n_rec=n_rec)
+    launches = _serve_recurrent("slice G", model, params, n_rec, records)
     _prefill_4x2048("slice G", model, params, "rglru_scan", n_rec)
     return launches
 
@@ -1692,6 +1719,48 @@ def phase_recurrent_walls(flush) -> list:
     trace_window(eng, model.cfg.vocab_size, prompt_lens=(16, 32))
     del model, params, eng
     torch.cuda.empty_cache()
+    return []
+
+
+def phase_recurrent_serve(flush) -> list:
+    """Slices F's and G's serving runs alone, for ``--only serve`` beside
+    another tree: each engine serves one request first (a prefill and its
+    first decode windows: what the engine counts, where it counts traffic,
+    outside the timed run, as ``_no_sync_in_window`` does in phases F and
+    G), is reset, and is then timed on the 16 requests of phases F and G;
+    with its traffic recorded and without, where the engine has the
+    choice.  No kernel row."""
+    import inspect
+    from repro_torch.serve import (DONE, Engine, Request, mixed_requests,
+                                   run_staggered, staggered_groups)
+    choice = "record_traffic" in inspect.signature(Engine).parameters
+    for label, arch in (("slice F", "mamba2-1.3b"),
+                        ("slice G", "recurrentgemma-2b")):
+        model, params = _recurrent_model(arch)
+        for record in ((True, False) if choice else (None,)):
+            kw = {} if record is None else {"record_traffic": record}
+            eng = Engine(model, params, slots=8, max_len=1024,
+                         ticks_per_sync=8, **kw)
+            eng.submit(Request(uid=-1, prompt=list(range(1, 40)),
+                               max_new_tokens=9))
+            eng.run()
+            eng.reset()
+            reqs = mixed_requests(16, seed=0, vocab=model.cfg.vocab_size,
+                                  prompt_lens=(16, 300), max_new=(16, 64))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_staggered(eng, staggered_groups(reqs, 8))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(all(r.state == DONE for r in reqs),
+                  f"{label}: a request did not end DONE")
+            how = ("an engine without traffic records" if record is None
+                   else f"record_traffic={record}")
+            print(f"{label} serve, {how}: {_serve_stats(reqs, wall)}",
+                  flush=True)
+            del eng
+        del model, params
+        torch.cuda.empty_cache()
     return []
 
 
@@ -1768,7 +1837,7 @@ def phase_slice_h(arch: str) -> None:
 # ---------------------------------------------------------------- slice T
 
 
-def phase_slice_t():
+def phase_slice_t(records: dict):
     """Training at full width: llama3-8b (d_model 4096, 32 heads, 8 KV
     heads, hd 128, d_ff 14336, vocab 128256) cut to 4 layers, bf16, remat
     full, weights from ``torch.Generator(seed=0)``; AdamW with f32 master
@@ -1838,7 +1907,9 @@ def phase_slice_t():
     print(f"slice T: {steps} steps, losses finite and falling, "
           f"{launches['flash_attention']} flash launches, no host sync "
           f"inside window 1; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; window 0 "
+          f"ran with its traffic counted")
+    records["slice T"] = ("train", win.train_records())
     trace_train_step(model, opt, state, micro, DataConfig(cfg.vocab_size,
                                                           seq, batch))
     return launches
@@ -1865,7 +1936,8 @@ def trace_train_step(model, opt, state, micro: int, dcfg) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.trainer import make_train_window
     win = make_train_window(model, opt, steps_per_sync=1,
-                            microbatches=micro, data_cfg=dcfg)
+                            microbatches=micro, data_cfg=dcfg,
+                            record_traffic=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2347,13 +2419,141 @@ def phase_pipeline() -> None:
           f"6-9.5 MB, SOT 8.5-13 MB; paper 7 and 10)")
 
 
+# ---------------------------------------------------------------- phase 7b
+
+
+def phase_verdicts(records: dict) -> None:
+    """The NVM verdicts of the full-width slices' own traffic: each
+    engine's and the train window's records (counted from the first
+    decode window and the first prefill of each padded length, or the
+    first train window) and their SRAM/STT/SOT energy and EDP ratios at
+    the modeled TPU tier (times modeled at its constants, not measured
+    here).  Every ratio finite and positive; each serve slice has a decode
+    and a prefill record, slice T a train record."""
+    import math
+    from repro_torch.core.crosslayer import analyze_serve, analyze_train
+    for label in ("slice A", "slice D", "slice F", "slice G", "slice T"):
+        kind, recs = records[label]
+        want = {"decode", "prefill"} if kind == "serve" else {"train"}
+        kinds = {r["kind"] for r in recs}
+        check(want <= kinds, f"{label}: records of {sorted(kinds)}, want "
+              f"{sorted(want)}")
+        verdicts = (analyze_serve if kind == "serve" else analyze_train)(recs)
+        for r, v in zip(recs, verdicts):
+            roof = r["roofline"]
+            dominant = max(("compute", "memory", "collective"),
+                           key=lambda t: roof[f"{t}_s"])
+            ratios = [d[m] for d in (v.energy_ratio, v.edp_ratio)
+                      for m in ("STT", "SOT")]
+            check(all(math.isfinite(x) and x > 0 for x in ratios),
+                  f"{label}: {r['shape']} ratios {ratios}")
+            per = {"decode": "tick", "prefill": "call", "train": "step"}
+            n = r.get("ticks", r.get("calls", r.get("steps")))
+            upf = r.get("unique_page_fraction")
+            print(f"verdicts {label}: {r['shape']} ({per[r['kind']]}s: {n}"
+                  f"{'' if upf is None else f', unique pages {upf:.4f}'}): "
+                  f"{roof['flops_per_device']:.6e} flops "
+                  f"{roof['bytes_per_device']:.6e} bytes a "
+                  f"{per[r['kind']]}, {dominant} bound at the modeled "
+                  f"tier; energy vs SRAM STT {v.energy_ratio['STT']:.4f} / "
+                  f"SOT {v.energy_ratio['SOT']:.4f}, EDP STT "
+                  f"{v.edp_ratio['STT']:.4f} / SOT {v.edp_ratio['SOT']:.4f}")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def _same_stats(label: str, card, cpu) -> None:
+    """Fail unless two lists of ``OpStats`` are equal, naming the ops whose
+    counts differ."""
+    check(len(card) == len(cpu), f"{label}: {len(card)} records on the "
+          f"card, {len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a == b:
+            continue
+        ops_ = sorted(set(a.bytes_by_op) | set(b.bytes_by_op))
+        diff = {o: (a.bytes_by_op.get(o), b.bytes_by_op.get(o))
+                for o in ops_
+                if a.bytes_by_op.get(o) != b.bytes_by_op.get(o)}
+        fail(f"{label}: record {i} differs: card {a.flops:.6e} flops "
+             f"{a.bytes:.6e} bytes {a.kernel_calls}, CPU {b.flops:.6e} "
+             f"{b.bytes:.6e} {b.kernel_calls}; bytes by op (card, CPU) "
+             f"{diff}; flops by op {a.flops_by_op} / {b.flops_by_op}")
+
+
+def phase_traffic_card_vs_cpu() -> None:
+    """The traffic count on the card against the CPU: reduced llama3-8b
+    (f32) through ``Engine`` at 4 slots x 64 on 8 requests, and a reduced
+    ``TrainWindow`` (the train launcher's ``--reduced`` config with remat
+    full, 2 steps of 4 x 64 tokens), each on the card and on the CPU with
+    the same weights and requests.  Their ``OpStats`` must be equal,
+    record for record (flops and bytes, both by op, kernel calls): the
+    kernels' boundary counts what the plain versions' does, and the
+    backward that autograd runs on a worker thread on the card, with its
+    remat recompute, is counted there too."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.serve import (Engine, mixed_requests, run_staggered,
+                                   staggered_groups)
+    from repro_torch.train.trainer import init_state, make_train_window
+    cfg = reduced(get_config("llama3-8b"), dtype="float32")
+    params = build_model(cfg, max_seq=64, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    serve, recs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        eng = Engine(build_model(cfg, max_seq=64, device=dev),
+                     _to(params, dev), slots=4, max_len=64, ticks_per_sync=8,
+                     device=dev)
+        reqs = mixed_requests(8, seed=0, vocab=cfg.vocab_size,
+                              prompt_lens=(2, 16), max_new=(2, 8))
+        run_staggered(eng, staggered_groups(reqs, 4))
+        tr = eng._traffic
+        serve[dev] = [tr["decode"]] + [tr["prefill"][P]
+                                       for P in sorted(tr["prefill"])]
+        recs[dev] = eng.serve_records()
+    _same_stats("traffic: reduced Engine", serve[DEVICE], serve["cpu"])
+    check(recs[DEVICE] == recs["cpu"], "traffic: serve_records differ")
+    print(f"traffic card vs CPU: reduced llama3-8b Engine, "
+          f"{len(serve['cpu'])} counted programs equal op for op: "
+          + "; ".join(f"{r['shape']} {r['roofline']['flops_per_device']:.6e}"
+                      f" flops {r['roofline']['bytes_per_device']:.6e} bytes"
+                      for r in recs["cpu"])
+          + f"; decode kernel calls {serve['cpu'][0].kernel_calls}")
+    tcfg = reduced(get_config("llama3-8b"), num_layers=4, d_model=128,
+                   d_ff=256, remat="full")
+    opt = AdamW(lr=constant(1e-3))
+    state = init_state(build_model(tcfg, max_seq=64, device="cpu"), opt,
+                       torch.Generator().manual_seed(0))
+    train, trec = {}, {}
+    for dev in (DEVICE, "cpu"):
+        win = make_train_window(build_model(tcfg, max_seq=64, device=dev),
+                                opt, steps_per_sync=2,
+                                data_cfg=DataConfig(tcfg.vocab_size, 64, 4))
+        win(_to(state, dev))
+        train[dev] = [win._traffic]
+        trec[dev] = win.train_records()
+    _same_stats("traffic: reduced TrainWindow", train[DEVICE], train["cpu"])
+    check(trec[DEVICE] == trec["cpu"], "traffic: train_records differ")
+    r = trec["cpu"][0]
+    print(f"traffic card vs CPU: reduced TrainWindow (remat full) equal op "
+          f"for op: {r['shape']} {r['roofline']['flops_per_device']:.6e} "
+          f"flops {r['roofline']['bytes_per_device']:.6e} bytes a step; "
+          f"kernel calls {train['cpu'][0].kernel_calls}")
+
+
 KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "sampling": "phase_sampling",
                  "paged": "phase_paged_attention",
                  "ssd": "phase_ssd_scan", "rglru": "phase_rglru_scan",
                  "flash": "phase_flash_attention",
                  "cachesim": "phase_cachesim",
-                 "recurrent": "phase_recurrent_walls"}
+                 "recurrent": "phase_recurrent_walls",
+                 "serve": "phase_recurrent_serve"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -2421,9 +2621,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_launchers(Path(tmp))
     stamp("launchers")
-    launches, model, params, dense = phase_slice_a()
+    records = {}
+    launches, model, params, dense = phase_slice_a(records)
     torch.cuda.empty_cache()
-    launches_d = phase_slice_d(model, params, dense)
+    launches_d = phase_slice_d(model, params, dense, records)
     del model, params, dense
     torch.cuda.empty_cache()
     stamp("slices A, D")
@@ -2433,17 +2634,17 @@ def main() -> None:
     del model, params
     torch.cuda.empty_cache()
     stamp("slices B, E")
-    launches_f = phase_slice_f()
+    launches_f = phase_slice_f(records)
     torch.cuda.empty_cache()
     stamp("slice F")
-    launches_g = phase_slice_g()
+    launches_g = phase_slice_g(records)
     torch.cuda.empty_cache()
     stamp("slice G")
     for arch in ("mamba2-1.3b", "recurrentgemma-2b"):
         phase_slice_h(arch)
         torch.cuda.empty_cache()
     stamp("slice H")
-    launches_t = phase_slice_t()
+    launches_t = phase_slice_t(records)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice_u(Path(tmp))
@@ -2456,6 +2657,9 @@ def main() -> None:
     stamp("slice C")
     phase_pipeline()
     stamp("pipeline")
+    phase_verdicts(records)
+    phase_traffic_card_vs_cpu()
+    stamp("verdicts")
     slice_of = {"paged_decode_attention": launches_d,
                 "ssd_scan": launches_f, "rglru_scan": launches_g,
                 "cache_sim": launches_c, "cache_sim_ladder": launches_c,

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from repro_torch.launch.graph_analysis import tensor_bytes
+
 NEG_INF = -2.0e38
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # every head_dim of the configs
 MAX_GROUP = 32          # q heads of a kv group (their q and acc in smem)
@@ -55,6 +57,15 @@ def decode_attention_fused_plain(q, k, v, new_k, new_v, pos, window=0, *,
     k[rows, pos.long()] = new_k
     v[rows, pos.long()] = new_v
     return decode_attention_plain(q, k, v, pos, window, logit_cap=logit_cap)
+
+
+def traffic(q, k, v, pos, new_k=None, new_v=None):
+    """(flops, bytes) of one call: the plain version's two products over
+    all L keys of every row; each input read once, the output (like q)
+    written once, and a fused new row read and written (2 x the row)."""
+    B, H, hd = q.shape
+    return (4.0 * B * H * k.shape[1] * hd,
+            tensor_bytes(q, k, v, pos, q) + 2 * tensor_bytes(new_k, new_v))
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from repro_torch.launch.graph_analysis import tensor_bytes
+
 NEG_INF = -2.0e38
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # every head_dim of the configs
 MAX_GRID_YZ = 65535              # grid dims y and z: heads or q tiles, batch
@@ -53,6 +55,15 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, logit_cap=0.0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
     return o, lse
+
+
+def traffic(q, k, v):
+    """(flops, bytes) of one call: the plain version's two products over
+    every (query, key) pair; the inputs read once, o (like q) and the f32
+    lse written once."""
+    B, H, Sq, hd = q.shape
+    return (4.0 * B * H * Sq * k.shape[2] * hd,
+            tensor_bytes(q, k, v, q) + 4 * B * H * Sq)
 
 
 def check_args(q, k, v, causal, window, logit_cap):

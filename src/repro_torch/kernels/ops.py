@@ -7,6 +7,13 @@ raises.  There is no fallback from the kernel to the plain version.
 ``launches`` counts, per kernel, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its main path went through the kernels.
+
+The serve and train wrappers are also the kernel boundary of the traffic
+count (``launch/graph_analysis.py``): under an active ``OpCounter`` each
+call adds its kernel's declared flops and surface bytes (the kernel
+module's ``traffic``) and one ``kernel_calls`` entry, and nothing inside
+it is counted, on the CPU's plain version as on the card's kernel.  What
+runs is the same with or without a counter.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import sampling as _sm
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.launch.graph_analysis import kernel as _boundary
 
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
@@ -57,16 +65,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (B,K,Skv,hd); ``window`` <= 0 global -> o (B,H,Sq,hd), and with
     ``return_lse`` also lse (B,H,Sq) f32.  Any strides with a contiguous
     last dimension; the output takes q's."""
-    if not _on_cuda(q, k, v):
-        o, lse = _fa.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window,
-                                           logit_cap=logit_cap)
-    else:
-        _fa.check_args(q, k, v, causal, window, logit_cap)
-        fn = _build.function("flash_attention", "flash_attention",
-                             _fa.ARGTYPES)
-        o, lse = _fa.launch_cuda(fn, q, k, v, causal, window, logit_cap)
-        launches["flash_attention"] += 1
+    with _boundary("flash_attention", lambda: _fa.traffic(q, k, v)):
+        if not _on_cuda(q, k, v):
+            o, lse = _fa.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window,
+                                               logit_cap=logit_cap)
+            # the kernel's layout: o takes q's strides, so that what
+            # follows runs the same ops on the CPU as on the card
+            o = torch.empty_like(q).copy_(o)
+        else:
+            _fa.check_args(q, k, v, causal, window, logit_cap)
+            fn = _build.function("flash_attention", "flash_attention",
+                                 _fa.ARGTYPES)
+            o, lse = _fa.launch_cuda(fn, q, k, v, causal, window,
+                                     logit_cap)
+            launches["flash_attention"] += 1
     return (o, lse) if return_lse else o
 
 
@@ -76,15 +89,17 @@ def decode_attention(q, k, v, pos, window: int = 0, *,
 
     q (B,H,hd); k/v (B,L,K,hd); pos (B,) int32; window int (<= 0 global)
     -> o (B,H,hd)."""
-    if not _on_cuda(q, k, v, pos):
-        return _da.decode_attention_plain(q, k, v, pos, window,
-                                          logit_cap=logit_cap)
-    _da.check_args(q, k, v, None, None, pos, window)
-    fn = _build.function("decode_attention", "decode_attention",
-                         _da.ARGTYPES)
-    out = _da.launch_cuda(fn, q, k, v, None, None, pos, window, logit_cap)
-    launches["decode_attention"] += 1
-    return out
+    with _boundary("decode_attention", lambda: _da.traffic(q, k, v, pos)):
+        if not _on_cuda(q, k, v, pos):
+            return _da.decode_attention_plain(q, k, v, pos, window,
+                                              logit_cap=logit_cap)
+        _da.check_args(q, k, v, None, None, pos, window)
+        fn = _build.function("decode_attention", "decode_attention",
+                             _da.ARGTYPES)
+        out = _da.launch_cuda(fn, q, k, v, None, None, pos, window,
+                              logit_cap)
+        launches["decode_attention"] += 1
+        return out
 
 
 def decode_attention_fused(q, k, v, new_k, new_v, pos, window: int = 0, *,
@@ -95,16 +110,18 @@ def decode_attention_fused(q, k, v, new_k, new_v, pos, window: int = 0, *,
     The caches are updated IN PLACE (the JAX kernel returned aliased
     buffers); every row other than ``(b, pos[b])`` keeps its bits.
     Returns o (B,H,hd)."""
-    if not _on_cuda(q, k, v, new_k, new_v, pos):
-        return _da.decode_attention_fused_plain(
-            q, k, v, new_k, new_v, pos, window, logit_cap=logit_cap)
-    _da.check_args(q, k, v, new_k, new_v, pos, window)
-    fn = _build.function("decode_attention", "decode_attention",
-                         _da.ARGTYPES)
-    out = _da.launch_cuda(fn, q, k, v, new_k, new_v, pos, window,
-                          logit_cap)
-    launches["decode_attention"] += 1
-    return out
+    with _boundary("decode_attention",
+                   lambda: _da.traffic(q, k, v, pos, new_k, new_v)):
+        if not _on_cuda(q, k, v, new_k, new_v, pos):
+            return _da.decode_attention_fused_plain(
+                q, k, v, new_k, new_v, pos, window, logit_cap=logit_cap)
+        _da.check_args(q, k, v, new_k, new_v, pos, window)
+        fn = _build.function("decode_attention", "decode_attention",
+                             _da.ARGTYPES)
+        out = _da.launch_cuda(fn, q, k, v, new_k, new_v, pos, window,
+                              logit_cap)
+        launches["decode_attention"] += 1
+        return out
 
 
 def paged_decode_attention(q, k, v, page_table, pos, window: int = 0, *,
@@ -113,16 +130,18 @@ def paged_decode_attention(q, k, v, page_table, pos, window: int = 0, *,
 
     q (B,H,hd); k/v pools (P,ps,K,hd); page_table (B,nb) int32; pos (B,)
     int32; window int (<= 0 global) -> o (B,H,hd)."""
-    if not _on_cuda(q, k, v, page_table, pos):
-        return _pa.paged_decode_attention_plain(q, k, v, page_table, pos,
-                                                window, logit_cap=logit_cap)
-    _pa.check_args(q, k, v, None, None, page_table, pos, window)
-    fn = _build.function("paged_attention", "paged_decode_attention",
-                         _pa.ARGTYPES)
-    out = _pa.launch_cuda(fn, q, k, v, None, None, page_table, pos, window,
-                          logit_cap)
-    launches["paged_decode_attention"] += 1
-    return out
+    with _boundary("paged_decode_attention",
+                   lambda: _pa.traffic(q, k, v, page_table, pos)):
+        if not _on_cuda(q, k, v, page_table, pos):
+            return _pa.paged_decode_attention_plain(
+                q, k, v, page_table, pos, window, logit_cap=logit_cap)
+        _pa.check_args(q, k, v, None, None, page_table, pos, window)
+        fn = _build.function("paged_attention", "paged_decode_attention",
+                             _pa.ARGTYPES)
+        out = _pa.launch_cuda(fn, q, k, v, None, None, page_table, pos,
+                              window, logit_cap)
+        launches["paged_decode_attention"] += 1
+        return out
 
 
 def paged_decode_attention_fused(q, k, v, new_k, new_v, page_table, pos,
@@ -136,17 +155,20 @@ def paged_decode_attention_fused(q, k, v, new_k, new_v, page_table, pos,
     The pools are updated IN PLACE (the JAX kernel returned aliased
     buffers); every other pool row keeps its bits.  Precondition: each
     live row's boundary page is private to it.  Returns o (B,H,hd)."""
-    if not _on_cuda(q, k, v, new_k, new_v, page_table, pos):
-        return _pa.paged_decode_attention_fused_plain(
-            q, k, v, new_k, new_v, page_table, pos, window,
-            logit_cap=logit_cap)
-    _pa.check_args(q, k, v, new_k, new_v, page_table, pos, window)
-    fn = _build.function("paged_attention", "paged_decode_attention",
-                         _pa.ARGTYPES)
-    out = _pa.launch_cuda(fn, q, k, v, new_k, new_v, page_table, pos,
-                          window, logit_cap)
-    launches["paged_decode_attention"] += 1
-    return out
+    with _boundary("paged_decode_attention",
+                   lambda: _pa.traffic(q, k, v, page_table, pos, new_k,
+                                       new_v)):
+        if not _on_cuda(q, k, v, new_k, new_v, page_table, pos):
+            return _pa.paged_decode_attention_fused_plain(
+                q, k, v, new_k, new_v, page_table, pos, window,
+                logit_cap=logit_cap)
+        _pa.check_args(q, k, v, new_k, new_v, page_table, pos, window)
+        fn = _build.function("paged_attention", "paged_decode_attention",
+                             _pa.ARGTYPES)
+        out = _pa.launch_cuda(fn, q, k, v, new_k, new_v, page_table, pos,
+                              window, logit_cap)
+        launches["paged_decode_attention"] += 1
+        return out
 
 
 def fused_sample(logits, temps, key):
@@ -154,13 +176,14 @@ def fused_sample(logits, temps, key):
 
     logits (B,V) f32; temps (B,) f32 (<= 0 greedy, bitwise first-occurrence
     argmax; > 0 Gumbel-max); key (2,) int64 uint32 words -> (B,) int32."""
-    if not _on_cuda(logits, temps, key):
-        return _sm.fused_sample_plain(logits, temps, key)
-    _sm.check_args(logits, temps, key)
-    fn = _build.function("sampling", "fused_sample", _sm.ARGTYPES)
-    out = _sm.launch_cuda(fn, logits, temps, key)
-    launches["fused_sample"] += 1
-    return out
+    with _boundary("fused_sample", lambda: _sm.traffic(logits, temps, key)):
+        if not _on_cuda(logits, temps, key):
+            return _sm.fused_sample_plain(logits, temps, key)
+        _sm.check_args(logits, temps, key)
+        fn = _build.function("sampling", "fused_sample", _sm.ARGTYPES)
+        out = _sm.launch_cuda(fn, logits, temps, key)
+        launches["fused_sample"] += 1
+        return out
 
 
 def _cache_sim_fns(name: str):
@@ -217,12 +240,17 @@ def ssd_scan(x, dt, dtA, Bm, Cm, *, chunk: int,
     dtA (b,S,H); Bm, Cm (b,S,N), one float dtype; ``chunk`` divides S; s0
     (b,H,P,N) f32 or None (zero start).  Returns (y like x, final state
     (b,H,P,N) f32)."""
-    if not _on_cuda(*(t for t in (x, dt, dtA, Bm, Cm, s0) if t is not None)):
-        return _ssd.ssd_scan_plain(x, dt, dtA, Bm, Cm, chunk=chunk, s0=s0)
-    _ssd.check_args(x, dt, dtA, Bm, Cm, chunk, s0)
-    out = _ssd.launch_cuda(ssd_scan_fns(), x, dt, dtA, Bm, Cm, chunk, s0)
-    launches["ssd_scan"] += 1
-    return out
+    with _boundary("ssd_scan",
+                   lambda: _ssd.traffic(x, dt, dtA, Bm, Cm, chunk, s0)):
+        if not _on_cuda(*(t for t in (x, dt, dtA, Bm, Cm, s0)
+                          if t is not None)):
+            return _ssd.ssd_scan_plain(x, dt, dtA, Bm, Cm, chunk=chunk,
+                                       s0=s0)
+        _ssd.check_args(x, dt, dtA, Bm, Cm, chunk, s0)
+        out = _ssd.launch_cuda(ssd_scan_fns(), x, dt, dtA, Bm, Cm, chunk,
+                               s0)
+        launches["ssd_scan"] += 1
+        return out
 
 
 def ssd_scan_fns():
@@ -238,13 +266,14 @@ def rglru_scan(a, b, h0: Optional[torch.Tensor] = None
     """RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B,S,R) f32;
     h0 (B,R) f32 or None (zero start).  Returns (y (B,S,R) f32, h_final
     (B,R) f32)."""
-    if not _on_cuda(*(t for t in (a, b, h0) if t is not None)):
-        return _rg.rglru_scan_plain(a, b, h0)
-    _rg.check_args(a, b, h0)
-    fn = _build.function("rglru_scan", "rglru_scan", _rg.ARGTYPES)
-    out = _rg.launch_cuda(fn, a, b, h0)
-    launches["rglru_scan"] += 1
-    return out
+    with _boundary("rglru_scan", lambda: _rg.traffic(a, b, h0)):
+        if not _on_cuda(*(t for t in (a, b, h0) if t is not None)):
+            return _rg.rglru_scan_plain(a, b, h0)
+        _rg.check_args(a, b, h0)
+        fn = _build.function("rglru_scan", "rglru_scan", _rg.ARGTYPES)
+        out = _rg.launch_cuda(fn, a, b, h0)
+        launches["rglru_scan"] += 1
+        return out
 
 
 def rglru_gated_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None
@@ -254,11 +283,13 @@ def rglru_gated_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None
     exp(-8 softplus(lam) r)``, ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t
     x_t``, in f32.  Returns (y (B,S,R) in x's dtype, h_final (B,R) f32);
     counted under ``rglru_scan``."""
-    if not _on_cuda(*(t for t in (x, r, i, lam, h0) if t is not None)):
-        return _rg.rglru_gated_scan_plain(x, r, i, lam, h0)
-    _rg.check_gated_args(x, r, i, lam, h0)
-    fn = _build.function("rglru_scan", "rglru_gated_scan",
-                         _rg.GATED_ARGTYPES)
-    out = _rg.launch_gated_cuda(fn, x, r, i, lam, h0)
-    launches["rglru_scan"] += 1
-    return out
+    with _boundary("rglru_scan",
+                   lambda: _rg.gated_traffic(x, r, i, lam, h0)):
+        if not _on_cuda(*(t for t in (x, r, i, lam, h0) if t is not None)):
+            return _rg.rglru_gated_scan_plain(x, r, i, lam, h0)
+        _rg.check_gated_args(x, r, i, lam, h0)
+        fn = _build.function("rglru_scan", "rglru_gated_scan",
+                             _rg.GATED_ARGTYPES)
+        out = _rg.launch_gated_cuda(fn, x, r, i, lam, h0)
+        launches["rglru_scan"] += 1
+        return out

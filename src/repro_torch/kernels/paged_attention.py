@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels.decode_attention import (_DTYPE_CODE, HEAD_DIMS,
                                                   MAX_GROUP,
                                                   decode_attention_plain)
+from repro_torch.launch.graph_analysis import tensor_bytes
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor):
@@ -79,6 +80,18 @@ def paged_decode_attention_fused_plain(q, k, v, new_k, new_v, page_table,
     write_rows(v, new_v[:, None], page_table, pos)
     return paged_decode_attention_plain(q, k, v, page_table, pos, window,
                                         logit_cap=logit_cap)
+
+
+def traffic(q, k, v, page_table, pos, new_k=None, new_v=None):
+    """(flops, bytes) of one call: the plain version's two products over
+    the nb x ps keys of every row's table; each input read once (the whole
+    pools, as the JAX gather of pages reads them), the output (like q)
+    written once, and a fused new row read and written (2 x the row)."""
+    B, H, hd = q.shape
+    keys = page_table.shape[1] * k.shape[1]
+    return (4.0 * B * H * keys * hd,
+            tensor_bytes(q, k, v, page_table, pos, q)
+            + 2 * tensor_bytes(new_k, new_v))
 
 
 def check_args(q, k, v, new_k, new_v, page_table, pos, window):

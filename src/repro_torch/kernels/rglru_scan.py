@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.sampling import sm_count
+from repro_torch.launch.graph_analysis import tensor_bytes
 
 _C = 8.0
 MAX_CHANNELS = 256    # one chain a thread of a 256-thread block
@@ -61,6 +62,20 @@ def rglru_gated_scan_plain(x, r, i, lam, h0: Optional[torch.Tensor] = None
                             h0.float().contiguous() if h0 is not None
                             else None)
     return y.to(x.dtype), h
+
+
+def traffic(a, b, h0=None):
+    """(flops, bytes) of one ``rglru_scan`` call: no products; the inputs
+    read once, the f32 y and final state written once."""
+    B, S, R = a.shape
+    return 0.0, tensor_bytes(a, b, h0) + 4 * (B * S * R + B * R)
+
+
+def gated_traffic(x, r, i, lam, h0=None):
+    """(flops, bytes) of one ``rglru_gated_scan`` call: no products; the
+    inputs read once, y (like x) and the f32 final state written once."""
+    B, S, R = x.shape
+    return 0.0, tensor_bytes(x, r, i, lam, h0, x) + 4 * B * R
 
 
 def channels_per_block(B: int, R: int, sms: int) -> int:

@@ -20,6 +20,8 @@ import functools
 
 import torch
 
+from repro_torch.launch.graph_analysis import tensor_bytes
+
 M32 = 0xFFFFFFFF
 THREADS = 512           # threads a block
 MAX_CLUSTER = 16        # blocks a row: the H100's non-portable cluster size
@@ -65,6 +67,12 @@ def perturbed_logits(logits, temps, key) -> torch.Tensor:
 def fused_sample_plain(logits, temps, key) -> torch.Tensor:
     return torch.argmax(perturbed_logits(logits, temps, key),
                         dim=-1).to(torch.int32)
+
+
+def traffic(logits, temps, key):
+    """(flops, bytes) of one call: no products; the inputs read once and
+    the (B,) int32 tokens written once."""
+    return 0.0, tensor_bytes(logits, temps, key) + 4 * logits.shape[0]
 
 
 def check_args(logits, temps, key):

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.launch.graph_analysis import tensor_bytes
+
 P_MAX, N_MAX = 64, 128        # what one CUDA block covers
 CHUNK_MAX = 4096              # bounds the (b, S / chunk, chunk, chunk) C.B^T
 STAGE_NAMES = ("cumsum", "cb", "chunk_state", "state_pass", "chunk_out")
@@ -66,6 +68,18 @@ def ssd_scan_plain(x, dt, dtA, Bm, Cm, *, chunk: int,
         s = s * torch.exp(cum[:, -1, :])[..., None, None] + s_inc
         ys.append((y_diag + y_off).to(x.dtype))
     return torch.cat(ys, dim=1), s
+
+
+def traffic(x, dt, dtA, Bm, Cm, chunk, s0=None):
+    """(flops, bytes) of one call: the plain version's four products per
+    chunk (C.B^T, the intra-chunk output, the state's output and the
+    chunk's state); the inputs read once, y (like x) and the f32 final
+    state written once."""
+    b, S, H, P = x.shape
+    N = Bm.shape[-1]
+    flops = 2.0 * b * S * (chunk * N + H * P * chunk + 2 * H * P * N)
+    return flops, (tensor_bytes(x, dt, dtA, Bm, Cm, s0, x)
+                   + 4 * b * H * P * N)
 
 
 def check_args(x, dt, dtA, Bm, Cm, chunk, s0):

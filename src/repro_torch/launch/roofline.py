@@ -1,10 +1,28 @@
-"""Bytes per element of a dtype name, the sizing convention of the traffic
-engine's ``LayerStack`` lowering (``core/traffic.py``).
+"""Roofline terms of the port's measured traffic (torch counterpart of
+``repro/launch/roofline.py``).
 
-Only ``dtype_bytes`` and its tables are here so far; the roofline and
-compile analysis around them come with a later slice of the port.
+    compute_term    = flops_per_device / PEAK_FLOPS
+    memory_term     = bytes_per_device / HBM_BW
+    collective_term = link_bytes_per_device / ICI_BW
+
+The JAX package takes flops and bytes from the compiled program's HLO;
+the port counts them from its own op graph (``launch/graph_analysis.py``)
+and ``Roofline.from_stats`` turns the count into these terms.  One device
+moves no collective bytes.  ``dtype_bytes`` is also the sizing convention
+of the traffic engine's ``LayerStack`` lowering (``core/traffic.py``).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+# The modeled TPU tier's inputs (a v5e-class chip, per chip), the same as
+# the JAX package's, so that the port's NVM verdicts compare with its:
+# they turn counted flops and bytes into modeled times.  They are not
+# measurements of any card, and no time derived from them is one.
+PEAK_FLOPS = 197e12        # bf16 FLOP/s
+HBM_BW = 819e9             # bytes/s
+ICI_BW = 50e9              # bytes/s per link
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -24,3 +42,87 @@ def dtype_bytes(dtype: str) -> int:
     if key not in _DTYPE_BYTES:
         raise KeyError(f"unknown dtype {dtype!r}")
     return _DTYPE_BYTES[key]
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops_per_device: float
+    bytes_per_device: float
+    collective_bytes: float = 0.0
+    bytes_by_op: Optional[Dict[str, float]] = None
+    flops_by_op: Optional[Dict[str, float]] = None
+    kernel_calls: Optional[Dict[str, int]] = None
+
+    @classmethod
+    def from_stats(cls, stats) -> "Roofline":
+        """Terms of a ``graph_analysis.OpStats`` count on one device: the
+        part ``analyze(compiled)`` plays in the JAX package."""
+        return cls(flops_per_device=stats.flops,
+                   bytes_per_device=stats.bytes,
+                   bytes_by_op=dict(stats.bytes_by_op),
+                   flops_by_op=dict(stats.flops_by_op),
+                   kernel_calls=dict(stats.kernel_calls))
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops_per_device / PEAK_FLOPS
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes_per_device / HBM_BW
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / ICI_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def terms(self, div: float = 1.0) -> Dict[str, float]:
+        """The six roofline terms of a record, each divided by ``div``
+        (the ticks, calls or steps the count covers)."""
+        return {"flops_per_device": self.flops_per_device / div,
+                "bytes_per_device": self.bytes_per_device / div,
+                "collective_bytes": self.collective_bytes / div,
+                "compute_s": self.compute_s / div,
+                "memory_s": self.memory_s / div,
+                "collective_s": self.collective_s / div}
+
+    def model_flops_util(self, model_flops_per_device: float) -> float:
+        """MODEL_FLOPS fraction of the roofline bound (MFU-like)."""
+        if self.bound_s <= 0:
+            return 0.0
+        return model_flops_per_device / PEAK_FLOPS / self.bound_s
+
+    def to_dict(self) -> dict:
+        return {
+            "flops_per_device": self.flops_per_device,
+            "bytes_per_device": self.bytes_per_device,
+            "collective_bytes": self.collective_bytes,
+            "bytes_by_op": self.bytes_by_op,
+            "flops_by_op": self.flops_by_op,
+            "kernel_calls": self.kernel_calls,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+        }
+
+
+def model_flops(cfg, shape, chips: int) -> float:
+    """Per-device MODEL_FLOPS: 6·N·D train, 2·N·tokens serve (N = active)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        total = 6.0 * n_active * shape.seq_len * shape.global_batch
+    elif shape.kind == "prefill":
+        total = 2.0 * n_active * shape.seq_len * shape.global_batch
+    else:  # decode: one token per sequence
+        total = 2.0 * n_active * shape.global_batch
+    return total / chips

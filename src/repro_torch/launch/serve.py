@@ -21,7 +21,10 @@ counters; ``--shared-prefix`` (paged only) serves the shared-prefix
 template workload and fails if no prompt token was served from the tree.
 The ssm (mamba2) and hybrid (recurrentgemma) families serve through
 ``Engine`` only: ``--paged`` raises ``UnsupportedFamilyError`` for them
-before any weight is made.
+before any weight is made.  ``--verdicts`` (the default) counts the
+engine's traffic and prints its serve-mode NVM verdicts, the SRAM/STT/SOT
+tier energy and EDP ratios of each serve phase (times modeled at the TPU
+tier's constants, not measured); ``--no-verdicts`` counts nothing.
 """
 import argparse
 import collections
@@ -83,6 +86,8 @@ def main(argv=None):
                          "fail unless prefix pages are shared (--paged "
                          "only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verdicts", action=argparse.BooleanOptionalAction,
+                    default=True, help="print serve-mode NVM verdicts")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.shared_prefix and not args.paged:
@@ -102,7 +107,8 @@ def main(argv=None):
     params = model.init(gen)
     kw = dict(slots=args.slots, max_len=args.max_len, seed=args.seed,
               ticks_per_sync=args.ticks_per_sync, attn_impl=args.attn_impl,
-              sample_impl=args.sample_impl, device=args.device)
+              sample_impl=args.sample_impl, record_traffic=args.verdicts,
+              device=args.device)
     if args.paged:
         eng = PagedEngine(model, params, page_size=args.page_size,
                           num_pages=args.num_pages, **kw)
@@ -155,6 +161,13 @@ def main(argv=None):
           + " ".join(f"{k}={v}" for k, v in sorted(hist.items())))
     if hist[DONE] != len(reqs):
         raise SystemExit(f"not every request ended DONE: {dict(hist)}")
+    if args.verdicts:
+        for v in eng.nvm_verdicts():
+            print(f"  {v.shape}: energy vs SRAM "
+                  f"STT {v.energy_ratio['STT']:.3f} / "
+                  f"SOT {v.energy_ratio['SOT']:.3f}   EDP "
+                  f"STT {v.edp_ratio['STT']:.3f} / "
+                  f"SOT {v.edp_ratio['SOT']:.3f}")
 
 
 if __name__ == "__main__":

@@ -23,9 +23,14 @@ Two paths share one state layout:
     final step rounds UP to a multiple of K;
   * ``--no-fused``: the per-step oracle loop on host ``Pipeline`` batches.
 
+The fused path counts its first window's traffic and prints the
+window's train-mode NVM verdicts at the end (``--verdicts``, the
+default): the SRAM/STT/SOT tier energy and EDP ratios, times modeled at
+the TPU tier's constants, not measured; ``--no-verdicts`` counts nothing.
+
 Only the dense family trains.  ``--compress-grads`` (EF-int8 gradients)
-is refused: it is not ported yet.  There is no ``--strategy`` and no
-``--verdicts``: one device, and no train-mode NVM verdicts yet.
+is refused: it is not ported yet.  There is no ``--strategy``: one
+device.
 """
 import argparse
 import sys
@@ -71,6 +76,9 @@ def main(argv=None):
     ap.add_argument("--compress-grads", action="store_true",
                     help="refused: EF-int8 gradient compression is not "
                          "ported yet")
+    ap.add_argument("--verdicts", action=argparse.BooleanOptionalAction,
+                    default=True, help="print train-mode NVM verdicts "
+                                       "(fused mode only)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -101,8 +109,17 @@ def main(argv=None):
         start = int(mgr.latest_step())
         print(f"restored step {start} from {args.ckpt_dir}")
     mon = StragglerMonitor(num_hosts=1)
-    run = _run_fused if args.fused else _run_per_step
-    run(args, model, opt, dcfg, state, mgr, mon, start)
+    if not args.fused:
+        _run_per_step(args, model, opt, dcfg, state, mgr, mon, start)
+        return 0
+    win = _run_fused(args, model, opt, dcfg, state, mgr, mon, start)
+    if args.verdicts and win is not None:
+        for v in win.nvm_verdicts():
+            print(f"  {v.shape}: energy vs SRAM "
+                  f"STT {v.energy_ratio['STT']:.3f} / "
+                  f"SOT {v.energy_ratio['SOT']:.3f}   EDP "
+                  f"STT {v.edp_ratio['STT']:.3f} / "
+                  f"SOT {v.edp_ratio['SOT']:.3f}")
     return 0
 
 
@@ -120,14 +137,16 @@ def _straggler(mon: StragglerMonitor, step_time: float) -> None:
 
 def _run_fused(args, model, opt, dcfg, state, mgr, mon, start):
     """Window loop: K fused steps per host sync; checkpoint and straggler
-    accounting at window boundaries."""
+    accounting at window boundaries.  Returns the window (for verdicts),
+    None when there was nothing to do."""
     K = args.steps_per_sync
     if start >= args.steps:
         print(f"restored step {start} >= --steps {args.steps}; nothing to "
               f"do (checkpoints {mgr.all_steps()})")
-        return
+        return None
     win = make_train_window(model, opt, steps_per_sync=K,
-                            microbatches=args.microbatches, data_cfg=dcfg)
+                            microbatches=args.microbatches, data_cfg=dcfg,
+                            record_traffic=args.verdicts)
     tokens = dcfg.global_batch * dcfg.seq_len
     step, last_loss = start, None
     t0 = time.perf_counter()
@@ -147,6 +166,7 @@ def _run_fused(args, model, opt, dcfg, state, mgr, mon, start):
               f"{tokens / dt:.0f} tok/s")
     print(f"done @{step}: loss {last_loss:.4f}; checkpoints "
           f"{mgr.all_steps()}")
+    return win
 
 
 def _run_per_step(args, model, opt, dcfg, state, mgr, mon, start):

@@ -33,6 +33,15 @@ with radix-tree prefix sharing and copy-on-write boundary pages.
 ``EngineReference`` is the per-tick oracle: per-token prefill through
 ``decode_step``, one host round-trip per tick, sampling in Python.
 
+Traffic records (``record_traffic=True``, the default): the first decode
+window and the first prefill of each padded length run under
+``launch/graph_analysis.py``'s ``OpCounter`` (nothing runs twice, nothing
+waits on the card; the window's ticks and the recurrent prefill scan's
+steps are counted by their first, ``graph_analysis.loop``, so counting
+costs one tick or step of each); ``serve_records()`` turns the counts
+into per-tick and per-call roofline terms, and ``nvm_verdicts()`` scores
+them with ``core/crosslayer.py``'s SRAM/STT/SOT tier model.
+
 State banks (``Model.state_banks``): KV banks need no reset, since reads
 are position-guarded.  The GUARDED banks (``"recurrent"``, ``"ring"``)
 carry state no position masks: every decode tick merges them under the
@@ -43,16 +52,22 @@ values.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
-from typing import Deque, List, Optional
+from typing import Deque, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.crosslayer import (RECURRENT_READ_FRACTION,
+                                         analyze_serve)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.sampling import fused_sample_plain
+from repro_torch.launch import graph_analysis
+from repro_torch.launch.graph_analysis import OpCounter
+from repro_torch.launch.roofline import Roofline
 from repro_torch.models.api import (Model, UnsupportedFamilyError,
                                     serve_families)
 from repro_torch.serve.paged import (PagePool, PagePoolExhausted,
@@ -202,13 +217,16 @@ class Engine:
     boundaries.  Temperature draws use two key words per sampling call
     from the engine's ``torch.Generator`` (seeded by ``seed``); they
     differ from ``jax.random``'s, so across frameworks only greedy tokens
-    agree.
+    agree.  ``record_traffic`` counts the first decode window and the
+    first prefill of each padded length for ``serve_records`` /
+    ``nvm_verdicts``; what the engine emits is the same either way.
     """
 
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
                  eos_id: Optional[int] = None, seed: int = 0,
                  ticks_per_sync: int = 8, attn_impl: str = "kernel",
-                 sample_impl: str = "kernel", device: DeviceLike = None):
+                 sample_impl: str = "kernel", record_traffic: bool = True,
+                 device: DeviceLike = None):
         self.device = _check_model(model, device, "Engine")
         if attn_impl not in IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {IMPLS}")
@@ -225,8 +243,11 @@ class Engine:
         self.ticks_per_sync = int(ticks_per_sync)
         self.attn_impl = attn_impl
         self.sample_impl = sample_impl
+        self.record_traffic = bool(record_traffic)
         self._banks, self._bank_reset, self._guarded = _bank_meta(
             model, slots, max_len)
+        # counted traffic, kept across reset() as the programs it counts
+        self._traffic: Dict[str, object] = {"decode": None, "prefill": {}}
         self.reset()
 
     # ---- state ----------------------------------------------------------
@@ -235,7 +256,8 @@ class Engine:
         return self.model.init_cache(self.slots, self.max_len)
 
     def reset(self) -> None:
-        """Clear cache, slot state, queue and counters."""
+        """Clear cache, slot state, queue and counters (the counted
+        traffic is kept)."""
         dev = self.device
         self.cache = self._fresh_cache()
         self._gen = torch.Generator(device=dev)
@@ -252,7 +274,8 @@ class Engine:
         }
         self.ticks = 0
         self.counts = {"decode_ticks": 0, "prefill_calls": 0,
-                       "prefill_steps": 0, "nonfinite_rows": 0}
+                       "prefill_steps": 0, "nonfinite_rows": 0,
+                       "prefill_calls_by_len": {}}
 
     # ---- device programs ------------------------------------------------
     def _sample(self, lg: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
@@ -282,41 +305,76 @@ class Engine:
         if self._guarded:
             _reset_rows(self.cache, s, self._banks, self._bank_reset)
 
+    # ---- traffic accounting --------------------------------------------
+    @contextlib.contextmanager
+    def _counted(self, P: Optional[int] = None) -> Iterator[None]:
+        """Run the body under ``OpCounter`` when it is the first decode
+        window (``P`` None) or the first prefill of padded length ``P`` and
+        traffic is recorded, and keep the count."""
+        seen = (self._traffic["decode"] if P is None
+                else self._traffic["prefill"].get(P))
+        if not self.record_traffic or seen is not None:
+            yield
+            return
+        with OpCounter() as counter:
+            yield
+        if P is None:
+            self._traffic["decode"] = counter.stats
+        else:
+            self._traffic["prefill"][P] = counter.stats
+
+    def _prefill_call(self, P: int):
+        """One prefill call of padded length ``P``: counts it by length and
+        returns the context it runs in (``_counted``)."""
+        by_len = self.counts["prefill_calls_by_len"]
+        by_len[P] = by_len.get(P, 0) + 1
+        return self._counted(P)
+
     def _window(self):
         """K decode ticks, no host sync.  Returns (3, K, slots) int32:
         emitted tokens (-1 for inactive rows), finish flags, finite-logit
-        flags."""
+        flags.  The first window is counted (``_counted``)."""
+        with self._counted():
+            return self._ticks()
+
+    def _ticks(self):
         st = self._state
         last, pos, active = st["last"], st["pos"], st["active"]
         remaining, temps = st["remaining"], st["temps"]
         toks, fins, oks = [], [], []
+        # every tick runs the same ops on the same shapes: a counted
+        # window counts its first tick K times over
+        tick = graph_analysis.loop(self.ticks_per_sync)
         for _ in range(self.ticks_per_sync):
-            safe_pos = pos.clamp(0, self.max_len - 1)
-            logits, new = self.model.decode_step(
-                self.params, self.cache, {"tokens": last[:, None]},
-                safe_pos, attn_impl=self.attn_impl, **self._decode_kwargs())
-            if self._guarded:
-                # guarded banks advance on every row: freeze the inactive
-                # ones under the PRE-update mask, so a row finishing this
-                # tick keeps this tick's state (kv banks need no merge)
-                new = {n: (_where_rows(active, t, self.cache[n],
-                                       self._banks[n].batch_axis)
-                           if n in self._guarded else t)
-                       for n, t in new.items()}
-            self.cache = new
-            lg = logits[:, -1]
-            oks.append(torch.isfinite(lg).all(dim=-1))
-            tok = self._sample(lg, temps)
-            fin = (remaining - 1 <= 0) | (pos + 1 >= self.max_len)
-            if self.eos_id is not None:
-                fin = fin | (tok == self.eos_id)
-            fin = active & fin
-            toks.append(torch.where(active, tok, -1))
-            fins.append(fin)
-            last = torch.where(active, tok, last)
-            pos = torch.where(active, pos + 1, pos)
-            remaining = torch.where(active, remaining - 1, remaining)
-            active = active & ~fin
+            with tick():
+                safe_pos = pos.clamp(0, self.max_len - 1)
+                logits, new = self.model.decode_step(
+                    self.params, self.cache, {"tokens": last[:, None]},
+                    safe_pos, attn_impl=self.attn_impl,
+                    **self._decode_kwargs())
+                if self._guarded:
+                    # guarded banks advance on every row: freeze the
+                    # inactive ones under the PRE-update mask, so a row
+                    # finishing this tick keeps this tick's state (kv banks
+                    # need no merge)
+                    new = {n: (_where_rows(active, t, self.cache[n],
+                                           self._banks[n].batch_axis)
+                               if n in self._guarded else t)
+                           for n, t in new.items()}
+                self.cache = new
+                lg = logits[:, -1]
+                oks.append(torch.isfinite(lg).all(dim=-1))
+                tok = self._sample(lg, temps)
+                fin = (remaining - 1 <= 0) | (pos + 1 >= self.max_len)
+                if self.eos_id is not None:
+                    fin = fin | (tok == self.eos_id)
+                fin = active & fin
+                toks.append(torch.where(active, tok, -1))
+                fins.append(fin)
+                last = torch.where(active, tok, last)
+                pos = torch.where(active, pos + 1, pos)
+                remaining = torch.where(active, remaining - 1, remaining)
+                active = active & ~fin
         self._state = {"last": last, "pos": pos, "active": active,
                        "remaining": remaining, "temps": temps}
         return torch.stack([torch.stack(toks).to(torch.int32),
@@ -366,15 +424,16 @@ class Engine:
         dev = self.device
         rows = torch.tensor([s for s, _ in pairs], device=dev)
         lens_t = torch.from_numpy(lens).to(dev)
-        logits, fresh = self.model.prefill(
-            self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
-            logits_at=(lens_t - 1).clamp(0, P - 1))
-        valid = (torch.arange(P, device=dev)[None, :] < lens_t[:, None])
-        for name in self.cache:
-            self._scatter_bank(name, fresh[name], rows, valid)
-        del fresh
-        self._land(pairs, self._start_rows(pairs, rows, logits[:, 0],
-                                           lens_t))
+        with self._prefill_call(P):
+            logits, fresh = self.model.prefill(
+                self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
+                logits_at=(lens_t - 1).clamp(0, P - 1))
+            valid = (torch.arange(P, device=dev)[None, :] < lens_t[:, None])
+            for name in self.cache:
+                self._scatter_bank(name, fresh[name], rows, valid)
+            del fresh
+            first = self._start_rows(pairs, rows, logits[:, 0], lens_t)
+        self._land(pairs, first.cpu())
         return take
 
     def _prefill_scan(self, pairs) -> int:
@@ -387,7 +446,7 @@ class Engine:
         per-token loop leaves.  The rows go back into their slots at the
         end; no other slot's rows are read or written.  Runs ``max(len)``
         steps (the JAX engine runs to the power-of-two pad, whose extra
-        steps merge nothing)."""
+        steps merge nothing; the traffic is keyed by that pad)."""
         dev = self.device
         n = len(pairs)
         lens = [len(r.prompt) for _, r in pairs]
@@ -398,33 +457,39 @@ class Engine:
         tok = torch.from_numpy(tokens).to(dev)
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
         rows = torch.tensor([s for s, _ in pairs], device=dev)
-        sub = self.model.init_cache(n, self.max_len)
-        last_lg = torch.zeros((n, self.model.cfg.vocab_size),
-                              dtype=torch.float32, device=dev)
-        for t in range(L):
-            pos = torch.full((n,), t, dtype=torch.int32, device=dev)
-            logits, new = self.model.decode_step(
-                self.params, sub, {"tokens": tok[:, t:t + 1]}, pos,
-                attn_impl=self.attn_impl)
-            live = t < lens_t
-            sub = {k: _where_rows(live, new[k], sub[k],
-                                  self._banks[k].batch_axis) for k in sub}
-            last_lg = torch.where((lens_t - 1 == t)[:, None],
-                                  logits[:, -1].float(), last_lg)
+        with self._prefill_call(min(self.max_len, _next_pow2(L))):
+            sub = self.model.init_cache(n, self.max_len)
+            last_lg = torch.zeros((n, self.model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+            step = graph_analysis.loop(L)    # counted by its first step
+            for t in range(L):
+                with step():
+                    pos = torch.full((n,), t, dtype=torch.int32, device=dev)
+                    logits, new = self.model.decode_step(
+                        self.params, sub, {"tokens": tok[:, t:t + 1]}, pos,
+                        attn_impl=self.attn_impl)
+                    live = t < lens_t
+                    sub = {k: _where_rows(live, new[k], sub[k],
+                                          self._banks[k].batch_axis)
+                           for k in sub}
+                    last_lg = torch.where((lens_t - 1 == t)[:, None],
+                                          logits[:, -1].float(), last_lg)
+            for k, t in sub.items():
+                self.cache[k].index_copy_(self._banks[k].batch_axis, rows,
+                                          t)
+            del sub
+            first = self._start_rows(pairs, rows, last_lg, lens_t)
         self.counts["prefill_steps"] += L
-        for k, t in sub.items():
-            self.cache[k].index_copy_(self._banks[k].batch_axis, rows, t)
-        del sub
-        self._land(pairs, self._start_rows(pairs, rows, last_lg, lens_t))
+        self._land(pairs, first.cpu())
         return n
 
     def _start_rows(self, pairs, rows: torch.Tensor, last_lg: torch.Tensor,
                     lens_t: torch.Tensor) -> torch.Tensor:
         """Sample each admitted row's first token from the logits of its
         last prompt position (``last_lg`` (n, V), rows in ``pairs`` order),
-        then write the admitted slots ``rows`` of the slot state.  ONE
-        host sync; returns host (3, n) int32: first tokens, done-at-prefill
-        flags, finite-logit flags."""
+        then write the admitted slots ``rows`` of the slot state.  Returns
+        (3, n) int32 on the device: first tokens, done-at-prefill flags,
+        finite-logit flags (the caller's one host sync brings it back)."""
         dev = self.device
         max_new = torch.tensor([r.max_new_tokens for _, r in pairs],
                                dtype=torch.int32, device=dev)
@@ -443,7 +508,7 @@ class Engine:
         st["temps"][rows] = temps
         self.counts["prefill_calls"] += 1
         return torch.stack([t0.to(torch.int32), done0.to(torch.int32),
-                            ok0.to(torch.int32)]).cpu()
+                            ok0.to(torch.int32)])
 
     def _land(self, pairs, host: torch.Tensor) -> None:
         """Seat the admitted requests and record their first tokens; a row
@@ -504,6 +569,49 @@ class Engine:
         """Run to completion within a K-granular tick budget; returns the
         number of unfinished requests (0 when everything completed)."""
         return _drain_until_done(self, max_ticks)
+
+    # ---- serve-mode NVM verdicts ---------------------------------------
+    def serve_records(self, mesh: Optional[str] = None) -> List[dict]:
+        """Dry-run-shaped records of the engine's counted traffic: one
+        record per serve phase with PER-TICK (decode) / PER-CALL (prefill)
+        roofline terms, consumable by ``core.crosslayer.analyze_serve``
+        (the record keys and shape names of the JAX engine's)."""
+        mesh = mesh or "1dev"
+        arch = self.model.cfg.arch
+        fam = self.model.cfg.family
+
+        # recurrent banks are rewritten in full every tick, where KV decode
+        # appends one row and reads the rest: ssm/hybrid records carry
+        # their own read/write split
+        extra: dict = {"family": fam}
+        if fam in ("ssm", "hybrid"):
+            extra["read_fraction"] = RECURRENT_READ_FRACTION
+
+        recs = []
+        stats = self._traffic["decode"]
+        if stats is not None and self.counts["decode_ticks"]:
+            recs.append({
+                "arch": arch, "mesh": mesh, "kind": "decode",
+                "shape": f"serve_{fam}_decode_b{self.slots}_l{self.max_len}",
+                "attn_impl": self.attn_impl,
+                "ticks": self.counts["decode_ticks"],
+                "roofline": Roofline.from_stats(stats).terms(
+                    self.ticks_per_sync), **extra})
+        for P, stats in sorted(self._traffic["prefill"].items()):
+            calls = self.counts["prefill_calls_by_len"].get(P, 0)
+            if not calls:
+                continue
+            recs.append({
+                "arch": arch, "mesh": mesh, "kind": "prefill",
+                "shape": f"serve_{fam}_prefill_p{P}_b{self.slots}",
+                "calls": calls,
+                "roofline": Roofline.from_stats(stats).terms(), **extra})
+        return recs
+
+    def nvm_verdicts(self, tier_mb: Optional[float] = None):
+        """SRAM/STT/SOT tier verdicts on the engine's counted traffic."""
+        kw = {} if tier_mb is None else {"tier_mb": tier_mb}
+        return analyze_serve(self.serve_records(), device=self.device, **kw)
 
 
 class PagedEngine(Engine):
@@ -584,6 +692,8 @@ class PagedEngine(Engine):
                       "prompt_tokens": 0, "cow_copies": 0, "deferred": 0,
                       "evicted_pages": 0, "inserted_nodes": 0}
         self._last_shortage = (0, 0)   # (pages wanted, pages free)
+        self._upf_sum = 0.0
+        self._upf_windows = 0
 
     def paged_stats(self) -> dict:
         """Counters and pool gauges for launch printouts and the smoke."""
@@ -608,6 +718,20 @@ class PagedEngine(Engine):
     def _pre_window(self) -> None:
         if self._pt_dirty:
             self._upload_page_table()
+        if not self.record_traffic:
+            return
+        # unique-page fraction of this window's decode reads: row b at
+        # position p reads its first ceil((p+1)/ps) mapped pages
+        mapped: List[int] = []
+        for s, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            pos = len(r.prompt) + len(r.output) - 1
+            n = pages_for(min(pos + 1, self.max_len), self.page_size)
+            mapped.extend(self._pt_host[s, :n].tolist())
+        if mapped:
+            self._upf_sum += len(set(mapped)) / len(mapped)
+            self._upf_windows += 1
 
     def _release_slot(self, s: int) -> None:
         super()._release_slot(s)
@@ -707,10 +831,14 @@ class PagedEngine(Engine):
             self._pt_host[s, :p["total"]] = p["pages"]   # the rest: TRASH
         self._upload_page_table()
         rows = torch.tensor([s for s, _ in pairs], device=dev)
-        last_lg = self._prefill_prog(rows, plans)
-        lens_t = torch.tensor([p["L"] for p in plans], dtype=torch.int32,
-                              device=dev)
-        host = self._start_rows(pairs, rows, last_lg, lens_t)
+        S = min(self.max_len,
+                _next_pow2(max(p["L"] - p["matched"] for p in plans)))
+        with self._prefill_call(S):
+            last_lg = self._prefill_prog(rows, plans, S)
+            lens_t = torch.tensor([p["L"] for p in plans],
+                                  dtype=torch.int32, device=dev)
+            first = self._start_rows(pairs, rows, last_lg, lens_t)
+        host = first.cpu()
         for i, p in enumerate(plans):
             if host[2, i]:
                 # the tree takes its own references on the prompt's pages;
@@ -722,15 +850,30 @@ class PagedEngine(Engine):
         self._land(pairs, host)
         return len(pairs)
 
-    def _prefill_prog(self, rows: torch.Tensor, plans) -> torch.Tensor:
+    # ---- serve-mode NVM verdicts ---------------------------------------
+    def serve_records(self, mesh: Optional[str] = None) -> List[dict]:
+        """Engine records plus the measured ``unique_page_fraction`` on the
+        decode record (the mean over decode windows of the share of
+        physically unique pages among the pages the rows read):
+        ``analyze_serve`` scales KV-bound traffic by it, so the verdicts
+        see prefix sharing's traffic reduction."""
+        recs = super().serve_records(mesh)
+        upf = (self._upf_sum / self._upf_windows
+               if self._upf_windows else 1.0)
+        for rec in recs:
+            if rec["kind"] == "decode":
+                rec["unique_page_fraction"] = upf
+        return recs
+
+    def _prefill_prog(self, rows: torch.Tensor, plans,
+                      S: int) -> torch.Tensor:
         """Batched paged SUFFIX prefill of the admitted slots ``rows``: a
-        decode-mode forward with S tokens per row starting at each row's
-        matched prefix length, on the plain paged path.  Padding positions
-        write to TRASH (``kv_write_mask``), so the shared prefix pages and
-        the rows of other slots keep their bits.  Returns each row's
-        logits at its last suffix token, (n, V) f32."""
-        S = min(self.max_len,
-                _next_pow2(max(p["L"] - p["matched"] for p in plans)))
+        decode-mode forward with ``S`` (the padded longest suffix) tokens
+        per row starting at each row's matched prefix length, on the plain
+        paged path.  Padding positions write to TRASH (``kv_write_mask``),
+        so the shared prefix pages and the rows of other slots keep their
+        bits.  Returns each row's logits at its last suffix token, (n, V)
+        f32."""
         n = len(plans)
         tokens = np.zeros((n, S), np.int32)
         mask = np.zeros((n, S), bool)

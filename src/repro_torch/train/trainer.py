@@ -19,18 +19,25 @@ it IN PLACE (parameters, optimizer state and step) and return it: at full
 width a second copy would not fit on the card.  Copy a state before a step
 to keep it.
 
+Traffic records: with ``record_traffic=True`` (the default) the first
+window runs under ``launch/graph_analysis.py``'s ``OpCounter``;
+``train_records`` gives its per-step roofline terms and ``nvm_verdicts``
+scores them with ``core/crosslayer.py``'s SRAM/STT/SOT tier model.
+
 Not ported yet: EF-int8 gradient compression (``compress_grads=True``
-raises), and the window's traffic records and NVM verdicts
-(``train_records`` / ``nvm_verdicts``), which need the roofline walker and
-``core/crosslayer.py``.
+raises).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.crosslayer import analyze_train
 from repro_torch.data.pipeline import DataConfig, device_batch_at
+from repro_torch.launch.graph_analysis import OpCounter
+from repro_torch.launch.roofline import Roofline
 from repro_torch.models.api import Model
 from repro_torch.models.common import Params
 from repro_torch.optim.adamw import AdamW
@@ -126,11 +133,14 @@ class TrainWindow:
     each on the batch ``device_batch_at(data_cfg, state["step"])`` made on
     the card, with no host sync.  ``__call__`` returns the state (updated
     in place) and the stacked (K,) ``loss``, ``grad_norm`` and ``lr`` as
-    device tensors; reading them is the window's one host sync."""
+    device tensors; reading them is the window's one host sync.
+    ``record_traffic`` counts the first window for ``train_records`` /
+    ``nvm_verdicts``; the trajectory is the same either way."""
 
     def __init__(self, model: Model, opt: AdamW, data_cfg: DataConfig, *,
                  steps_per_sync: int, microbatches: int = 1,
-                 compress_grads: bool = False, attn_impl: str = "kernel"):
+                 compress_grads: bool = False, attn_impl: str = "kernel",
+                 record_traffic: bool = True):
         if steps_per_sync < 1:
             raise ValueError("steps_per_sync must be >= 1")
         _refuse_compression(compress_grads)
@@ -142,21 +152,52 @@ class TrainWindow:
         self.opt = opt
         self.data_cfg = data_cfg
         self.steps_per_sync = int(steps_per_sync)
+        self.record_traffic = bool(record_traffic)
         self.windows_run = 0
+        self._traffic = None      # OpStats of the first window
         self._step_fn = make_train_step(model, opt,
                                         microbatches=microbatches,
                                         attn_impl=attn_impl)
 
     def __call__(self, state: TrainState
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        rows = {"loss": [], "grad_norm": [], "lr": []}
-        for _ in range(self.steps_per_sync):
-            batch = device_batch_at(self.data_cfg, state["step"])
-            state, metrics = self._step_fn(state, batch)
-            for name, col in rows.items():
-                col.append(metrics[name])
+        counting = self.record_traffic and self._traffic is None
+        counter = OpCounter() if counting else contextlib.nullcontext()
+        with counter:
+            rows = {"loss": [], "grad_norm": [], "lr": []}
+            for _ in range(self.steps_per_sync):
+                batch = device_batch_at(self.data_cfg, state["step"])
+                state, metrics = self._step_fn(state, batch)
+                for name, col in rows.items():
+                    col.append(metrics[name])
+            out = {name: torch.stack(col) for name, col in rows.items()}
+        if counting:
+            self._traffic = counter.stats
         self.windows_run += 1
-        return state, {name: torch.stack(col) for name, col in rows.items()}
+        return state, out
+
+    # ---- train-mode NVM verdicts ---------------------------------------
+    def train_records(self, mesh: Optional[str] = None) -> List[dict]:
+        """Dry-run-shaped records of the window's counted traffic: one
+        record with PER-STEP roofline terms of the K-step window,
+        consumable by ``core.crosslayer.analyze_train`` (the record keys
+        and shape name of the JAX window's)."""
+        if self._traffic is None or not self.windows_run:
+            return []
+        K = self.steps_per_sync
+        cfg = self.data_cfg
+        return [{
+            "arch": self.model.cfg.arch, "mesh": mesh or "1dev",
+            "kind": "train",
+            "shape": f"train_window_b{cfg.host_batch}_s{cfg.seq_len}_k{K}",
+            "steps": self.windows_run * K,
+            "roofline": Roofline.from_stats(self._traffic).terms(K)}]
+
+    def nvm_verdicts(self, tier_mb: Optional[float] = None):
+        """SRAM/STT/SOT tier verdicts on the window's counted traffic."""
+        kw = {} if tier_mb is None else {"tier_mb": tier_mb}
+        return analyze_train(self.train_records(),
+                             device=self.model.device, **kw)
 
 
 def make_train_window(model: Model, opt: AdamW, *, steps_per_sync: int,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, a train step on the
-flash kernel against the plain path, and the paged
+flash kernel against the plain path, the paged
 engine and the recurrent families' engine on their kernels against
-``EngineReference``, on the card.
+``EngineReference``, and the traffic count of an engine and a train window
+against the CPU's, on the card.
 
 Marked ``cuda``; each test skips with a reason where no CUDA device is
 present (the fixture decides, at run time).  On the card:
@@ -768,3 +769,55 @@ def test_train_step_kernel_matches_plain(dev):
         torch.testing.assert_close(metrics["kernel"][key],
                                    metrics["plain"][key], atol=1e-5,
                                    rtol=1e-5)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def test_traffic_count_on_card_equals_cpu(dev):
+    """The traffic records of a reduced llama3-8b ``Engine`` (f32, 3 slots
+    x 32, its decode window and every prefill length) and of a reduced
+    ``TrainWindow`` (remat full) on the card equal the CPU's, record for
+    record and op for op: the kernel boundary counts what the plain
+    versions' does, and the backward that autograd runs on a worker
+    thread on the card, with its remat recompute, is counted."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.serve import (Engine, mixed_requests, run_staggered,
+                                   staggered_groups)
+    from repro_torch.train.trainer import init_state, make_train_window
+    cfg = reduced(get_config("llama3-8b"), dtype="float32")
+    params = build_model(cfg, max_seq=32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    stats, recs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        eng = Engine(build_model(cfg, max_seq=32, device=d), _to(params, d),
+                     slots=3, max_len=32, ticks_per_sync=4, device=d)
+        reqs = mixed_requests(6, seed=1, vocab=cfg.vocab_size,
+                              prompt_lens=(2, 12), max_new=(2, 6))
+        run_staggered(eng, staggered_groups(reqs, 3))
+        tr = eng._traffic
+        stats[d.type] = [tr["decode"]] + [tr["prefill"][P]
+                                          for P in sorted(tr["prefill"])]
+        recs[d.type] = eng.serve_records()
+    assert stats["cuda"] == stats["cpu"]
+    assert recs["cuda"] == recs["cpu"] and len(recs["cpu"]) >= 2
+    tcfg = reduced(get_config("llama3-8b"), remat="full")
+    opt = AdamW(lr=constant(1e-3))
+    state = init_state(build_model(tcfg, max_seq=32, device="cpu"), opt,
+                       torch.Generator().manual_seed(0))
+    train = {}
+    for d in (dev, torch.device("cpu")):
+        win = make_train_window(build_model(tcfg, max_seq=32, device=d),
+                                opt, steps_per_sync=2,
+                                data_cfg=DataConfig(tcfg.vocab_size, 32, 2))
+        win(_to(state, d))
+        train[d.type] = (win._traffic, win.train_records())
+    assert train["cuda"] == train["cpu"]
+    assert train["cpu"][0].kernel_calls == {
+        "flash_attention": 2 * 2 * tcfg.num_layers}
