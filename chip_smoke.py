@@ -6,14 +6,16 @@
 
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
-``cachesim``, ``recurrent``, ``serve``), of this checkout or of the
+``cachesim``, ``recurrent``, ``serve``, ``resilience``), of this checkout
+or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
 lists), to time two versions on one card in one call: parent, change,
 change, parent.  A phase that DIR's smoke lacks runs from this file on
 DIR's kernels (``cachesim`` times both LRU ops through their public calls
 at slice C's shapes; ``recurrent`` runs slice F's and G's ``Model.prefill``
 on 4 x 2048 tokens and a traced slice G decode window; ``serve`` times
-slice F's and G's serving runs, with the traffic recorded and without).
+slice F's and G's serving runs, with the traffic recorded and without;
+``resilience`` runs phase 4c and its parity at slice B's model alone).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -66,9 +68,11 @@ result line:
      mismatching counts; the time of one dependent update, from one set of
      65,536 accesses without a repeat;
   3b. the launchers with their defaults: ``launch.serve`` (reduced
-     llama3-8b, head_dim 16, through the decode kernel and the sampler)
-     and ``launch.train --reduced`` (head_dim 16, through the flash
-     kernel), launch counts reset before and read after each;
+     llama3-8b, head_dim 16, through the decode kernel and the sampler),
+     ``launch.serve --arrival-rate 0.5 --deadline-ticks 64
+     --max-queue-depth 4 --trace-out`` (its chrome trace validated) and
+     ``launch.train --reduced`` (head_dim 16, through the flash kernel),
+     launch counts reset before and read after each;
   4. slice A: ``Engine`` serving 16 mixed requests with llama3-8b at full
      width and depth (bf16, random weights from a seeded generator),
      checking that no decode window syncs with the host, every request
@@ -82,6 +86,29 @@ result line:
      paged kernel launch per layer and tick; a traced paged decode
      window; the same requests through slice A's dense ``Engine`` beside
      it;
+  4c. slice R, the serve robustness layer on slice A's weights: ``Engine``
+     (8 slots x 1024, K=8) under ``run_arrivals`` of 24 Poisson requests
+     (rate 0.5 a tick, burst 0.5 over 64 ticks, prompts 16-300, 16-64 new
+     tokens, deadlines 256 ticks past arrival), a queue cap of 12 and a
+     ``FaultPlan`` of a NaN logits row, a corrupt KV row and three launch
+     stalls in a row (the watchdog degrades); then ``PagedEngine`` (page
+     8) on slice D's 16 shared-prefix requests in a pool of 2 nb + 2
+     pages, with every free page stolen for two admission rounds, a storm
+     of 8 page copies, NaN in a slot's first page (a template page the
+     tree shares) and one preemption mid-decode.  Each run: every
+     request DONE (the faults are retried within the budget; at this
+     rate the queue cap and deadlines never bind), every planned fault
+     fired, quarantined == retried + failed and the counters equal the
+     requests' own, no host sync inside any window (each runs under the
+     sync-error mode), one
+     attention launch per layer and tick (degraded windows included) and
+     one sampler launch per tick and prefill, a chrome trace saved and
+     validated; the paged pool conserved with the plan's stolen pages and
+     every page free once they return and the tree is cleared; the
+     phase's wall; between the two, a pressure run: ``Engine`` on 24
+     Poisson arrivals at 2 a tick with deadlines 14 ticks past arrival
+     and a queue cap of 8 ends 7 DONE, 8 SHED and 9 TIMED_OUT (4 in the
+     queue, 5 mid-decode), with the matching reasons and counters;
   5. slice B: llama3-8b at full width, 4 layers, f32: the kernel ``Engine``
      against ``EngineReference`` (plain attention and sampling) on 8
      requests, greedy outputs equal token for token;
@@ -89,7 +116,13 @@ result line:
      against ``EngineReference``, greedy, token for token: the
      shared-prefix workload at max_len 256 in the default pool and in a
      pool of 2 nb + 2 pages (admission defers), and distinct prompts in a
-     pool of 2 nb pages (tree leaves evicted);
+     pool of 2 nb pages (tree leaves evicted); then slice R's two faulted
+     runs at this model (the dense one at max_len 512, the paged one on
+     slice E's tight-pool workload at max_len 256): every request ends
+     DONE and, the retried and the preempted ones included, equals an
+     unfaulted ``EngineReference`` run token for token; the pressure run
+     at max_len 512: each DONE request equals that run and each one cut
+     mid-decode is a prefix of it;
   5c. slices F and G: mamba2-1.3b and recurrentgemma-2b at full width and
      depth (bf16, weights from a seeded generator) serving slice A's 16
      requests through ``Engine`` (masked per-token prefill scan, guarded
@@ -1245,7 +1278,9 @@ def phase_launchers(tmp: Path) -> None:
     the sampler; it exits non-zero unless every request ends DONE) and
     ``launch.train --reduced`` (the JAX launcher's smoke config: 4 layers,
     d_model 128, head_dim 16; 50 steps in windows of 10 through the flash
-    kernel, 4 launches a step)."""
+    kernel, 4 launches a step); between them ``launch.serve`` on Poisson
+    arrivals with deadlines, a queue cap and a chrome trace, which it
+    writes and this phase validates."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
@@ -1258,6 +1293,21 @@ def phase_launchers(tmp: Path) -> None:
           f"launch.serve: decode or sampler kernel not launched: {launches}")
     print(f"launchers: launch.serve with its defaults in "
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trace = tmp / "serve_trace.json"
+    launch_serve.main(["--arrival-rate", "0.5", "--deadline-ticks", "64",
+                       "--max-queue-depth", "4", "--trace-out", str(trace)])
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    check(launches["decode_attention"] > 0 and launches["fused_sample"] > 0,
+          f"launch.serve --arrival-rate: kernels not launched: {launches}")
+    from repro_torch.serve import validate_chrome_trace
+    validate_chrome_trace(json.loads(trace.read_text()))
+    print(f"launchers: launch.serve --arrival-rate 0.5 --deadline-ticks 64 "
+          f"--max-queue-depth 4 --trace-out in "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}, trace "
+          f"{trace.stat().st_size} bytes")
     ops.reset_launches()
     t0 = time.perf_counter()
     rc = launch_train.main(["--reduced", "--ckpt-dir", str(tmp / "ckpt")])
@@ -1345,7 +1395,7 @@ def phase_slice_a(records: dict):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     check(all(r.state == DONE for r in reqs), "a request did not end DONE")
-    check(eng.counts["nonfinite_rows"] == 0, "non-finite logits")
+    check(eng.resilience_stats()["quarantined"] == 0, "non-finite logits")
     check(all(0 <= tok < cfg.vocab_size for o in outputs.values()
               for tok in o), "token out of the vocabulary")
     ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
@@ -1445,7 +1495,7 @@ def phase_slice_d(model, params, dense, records: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     check(all(r.state == DONE for r in reqs), "a request did not end DONE")
-    check(eng.counts["nonfinite_rows"] == 0, "non-finite logits")
+    check(eng.resilience_stats()["quarantined"] == 0, "non-finite logits")
     eng.pool.check(eng.tree.held_refs())
     st = eng.paged_stats()
     ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
@@ -1479,6 +1529,395 @@ def phase_slice_d(model, params, dense, records: dict) -> dict:
     print(f"slice D: dense Engine on the same 16 requests: "
           f"{_serve_stats(dreqs, dwall)}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 4c
+
+
+def _guard_windows(eng) -> None:
+    """Run every decode window of ``eng`` under the "error" sync-debug
+    mode, so that a host sync inside any window (a faulted, retried or
+    degraded one too) fails the run."""
+    window = eng._window
+
+    def guarded(poison=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return window(poison)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng._window = guarded
+
+
+def _plan_fired(plan, label: str) -> None:
+    want = collections.Counter()
+    for f in plan.faults:
+        want[f.kind] += f.count
+    check(plan.injected == want,
+          f"{label}: injected {dict(plan.injected)}, planned {dict(want)} "
+          f"(site visits {dict(plan.visits)})")
+
+
+def _resilience_consistent(eng, reqs, label: str) -> dict:
+    """Every request terminal exactly once; quarantines == retries + the
+    requests the retry budget failed; the engine's counters match the
+    requests' own."""
+    from repro_torch.serve import DONE, FAILED, SHED, TIMED_OUT
+    check(all(r.terminal for r in reqs), f"{label}: a request not terminal")
+    check(all(r.done == (r.state == DONE) for r in reqs),
+          f"{label}: done flag")
+    rs = eng.resilience_stats()
+    hist = collections.Counter(r.state for r in reqs)
+    check(rs["quarantined"] == rs["retried"] + rs["failed"],
+          f"{label}: quarantined != retried + failed: {rs}")
+    check(rs["failed"] == hist[FAILED] and rs["shed"] == hist[SHED]
+          and rs["timed_out"] == hist[TIMED_OUT],
+          f"{label}: counters {rs} against states {dict(hist)}")
+    check(rs["retried"] + rs["failed"]
+          == sum(r.retries for r in reqs), f"{label}: retries")
+    check(rs["preempted"] == sum(r.preemptions for r in reqs),
+          f"{label}: preemptions")
+    return rs
+
+
+def _all_done(reqs, label: str) -> None:
+    """The states the plans produce: every request DONE.  The faults are
+    retried within the budget, and at 0.5 arrivals a tick on 8 slots the
+    queue cap and the deadlines never bind (the pressure run makes them
+    bind)."""
+    from repro_torch.serve import DONE
+    hist = collections.Counter(r.state for r in reqs)
+    check(hist[DONE] == len(reqs), f"{label}: states {dict(hist)}, want "
+          f"{len(reqs)} DONE")
+
+
+def _launches_exact(eng, launches: dict, kernel: str, label: str) -> None:
+    """One attention launch per layer and tick (degraded windows too) and
+    one sampler launch per tick and prefill: no plain path ran."""
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    other = ("paged_decode_attention" if kernel == "decode_attention"
+             else "decode_attention")
+    check(launches[kernel] == eng.model.cfg.num_layers * ticks,
+          f"{label}: {launches[kernel]} {kernel} launches, want "
+          f"{eng.model.cfg.num_layers} x {ticks} ticks")
+    check(launches["fused_sample"] == ticks + calls,
+          f"{label}: {launches['fused_sample']} fused_sample launches, want "
+          f"{ticks} ticks + {calls} prefill calls")
+    check(launches[other] == 0, f"{label}: {other} ran")
+
+
+def _save_trace(tracer, path: Path) -> str:
+    from repro_torch.serve import validate_chrome_trace
+    trace = tracer.to_chrome_trace()
+    validate_chrome_trace(trace)
+    tracer.save(path)
+    validate_chrome_trace(json.loads(path.read_text()))
+    kinds = collections.Counter(e["name"].split(" ")[0]
+                                for e in trace["traceEvents"])
+    return (f"{len(trace['traceEvents'])} events, {path.stat().st_size} "
+            f"bytes ({', '.join(f'{k} {v}' for k, v in sorted(kinds.items()))})")
+
+
+def _arrival_workload(vocab: int):
+    from repro_torch.serve import poisson_requests
+    return poisson_requests(24, seed=0, vocab=vocab, arrival_rate=0.5,
+                            burst_amp=0.5, burst_period=64,
+                            prompt_bounds=(16, 300), new_bounds=(16, 64),
+                            deadline_ticks=256)
+
+
+def _dense_faults():
+    from repro_torch.serve import Fault, FaultPlan
+    return FaultPlan([Fault("nan_logits", at=1),
+                      Fault("window_stall", at=3, count=3),
+                      Fault("kv_corrupt", at=5)], seed=0)
+
+
+def _run_dense_faults(model, params, max_len: int, tracer=None):
+    """``Engine`` (8 slots x ``max_len``, K=8) on the arrival workload with
+    a queue cap of 12 and one NaN row, one corrupt KV row and three launch
+    stalls in a row (the watchdog degrades)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ShedPolicy, run_arrivals
+    plan = _dense_faults()
+    eng = Engine(model, params, slots=8, max_len=max_len, ticks_per_sync=8,
+                 record_traffic=False, tracer=tracer, fault_plan=plan,
+                 shed_policy=ShedPolicy(max_queue_depth=12))
+    _guard_windows(eng)
+    reqs = _arrival_workload(model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run_arrivals(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, plan, dict(ops.launches), wall
+
+
+# The states the pressure workload ends in on 8 slots with K=8 and a queue
+# cap of 8.  The schedule has no eos, so no token moves it: 4 of the
+# TIMED_OUT requests expire in the queue, 5 mid-decode.
+PRESSURE_STATES = {"DONE": 7, "TIMED_OUT": 9, "SHED": 8}
+PRESSURE_QUEUED_TIMEOUTS = 4
+
+
+def _pressure_workload(vocab: int):
+    from repro_torch.serve import poisson_requests
+    return poisson_requests(24, seed=0, vocab=vocab, arrival_rate=2.0,
+                            burst_amp=0.5, burst_period=64,
+                            prompt_bounds=(16, 300), new_bounds=(16, 64),
+                            deadline_ticks=14)
+
+
+def _run_pressure(model, params, max_len: int, label: str):
+    """``Engine`` (8 slots x ``max_len``, K=8) on a burst of 24 arrivals
+    at 2 a tick with a queue cap of 8 and deadlines 14 ticks past arrival:
+    admission sheds, and requests time out in the queue and mid-decode,
+    in the states ``PRESSURE_STATES``."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (Engine, SHED, ShedPolicy, TIMED_OUT,
+                                   run_arrivals)
+    eng = Engine(model, params, slots=8, max_len=max_len, ticks_per_sync=8,
+                 record_traffic=False,
+                 shed_policy=ShedPolicy(max_queue_depth=8))
+    _guard_windows(eng)
+    reqs = _pressure_workload(model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run_arrivals(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    hist = collections.Counter(r.state for r in reqs)
+    queued = [r for r in reqs if r.state == TIMED_OUT and not r.output]
+    check(dict(hist) == PRESSURE_STATES
+          and len(queued) == PRESSURE_QUEUED_TIMEOUTS,
+          f"{label}: states {dict(hist)} ({len(queued)} timed out queued), "
+          f"want {PRESSURE_STATES} ({PRESSURE_QUEUED_TIMEOUTS})")
+    check(all("queue depth" in r.reason for r in reqs if r.state == SHED)
+          and all(("in queue" in r.reason) == (r in queued)
+                  for r in reqs if r.state == TIMED_OUT),
+          f"{label}: reasons")
+    _resilience_consistent(eng, reqs, label)
+    _launches_exact(eng, launches, "decode_attention", label)
+    return eng, reqs, launches, wall
+
+
+def _paged_faults():
+    from repro_torch.serve import Fault, FaultPlan
+    return FaultPlan([Fault("pool_exhaust", at=1, pages=0, hold=2),
+                      Fault("cow_storm", at=4, pages=8),
+                      Fault("kv_corrupt", at=5)], seed=0)
+
+
+def _run_paged_faults(model, params, reqs, max_len: int, slots: int,
+                      tracer=None):
+    """``PagedEngine`` (page 8) in a pool of 2 nb + 2 pages on shared-prefix
+    requests: every free page stolen for two admission rounds, a storm of
+    page copies, NaN in a slot's first page (a template page the tree and
+    the other sharers hold), and one preemption mid-decode.  Returns the
+    engine, the plan, the launches, the wall and the preempted request."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PagedEngine
+    nb = max_len // 8
+    plan = _paged_faults()
+    eng = PagedEngine(model, params, slots=slots, max_len=max_len,
+                      page_size=8, num_pages=2 * nb + 2, ticks_per_sync=8,
+                      record_traffic=False, tracer=tracer, fault_plan=plan)
+    _guard_windows(eng)
+    shared = []
+    corrupt = plan._do_kv_corrupt
+
+    def kv_corrupt(f, engine):
+        # the victim the plan will draw (its generator rewound after the
+        # draw) and the references on its first page: the tree's and the
+        # other sharers'
+        state = plan.rng.bit_generator.state
+        s = plan._pick_slot(f, engine)
+        plan.rng.bit_generator.state = state
+        shared.append(int(engine.pool.refcount[engine._slot_pages[s][0]]))
+        corrupt(f, engine)
+
+    plan._do_kv_corrupt = kv_corrupt
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    victim = None
+    while victim is None:
+        check(eng.step() > 0, "paged faults: the engine went idle")
+        busy = [s for s, r in enumerate(eng.slot_req)
+                if r is not None and 0 < len(r.output) < r.max_new_tokens]
+        if busy:
+            victim = eng.preempt_slot(busy[0])
+    check(eng.run() == 0, "paged faults: requests left over")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(shared and min(shared) >= 2,
+          f"paged faults: kv_corrupt hit an unshared first page: {shared}")
+    return eng, plan, dict(ops.launches), wall, victim
+
+
+def _pool_at_rest(eng, plan, label: str) -> None:
+    """The pool conserved with the plan's stolen pages, then every page
+    free once they are returned and the tree is cleared."""
+    eng.pool.check(eng.tree.held_refs() + plan.held_refs())
+    plan.release_held()
+    eng.tree.clear()
+    eng.pool.check(collections.Counter())
+    check(eng.pool.free_pages == eng.num_pages, f"{label}: pages leaked")
+
+
+def phase_slice_r(model, params, tmp: Path) -> None:
+    """The serve robustness layer at full width and depth on slice A's
+    weights: the dense ``Engine`` under Poisson arrivals with deadlines, a
+    queue cap and three faults (the watchdog degrading), and the paged
+    engine in a tight pool under a pool steal, a copy storm, a corrupt
+    shared page and a preemption; the checks listed under 4c in the module
+    docstring, and a chrome trace of each run."""
+    from repro_torch.serve import Tracer, latency_summary
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    tracer = Tracer(name="slice R dense")
+    eng, reqs, plan, launches, wall = _run_dense_faults(model, params, 1024,
+                                                        tracer)
+    _plan_fired(plan, "slice R dense")
+    rs = _resilience_consistent(eng, reqs, "slice R dense")
+    _all_done(reqs, "slice R dense")
+    check(rs["quarantined"] >= 2 and rs["degraded"]
+          and rs["window_retries"] == 3 and rs["window_fallbacks"] == 1,
+          f"slice R dense: faults not handled as planned: {rs}")
+    _launches_exact(eng, launches, "decode_attention", "slice R dense")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+          "slice R dense: token out of the vocabulary")
+    lat = latency_summary(reqs)
+    tr = _save_trace(tracer, tmp / "slice_r_dense.json")
+    print(f"slice R: dense Engine, 24 Poisson requests (rate 0.5, burst "
+          f"0.5/64, deadline 256 ticks, queue cap 12): states "
+          f"{lat['states']}, {rs}; {eng.ticks} ticks, "
+          f"{eng.counts['decode_ticks']} decoded, "
+          f"{eng.counts['prefill_calls']} prefills in {wall:.2f} s, "
+          f"{lat['tokens']} tokens; TTFT p50 "
+          f"{lat['ticks']['ttft']['p50']:.1f} ticks / "
+          f"{lat['wall']['ttft_s']['p50'] * 1e3:.1f} ms; launches "
+          f"{launches}; no host sync inside a window; trace {tr}")
+    del eng
+    torch.cuda.empty_cache()
+    eng, reqs, launches, wall = _run_pressure(model, params, 1024,
+                                              "slice R pressure")
+    print(f"slice R: dense Engine, 24 Poisson requests (rate 2, deadline "
+          f"14 ticks, queue cap 8): states {dict(PRESSURE_STATES)} "
+          f"({PRESSURE_QUEUED_TIMEOUTS} timed out queued), "
+          f"{eng.resilience_stats()}; {eng.ticks} ticks, "
+          f"{eng.counts['decode_ticks']} decoded, "
+          f"{eng.counts['prefill_calls']} prefills in {wall:.2f} s; "
+          f"launches {launches}; no host sync inside a window")
+    del eng
+    torch.cuda.empty_cache()
+    tracer = Tracer(name="slice R paged")
+    reqs = _shared_prefix_workload(16, cfg.vocab_size, 1024)
+    eng, plan, launches, wall, victim = _run_paged_faults(
+        model, params, reqs, 1024, 8, tracer)
+    _plan_fired(plan, "slice R paged")
+    rs = _resilience_consistent(eng, reqs, "slice R paged")
+    _all_done(reqs, "slice R paged")
+    st = eng.paged_stats()
+    check(rs["quarantined"] >= 1 and rs["preempted"] == 1
+          and st["tree_flushes"] >= 1 and st["deferred"] > 0,
+          f"slice R paged: faults not handled as planned: {rs} {st}")
+    check(victim.state != "FAILED" and victim.preemptions == 1,
+          "slice R paged: the preempted request")
+    _launches_exact(eng, launches, "paged_decode_attention",
+                    "slice R paged")
+    _pool_at_rest(eng, plan, "slice R paged")
+    tr = _save_trace(tracer, tmp / "slice_r_paged.json")
+    hist = collections.Counter(r.state for r in reqs)
+    print(f"slice R: PagedEngine, 16 shared-prefix requests in a pool of "
+          f"{eng.num_pages} pages: states {dict(hist)}, {rs}; "
+          f"{eng.counts['decode_ticks']} ticks, "
+          f"{eng.counts['prefill_calls']} prefills in {wall:.2f} s; "
+          f"deferred {st['deferred']}, CoW copies {st['cow_copies']}, "
+          f"tree flushes {st['tree_flushes']}, evicted "
+          f"{st['evicted_pages']}; launches {launches}; pool conserved, "
+          f"every page free at rest; no host sync inside a window; trace "
+          f"{tr}")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"slice R: full width wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_slice_r_parity(model, params, want_shared) -> None:
+    """Resume parity at slice B's model (4 layers, f32, TF32 off): the two
+    faulted runs of slice R, quarantines and the preemption included, end
+    every request DONE with the greedy output of an unfaulted
+    ``EngineReference`` run; in the pressure run every DONE request
+    equals it and every one cut mid-decode is a prefix of it.
+    ``want_shared`` is slice E's reference on the shared-prefix workload
+    at max_len 256."""
+    from repro_torch.serve import (DONE, EngineReference, TIMED_OUT,
+                                   run_staggered, staggered_groups)
+    t_phase = time.perf_counter()
+
+    def held(reqs, want, label):
+        done = 0
+        for r in reqs:
+            if r.state == DONE:
+                done += 1
+                check(r.output == want[r.uid],
+                      f"{label} request {r.uid}: {r.output} != reference "
+                      f"{want[r.uid]}")
+            else:
+                check(r.output == want[r.uid][:len(r.output)],
+                      f"{label} request {r.uid}: not a prefix")
+        return done
+
+    ref = EngineReference(model, params, slots=8, max_len=512)
+    clean = _arrival_workload(model.cfg.vocab_size)
+    for r in clean:
+        r.deadline = None
+    want = run_staggered(ref, [clean])
+    del ref
+    eng, reqs, plan, launches, _ = _run_dense_faults(model, params, 512)
+    _plan_fired(plan, "slice R parity dense")
+    rs = _resilience_consistent(eng, reqs, "slice R parity dense")
+    _all_done(reqs, "slice R parity dense")
+    _launches_exact(eng, launches, "decode_attention",
+                    "slice R parity dense")
+    n_dense = held(reqs, want, "slice R parity dense")
+    retried = sum(1 for r in reqs if r.retries and r.state == DONE)
+    check(retried > 0, "slice R parity dense: no retried request ended DONE")
+    del eng
+    clean = _pressure_workload(model.cfg.vocab_size)
+    for r in clean:
+        r.deadline = None
+    ref = EngineReference(model, params, slots=8, max_len=512)
+    want = run_staggered(ref, [clean])
+    del ref
+    eng, reqs, _, _ = _run_pressure(model, params, 512,
+                                    "slice R parity pressure")
+    n_cut = sum(1 for r in reqs if r.state == TIMED_OUT and r.output)
+    n_press = held(reqs, want, "slice R parity pressure")
+    del eng
+    reqs = _shared_prefix_workload(8, model.cfg.vocab_size, 256)
+    eng, plan, launches, _, victim = _run_paged_faults(model, params, reqs,
+                                                       256, 4)
+    _plan_fired(plan, "slice R parity paged")
+    rs_p = _resilience_consistent(eng, reqs, "slice R parity paged")
+    _all_done(reqs, "slice R parity paged")
+    _launches_exact(eng, launches, "paged_decode_attention",
+                    "slice R parity paged")
+    n_paged = held(reqs, want_shared, "slice R parity paged")
+    check(victim.state == DONE, "slice R parity paged: preempted request")
+    _pool_at_rest(eng, plan, "slice R parity paged")
+    print(f"slice R: parity at 4 layers, f32: dense {n_dense}/24 DONE equal "
+          f"EngineReference token for token ({retried} of them retried; "
+          f"{rs}), pressure {n_press}/24 DONE equal it and {n_cut} cut "
+          f"mid-decode a prefix of it, paged {n_paged}/8 DONE equal it "
+          f"(the preempted one "
+          f"included; {rs_p}) in {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1523,11 +1962,12 @@ def phase_slice_b():
 # ---------------------------------------------------------------- phase 5b
 
 
-def phase_slice_e(model, params) -> None:
+def phase_slice_e(model, params) -> dict:
     """Paged parity on the card at slice B's model: PagedEngine on the
     paged kernel equals EngineReference, greedy, on the shared-prefix
     workload (default and tight pool) and on distinct prompts in a pool
-    small enough to evict."""
+    small enough to evict.  Returns the reference's outputs on the
+    shared-prefix workload (slice R's parity reuses them)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (EngineReference, PagedEngine,
                                    mixed_requests, run_staggered,
@@ -1570,6 +2010,7 @@ def phase_slice_e(model, params) -> None:
               f"{len(got)} requests, {sum(map(len, got.values()))} greedy "
               f"tokens; {what} {st[what]}, prefix tokens "
               f"{st['prefix_tokens']}, pages_hwm {st['pages_hwm']}")
+    return want
 
 
 # ---------------------------------------------------------------- phase 5c
@@ -1617,7 +2058,8 @@ def _serve_recurrent(label: str, model, params, n_rec: int,
     launches = dict(ops.launches)
     check(all(r.state == DONE for r in reqs), f"{label}: a request did "
           "not end DONE")
-    check(eng.counts["nonfinite_rows"] == 0, f"{label}: non-finite logits")
+    check(eng.resilience_stats()["quarantined"] == 0,
+          f"{label}: non-finite logits")
     check(all(0 <= tok < cfg.vocab_size for o in outputs.values()
               for tok in o), f"{label}: token out of the vocabulary")
     ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
@@ -2546,6 +2988,35 @@ def phase_traffic_card_vs_cpu() -> None:
           f"kernel calls {train['cpu'][0].kernel_calls}")
 
 
+def phase_resilience_alone(flush) -> list:
+    """Slice R alone (``--only resilience``): slice A's model and weights,
+    then slice B's with slice E's shared-prefix reference, as the full
+    smoke runs them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (EngineReference, run_staggered,
+                                   staggered_groups)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = build_model(get_config("llama3-8b"), max_seq=1024)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice_r(model, params, Path(tmp))
+    del model, params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4,
+                              dtype="float32")
+    model = build_model(cfg, max_seq=512)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    ref = EngineReference(model, params, slots=4, max_len=256)
+    want = run_staggered(ref, staggered_groups(
+        _shared_prefix_workload(8, cfg.vocab_size, 256), 4))
+    phase_slice_r_parity(model, params, want)
+    print(f"slice R alone: {time.perf_counter() - t0:.1f} s with both "
+          f"models' weights")
+    return []
+
+
 KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "sampling": "phase_sampling",
                  "paged": "phase_paged_attention",
@@ -2553,7 +3024,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "flash": "phase_flash_attention",
                  "cachesim": "phase_cachesim",
                  "recurrent": "phase_recurrent_walls",
-                 "serve": "phase_recurrent_serve"}
+                 "serve": "phase_recurrent_serve",
+                 "resilience": "phase_resilience_alone"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -2625,15 +3097,21 @@ def main() -> None:
     launches, model, params, dense = phase_slice_a(records)
     torch.cuda.empty_cache()
     launches_d = phase_slice_d(model, params, dense, records)
-    del model, params, dense
+    del dense
     torch.cuda.empty_cache()
     stamp("slices A, D")
-    model, params = phase_slice_b()
-    torch.cuda.empty_cache()
-    phase_slice_e(model, params)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice_r(model, params, Path(tmp))
     del model, params
     torch.cuda.empty_cache()
-    stamp("slices B, E")
+    stamp("slice R")
+    model, params = phase_slice_b()
+    torch.cuda.empty_cache()
+    want_shared = phase_slice_e(model, params)
+    phase_slice_r_parity(model, params, want_shared)
+    del model, params
+    torch.cuda.empty_cache()
+    stamp("slices B, E, R parity")
     launches_f = phase_slice_f(records)
     torch.cuda.empty_cache()
     stamp("slice F")

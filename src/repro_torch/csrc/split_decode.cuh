@@ -389,18 +389,23 @@ __device__ __forceinline__ void split_decode(
     cl[i] = cluster.map_shared_rank(l_run, rank)[g];
   }
   __syncthreads();
+  // Only the empty partial (l == 0) is left out.  A NaN key or value makes
+  // its chunk's l or acc NaN, and the tests below are written so that the
+  // NaN reaches the output, as it does through the plain version: a
+  // corrupt cache row must surface as a non-finite output (the serve
+  // engines' health check reads it), not vanish from the sum.
   for (int g = tid; g < G; g += kThreads) {
     float mx = -INFINITY;
     for (int rank = 0; rank < S; ++rank)
-      if (cl[rank * G + g] > 0.f) mx = fmaxf(mx, cm[rank * G + g]);
+      if (cl[rank * G + g] != 0.f) mx = fmaxf(mx, cm[rank * G + g]);
     float total = 0.f;
     for (int rank = 0; rank < S; ++rank) {
       const int j = rank * G + g;
-      const float w = cl[j] > 0.f ? expf(cm[j] - mx) : 0.f;  // empty: 0
+      const float w = cl[j] != 0.f ? expf(cm[j] - mx) : 0.f;  // empty: 0
       cm[j] = w;
       total += w * cl[j];
     }
-    tot[g] = fmaxf(total, 1e-37f);
+    tot[g] = total != total ? total : fmaxf(total, 1e-37f);
   }
   __syncthreads();
   const int per = (G * HD + S - 1) / S;
@@ -410,7 +415,7 @@ __device__ __forceinline__ void split_decode(
     float a = 0.f;
     for (int rank = 0; rank < S; ++rank) {
       const float w = cm[rank * G + g];
-      if (w > 0.f) a = fmaf(w, cluster.map_shared_rank(acc, rank)[i], a);
+      if (w != 0.f) a = fmaf(w, cluster.map_shared_rank(acc, rank)[i], a);
     }
     og[i] = from_f32<T>(a / tot[g]);
   }

@@ -10,12 +10,29 @@
         --no-reduced --slots 8 --max-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --no-reduced --slots 8 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 0.5 \
+        --burst-amp 0.6 --deadline-ticks 64 --max-queue-depth 4 \
+        --trace-out /tmp/serve.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --list-configs
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are
 random, drawn from a ``torch.Generator`` seeded by ``--seed``.  Serves
-``--requests`` mixed requests in staggered groups of ``--slots``, prints
-tokens/s and TTFT/TPOT percentiles, and exits non-zero unless every
-request ended DONE.  ``--paged`` serves through ``PagedEngine`` (a shared
+``--requests`` mixed requests in staggered groups of ``--slots`` and
+prints tokens/s and TTFT/TPOT percentiles.  ``--arrival-rate > 0``
+serves generated traffic instead: Poisson arrivals in the tick domain
+(burst-modulated by ``--burst-amp`` / ``--burst-period``), lognormal
+prompt and output lengths, each request submitted at its arrival tick;
+the run fails if its latency percentiles are empty or, without admission
+control, a request was not served.  ``--deadline-ticks`` gives each such
+request a deadline that many ticks past its arrival and
+``--max-queue-depth`` caps the admission queue (a submit beyond it is
+shed).  Every run prints its terminal-state histogram and the engine's
+non-zero resilience counters; ``--strict`` (the default) exits non-zero
+if a request ended FAILED or not at all (SHED and TIMED_OUT are
+admission control's outcomes, reported, not fatal).  ``--trace-out PATH``
+writes a chrome://tracing JSON of the engine's prefill calls, decode
+windows and host drains.  ``--list-configs`` prints every config with its
+family and the engines that serve it, then exits.  ``--paged`` serves through ``PagedEngine`` (a shared
 page pool with radix-tree prefix sharing) and prints its page and prefix
 counters; ``--shared-prefix`` (paged only) serves the shared-prefix
 template workload and fails if no prompt token was served from the tree.
@@ -32,12 +49,13 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, reduced as reduce_cfg
+from repro_torch.configs import all_configs, get_config, reduced as reduce_cfg
 from repro_torch.models import build_model
 from repro_torch.models.api import serve_families
-from repro_torch.serve import (DONE, Engine, PagedEngine,
-                               UnsupportedFamilyError, latency_summary,
-                               mixed_requests, run_staggered,
+from repro_torch.serve import (FAILED, Engine, PagedEngine, ShedPolicy,
+                               Tracer, UnsupportedFamilyError,
+                               latency_summary, mixed_requests,
+                               poisson_requests, run_arrivals, run_staggered,
                                shared_prefix_requests, staggered_groups)
 
 
@@ -51,9 +69,47 @@ def _print_latency(summary: dict) -> None:
             print(f"  {domain:5s} {metric:7s} {line}")
 
 
+def _terminal_report(eng, reqs, strict: bool) -> None:
+    """Terminal-state histogram and the strict exit: a FAILED or
+    non-terminal request fails the launcher; shed and timed-out requests
+    are admission control's outcomes, reported, not fatal."""
+    hist = collections.Counter(r.state for r in reqs)
+    rs = eng.resilience_stats()
+    extras = {k: v for k, v in rs.items()
+              if v and k not in ("shed", "timed_out", "failed")}
+    print("terminal states: "
+          + " ".join(f"{k}={v}" for k, v in sorted(hist.items()))
+          + (f"  resilience: {extras}" if extras else ""))
+    stuck = [r.uid for r in reqs if not r.terminal]
+    failed = [r.uid for r in reqs if r.state == FAILED]
+    if strict and (stuck or failed):
+        raise SystemExit(
+            f"strict mode: {len(stuck)} non-terminal {stuck[:8]} / "
+            f"{len(failed)} FAILED {failed[:8]} requests "
+            f"(states: {dict(hist)})")
+
+
+def _list_configs() -> None:
+    """Every config with its family and the engines that serve it
+    (``Engine`` / ``EngineReference``: "dense", ``PagedEngine``:
+    "paged"); a family the port does not build yet says so."""
+    dense, paged = serve_families("dense"), serve_families("paged")
+    print(f"{'arch':<22} {'family':<8} engines")
+    for arch, cfg in all_configs().items():
+        engines = ["Engine", "EngineReference"] if cfg.family in dense \
+            else []
+        if cfg.family in paged:
+            engines.append("PagedEngine")
+        print(f"{arch:<22} {cfg.family:<8} "
+              f"{', '.join(engines) or '(family not ported yet)'}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--list-configs", action="store_true",
+                    help="print every config with its family and the "
+                         "serve engines that accept it, then exit")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--requests", type=int, default=8)
@@ -85,11 +141,38 @@ def main(argv=None):
                     help="serve the shared-prefix template workload and "
                          "fail unless prefix pages are shared (--paged "
                          "only)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="mean Poisson arrivals per decode tick; > 0 "
+                         "switches to arrival-driven traffic with "
+                         "heavy-tailed lengths")
+    ap.add_argument("--burst-amp", type=float, default=0.0,
+                    help="sinusoidal burst modulation amplitude in [0, 1] "
+                         "of the arrival rate")
+    ap.add_argument("--burst-period", type=float, default=64.0,
+                    help="burst modulation period in ticks")
+    ap.add_argument("--deadline-ticks", type=float, default=None,
+                    help="per-request deadline in ticks past arrival "
+                         "(arrival-driven runs only); overdue work is "
+                         "shed or timed out instead of served late")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="admission queue cap: submissions beyond it are "
+                         "shed")
+    ap.add_argument("--strict", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="exit non-zero if any request ends FAILED or "
+                         "non-terminal (--no-strict to just report)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a chrome://tracing JSON of the engine's "
+                         "prefill calls, decode windows and host drains "
+                         "to this path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verdicts", action=argparse.BooleanOptionalAction,
                     default=True, help="print serve-mode NVM verdicts")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.list_configs:
+        _list_configs()
+        return
     if args.shared_prefix and not args.paged:
         ap.error("--shared-prefix requires --paged")
 
@@ -105,10 +188,12 @@ def main(argv=None):
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
+    tracer = Tracer(name=f"serve-{args.arch}") if args.trace_out else None
     kw = dict(slots=args.slots, max_len=args.max_len, seed=args.seed,
               ticks_per_sync=args.ticks_per_sync, attn_impl=args.attn_impl,
               sample_impl=args.sample_impl, record_traffic=args.verdicts,
-              device=args.device)
+              device=args.device, tracer=tracer,
+              shed_policy=ShedPolicy(max_queue_depth=args.max_queue_depth))
     if args.paged:
         eng = PagedEngine(model, params, page_size=args.page_size,
                           num_pages=args.num_pages, **kw)
@@ -125,14 +210,27 @@ def main(argv=None):
             template_len=min(tlen, args.max_len - 10), suffix_lens=(2, 8),
             max_new=(2, max(2, args.max_len // 8)),
             temperature=args.temperature, temperature_every=temp_every)
+    elif args.arrival_rate > 0:
+        reqs = poisson_requests(
+            args.requests, seed=args.seed, vocab=cfg.vocab_size,
+            arrival_rate=args.arrival_rate, burst_amp=args.burst_amp,
+            burst_period=args.burst_period,
+            prompt_bounds=(2, max(2, args.max_len // 4)),
+            new_bounds=(1, max(2, args.max_len // 8)),
+            temperature=args.temperature, temperature_every=temp_every,
+            deadline_ticks=args.deadline_ticks)
     else:
         reqs = mixed_requests(
             args.requests, seed=args.seed, vocab=cfg.vocab_size,
             prompt_lens=(2, max(2, args.max_len // 4)),
             max_new=(2, max(2, args.max_len // 8)),
             temperature=args.temperature, temperature_every=temp_every)
+    arrivals = args.arrival_rate > 0 and not args.shared_prefix
     t0 = time.perf_counter()
-    outputs = run_staggered(eng, staggered_groups(reqs, args.slots))
+    if arrivals:
+        outputs = run_arrivals(eng, reqs, strict=args.strict)
+    else:
+        outputs = run_staggered(eng, staggered_groups(reqs, args.slots))
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -143,7 +241,8 @@ def main(argv=None):
           f"ticks (K={args.ticks_per_sync}, attn={args.attn_impl}, "
           f"sample={args.sample_impl}{', paged' if args.paged else ''}) = "
           f"{ntok / dt:.1f} tok/s on {where}")
-    _print_latency(latency_summary(reqs))
+    summary = latency_summary(reqs)
+    _print_latency(summary)
     if args.paged:
         st = eng.paged_stats()
         print(f"paged KV: pages-in-use high-water {st['pages_hwm']}"
@@ -156,11 +255,23 @@ def main(argv=None):
         if args.shared_prefix and st["prefix_tokens"] == 0:
             raise SystemExit("shared-prefix workload produced zero prefix "
                              "hits: radix-tree sharing is broken")
-    hist = collections.Counter(r.state for r in reqs)
-    print("terminal states: "
-          + " ".join(f"{k}={v}" for k, v in sorted(hist.items())))
-    if hist[DONE] != len(reqs):
-        raise SystemExit(f"not every request ended DONE: {dict(hist)}")
+    _terminal_report(eng, reqs, args.strict)
+    if arrivals:
+        # with admission control on (deadlines or a queue cap), shed and
+        # timed-out outcomes are legitimate; without it, anything short
+        # of full completion is a fault
+        shedding = (args.deadline_ticks is not None
+                    or args.max_queue_depth is not None)
+        complete = (summary["completed"] == args.requests
+                    or (shedding and summary["completed"] > 0))
+        if not complete or not summary["wall"] or not summary["ticks"]:
+            raise SystemExit(
+                f"latency percentiles empty or incomplete: "
+                f"{summary['completed']}/{args.requests} requests finished")
+    if tracer is not None:
+        path = tracer.save(args.trace_out)
+        print(f"chrome trace ({len(tracer.to_chrome_trace()['traceEvents'])}"
+              f" events) -> {path}")
     if args.verdicts:
         for v in eng.nvm_verdicts():
             print(f"  {v.shape}: energy vs SRAM "

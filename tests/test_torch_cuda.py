@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, a train step on the
 flash kernel against the plain path, the paged
 engine and the recurrent families' engine on their kernels against
-``EngineReference``, and the traffic count of an engine and a train window
+``EngineReference``, the dense engine's faults and retries on its
+kernels, and the traffic count of an engine and a train window
 against the CPU's, on the card.
 
 Marked ``cuda``; each test skips with a reason where no CUDA device is
@@ -449,6 +450,112 @@ def test_paged_engine_kernel_matches_reference(dev):
     st = eng.paged_stats()
     assert st["cow_copies"] > 0 and st["prefix_tokens"] > 0
     eng.pool.check(eng.tree.held_refs())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("pos0", [0, 5, 700])
+def test_decode_kernels_propagate_a_nan_key_row(dev, dtype, paged, pos0):
+    """NaN in the K and V rows of one key of one slot (as a corrupt cache
+    page or row is) makes that slot's output NaN through both decode
+    kernels, as through their plain versions, whether its live keys lie in
+    one chunk or span the cluster (pos 900, the NaN key at 0, 5 or 700); every other slot stays within
+    bound.  A kernel that dropped the NaN chunk from its cluster combine
+    returned a finite, wrong row, which no health check could see."""
+    from repro_torch.kernels import paged_attention as pa
+    B, H, K, hd, L, ps = 4, 8, 2, 128, 1024, 8
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q, nk, nv = r(B, H, hd), r(B, K, hd), r(B, K, hd)
+    pos = torch.tensor([900, 40, 700, 3], dtype=torch.int32, device=dev)
+    tol = TOL[dtype]
+    if paged:
+        nb = L // ps
+        k, v = r(B * nb + 1, ps, K, hd), r(B * nb + 1, ps, K, hd)
+        pt = torch.arange(B * nb, dtype=torch.int32,
+                          device=dev).reshape(B, nb)
+        k[pt[0, pos0 // ps], pos0 % ps] = float("nan")
+        v[pt[0, pos0 // ps], pos0 % ps] = float("nan")
+        kp, vp = k.clone(), v.clone()
+        want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt,
+                                                     pos)
+        got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos)
+    else:
+        k, v = r(B, L, K, hd), r(B, L, K, hd)
+        k[0, pos0], v[0, pos0] = float("nan"), float("nan")
+        kp, vp = k.clone(), v.clone()
+        want = da.decode_attention_fused_plain(q, kp, vp, nk, nv, pos)
+        got = ops.decode_attention_fused(q, k, v, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[0].float()).all()
+    assert torch.isnan(got[0].float()).all()
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("fault,count", [("nan_logits", 1),
+                                         ("window_stall", 3)])
+def test_engine_faults_stay_on_the_kernels(dev, fault, count):
+    """A NaN row through the CUDA sampler is quarantined and retried to the
+    reference's output; a watchdog that degrades after three launch-gate
+    stalls still launches the decode kernel once per layer and tick, and
+    the sampler once per tick and prefill: no plain path runs.  Reduced
+    llama3-8b (head_dim 16) at float32."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import (DONE, Engine, EngineReference, Fault,
+                                   FaultPlan, WindowWatchdog, mixed_requests,
+                                   run_staggered, staggered_groups)
+    cfg = reduced(get_config("llama3-8b"), dtype="float32")
+    model = build_model(cfg, max_seq=48, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def reqs():
+        return mixed_requests(6, seed=3, prompt_lens=(2, 9), max_new=(4, 10))
+
+    ref = EngineReference(model, params, slots=3, max_len=48, device=dev)
+    want = run_staggered(ref, staggered_groups(reqs(), 3))
+    plan = FaultPlan([Fault(fault, at=1, count=count, slot=0)])
+    ops.reset_launches()
+    eng = Engine(model, params, slots=3, max_len=48, ticks_per_sync=4,
+                 device=dev, fault_plan=plan,
+                 watchdog=WindowWatchdog(backoff_s=0.0))
+    rs_ = reqs()
+    assert run_staggered(eng, staggered_groups(rs_, 3)) == want
+    assert all(r.state == DONE for r in rs_)
+    rs = eng.resilience_stats()
+    if fault == "nan_logits":
+        assert rs["quarantined"] == rs["retried"] == 1
+    else:
+        assert rs["window_fallbacks"] == 1 and rs["degraded"]
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    assert ops.launches["decode_attention"] == cfg.num_layers * ticks
+    assert ops.launches["fused_sample"] == ticks + calls
+
+
+def test_error_inside_a_window_propagates_on_the_card(dev, monkeypatch):
+    """An error raised inside the window leaves ``step()`` unretried."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, FaultPlan, Request
+    cfg = reduced(get_config("llama3-8b"), dtype="float32")
+    model = build_model(cfg, max_seq=48, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, slots=2, max_len=48, ticks_per_sync=2,
+                 device=dev, fault_plan=FaultPlan([]))
+    eng.submit(Request(uid=0, prompt=[3, 4, 5], max_new_tokens=6))
+    eng._admit()
+
+    def broken(*a, **k):
+        raise RuntimeError("fault inside the window")
+
+    monkeypatch.setattr(ops, "fused_sample", broken)
+    with pytest.raises(RuntimeError, match="inside the window"):
+        eng.step()
+    assert eng.resilience_stats()["window_retries"] == 0
 
 
 def _ssd_inputs(dev, dtype, b, S, H, P, N, seed, s0=False):

@@ -238,7 +238,10 @@ def test_counts_and_no_launches_on_cpu(mp):
     run_staggered(eng, staggered_groups(_workload(seed=2), 3))
     assert eng.counts["decode_ticks"] == eng.ticks > 0
     assert eng.counts["prefill_calls"] >= 3
-    assert eng.counts["nonfinite_rows"] == 0
+    assert eng.resilience_stats() == {
+        "failed": 0, "shed": 0, "timed_out": 0, "quarantined": 0,
+        "retried": 0, "preempted": 0, "window_retries": 0,
+        "window_fallbacks": 0, "degraded": False}
     assert ops.launches == {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
                             "cache_sim": 0, "cache_sim_ladder": 0,

@@ -664,9 +664,10 @@ def test_shed_after_max_defers_matches_jax(mp):
 
 def test_every_freed_slot_returns_its_pages(mp):
     """Slots freed at prefill (one new token), by decode, and by a
-    failure all go through ``_release_slot``: the slot's page references
-    return and its table row maps TRASH, uploaded before the next
-    window."""
+    quarantine all go through ``_release_slot``: the slot's page
+    references return and its table row maps TRASH, uploaded before the
+    next window.  The quarantine also flushes the tree, zeroes every free
+    page and requeues the request."""
     eng = _paged(mp, ticks_per_sync=2)
     one = Request(uid=0, prompt=[5, 6, 7], max_new_tokens=1)
     two = Request(uid=1, prompt=list(range(1, 20)), max_new_tokens=6)
@@ -680,10 +681,17 @@ def test_every_freed_slot_returns_its_pages(mp):
     eng.pool.check(held)
     eng._pre_window()
     assert torch.equal(eng._pt_dev, torch.from_numpy(eng._pt_host))
-    eng._fail(1, two, 0.0, "injected")
+    eng._quarantine({1: 0}, 0.0)
     assert eng.slot_req[1] is None and eng._slot_pages[1] == []
+    assert (eng._pt_host[1] == eng.trash).all() and eng._pt_dirty
+    assert eng.tree.num_nodes == 0 and eng.pool.free_pages == eng.num_pages
     eng.pool.check(eng.tree.held_refs())
-    assert eng.counts["nonfinite_rows"] == 1
+    for pool in eng.cache.values():
+        assert not pool[:, :eng.num_pages].any()
+    assert list(eng._queue) == [two] and two.retries == 1
+    rs = eng.resilience_stats()
+    assert rs["quarantined"] == rs["retried"] == 1 and rs["failed"] == 0
+    assert eng.paged_stats()["tree_flushes"] == 1
 
 
 def test_paged_engine_validation(mp):
