@@ -6,7 +6,8 @@
 
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
-``cachesim``, ``recurrent``, ``serve``, ``resilience``), of this checkout
+``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``), of this
+checkout
 or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
 lists), to time two versions on one card in one call: parent, change,
@@ -15,7 +16,8 @@ DIR's kernels (``cachesim`` times both LRU ops through their public calls
 at slice C's shapes; ``recurrent`` runs slice F's and G's ``Model.prefill``
 on 4 x 2048 tokens and a traced slice G decode window; ``serve`` times
 slice F's and G's serving runs, with the traffic recorded and without;
-``resilience`` runs phase 4c and its parity at slice B's model alone).
+``resilience`` runs phase 4c and its parity at slice B's model alone;
+``moe`` runs phase 5g, slices M, N, V and MP, with M's and N's verdicts).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -32,7 +34,10 @@ result line:
      and 1000, B = 1 and 64; the paged decode kernel (the same split-K
      body) over a page pool at page sizes 8 and 16 and head_dims 16 and
      96, half the rows sharing a 512-token prefix and one free row on the
-     TRASH page, and on its split cases (rows inside one chunk, page size
+     TRASH page, and on its split cases; the decode and paged kernels also
+     at the moe and vlm heads (H, K, hd) = (24, 8, 64), (16, 16, 128),
+     (48, 8, 128) and the sampler at V = 49155, 163840 and 92553 (a tie
+     across blocks), each timed; on the paged kernel's split cases (rows inside one chunk, page size
      5, a window past whole chunks, rows at and past the end of their
      table, three free rows): output within bound, write-back bitwise
      outside TRASH, pages past each row's position ignored bit for bit;
@@ -152,6 +157,25 @@ result line:
      algorithms the window equals the per-step loop bit for bit, two
      windows equal one twice as long, and a checkpoint saved at step 4
      resumes to the same step-8 state;
+  5g. the moe and vlm families (bf16, weights from a seeded generator):
+     slice M, granite-moe-3b-a800m at full width and depth (40 experts
+     padded to 48, top-8) through ``Engine`` (8 x 1024, K=8) on slice A's
+     16 requests and ``PagedEngine`` (page 8) on slice D's 16
+     shared-prefix requests, with a traced decode window (busy share,
+     launches, the ``moe_dispatch`` range's share of the kernels);
+     slice N, moonshot-v1-16b-a3b at full width cut to 8 of its 48
+     layers, ``Engine`` on the same requests and a traced window; slice
+     V, internvl2-26b at full width cut to 4 of its 48 layers:
+     ``Model.prefill`` on 4 x 1024 tokens with 256 seeded vision
+     embeddings, ``Engine`` on the 16 requests on tokens alone, and at
+     f32 8 kernel ``decode_step``s after the vision prefill within 2e-3
+     of a longer prefill's logits.  Each engine run: every request DONE,
+     logits finite, no host sync inside a window, one attention launch
+     per layer and tick and one sampler launch per tick and prefill.
+     Slice MP, granite's width at 4 layers, f32: the kernel ``Engine``
+     and ``PagedEngine`` equal their plain twins token for token, and at
+     capacity factor E / top_k (0 drops, read from the router) the kernel
+     ``Engine`` equals ``EngineReference``;
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -171,20 +195,23 @@ result line:
      identical Algorithm-1 selections and iso-area capacities, PPA and
      traffic fields within rel 1e-6;
   7b. the NVM verdicts of the full-width slices' own traffic: slices A,
-     D, F and G (each engine's first decode window, counted under
+     D, F, G, M (dense and paged) and N (each engine's first decode window, counted under
      ``OpCounter`` inside the sync-error check of phase 4, and the first
      prefill of each padded length) and T (the first train window); each
      record's flops and bytes, its dominant term and its STT/SOT energy
      and EDP ratios against SRAM at the modeled TPU tier, all finite and
      positive; the counted window's wall beside an uncounted one is
-     printed by each slice;
+     printed by each slice; slices M's and N's counted bytes a decode tick
+     beside the analytic model's bytes a token (``core/traffic.py``,
+     which streams only the top-k experts);
   7c. the traffic count on the card against the CPU: reduced llama3-8b
      (f32) through ``Engine`` (4 slots x 64, 8 requests) and a reduced
      ``TrainWindow`` (remat full), the same weights and requests on both:
      every counted program's ``OpStats`` equal, op for op;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
-     kernel, F's ``Model.prefill`` for the SSD scan, G's serving for the
+     kernel, and ``launches_by_slice`` with the serve kernels' launches on
+     slices A, D, M, N, V and MP, F's ``Model.prefill`` for the SSD scan, G's serving for the
      RG-LRU scan, T for flash attention, C for the simulator), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
@@ -333,14 +360,41 @@ def _close(out, want, dtype=None, *, tol=None, what: str = "") -> float:
     return float(err.max())
 
 
+# the attention shapes of the moe and vlm slices: granite-moe-3b-a800m,
+# moonshot-v1-16b-a3b, internvl2-26b
+MOE_SHAPES = (("H=24 K=8 hd=64", dict(H=24, K=8, hd=64)),
+              ("H=16 K=16 hd=128", dict(H=16, K=16, hd=128)),
+              ("H=48 K=8 hd=128", dict(H=48, K=8, hd=128)))
+
+
+def _time_decode(q, k, v, nk, nv, pos, flush):
+    """(kernel, plain, SDPA, bound ms, bound_by) of the fused decode call
+    at these inputs (window 0)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    ms = median_ms(lambda: ops.decode_attention_fused(q, k, v, nk, nv, pos,
+                                                      0), flush=flush)
+    plain_ms = median_ms(lambda: da.decode_attention_fused_plain(
+        q, k, v, nk, nv, pos, 0), flush=flush)
+    L = k.shape[1]
+    mask = (torch.arange(L, device=DEVICE)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+    bound_ms, bound_by = _decode_bound(q, k, pos, 0, q.element_size())
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
 def phase_decode_attention(flush) -> dict:
     """The split-K decode kernel against its plain version: llama3-8b's
     shapes (ragged positions from 0 to L-1, a window that kills whole
     chunks, softcap), the reduced configs' head_dim 16 and phi3-mini's 96,
-    and the split edge cases (B = 1, L not a multiple of the chunk, rows
-    inside one chunk, a cluster of one); output within the JAX tests'
-    bound, the fused write-back bitwise and only (b, pos[b]) changed.
-    Timed at llama3-8b's shape in bf16 beside SDPA."""
+    the moe and vlm slices' heads (``MOE_SHAPES``), and the split edge
+    cases (B = 1, L not a multiple of the chunk, rows inside one chunk, a
+    cluster of one); output within the JAX tests' bound, the fused
+    write-back bitwise and only (b, pos[b]) changed.  Timed at llama3-8b's
+    shape and at ``MOE_SHAPES`` in bf16 beside SDPA."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     gen = torch.Generator(device=DEVICE)
@@ -371,6 +425,9 @@ def phase_decode_attention(flush) -> dict:
              True, dict(B=3, L=1000, pos=[0, 5, 63])),
             (f"{name} L=100 fused", dtype, 0, 0.0, True,
              dict(B=2, L=100, pos=[99, 40]))]
+    cases += [(f"{name} {tag} fused", dtype, 0, 0.0, True, shape)
+              for name, dtype in (("bf16", bf16), ("f32", f32))
+              for tag, shape in MOE_SHAPES]
     for label, dtype, window, cap, fused, shape in cases:
         q, k, v, nk, nv, pos = _decode_inputs(gen, dtype, **shape)
         k0, v0 = k.clone(), v.clone()
@@ -399,24 +456,17 @@ def phase_decode_attention(flush) -> dict:
               f"(tol {TOL[dtype]}), write-back bitwise")
         if label == "bf16 global fused":
             main = dict(q=q, k=kk, v=vk, nk=nk, nv=nv, pos=pos, err=err)
-    q, k, v, nk, nv, pos = (main[n] for n in ("q", "k", "v", "nk", "nv",
-                                              "pos"))
-    ms = median_ms(lambda: ops.decode_attention_fused(q, k, v, nk, nv, pos,
-                                                      0), flush=flush)
-    plain_ms = median_ms(lambda: da.decode_attention_fused_plain(
-        q, k, v, nk, nv, pos, 0), flush=flush)
-    B, H, hd = q.shape
-    L = k.shape[1]
-    mask = (torch.arange(L, device=DEVICE)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
-    bound_ms, bound_by = _decode_bound(q, k, pos, 0, q.element_size())
+    ms, plain_ms, library_ms, bound_ms, bound_by = _time_decode(
+        *(main[n] for n in ("q", "k", "v", "nk", "nv", "pos")), flush)
     print(f"decode_attention bf16 B=8 H=32 K=8 hd=128 L=1024: kernel "
           f"{ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by})")
+    for tag, shape in MOE_SHAPES:
+        t = _time_decode(*_decode_inputs(gen, bf16, **shape), flush)
+        print(f"decode_attention bf16 B=8 {tag} L=1024: kernel {t[0]:.4f} "
+              f"ms, plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms, bound "
+              f"{t[3]:.5f} ms ({t[4]})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:73",
@@ -490,6 +540,43 @@ def _sample_split_cases(gen) -> None:
         _check_sample(logits, temps, key, f"B={B} V={V}")
 
 
+def _sample_bound(B: int, V: int, hot: int):
+    """Least time of one sampler call: the logits, temperatures and key
+    read, the tokens written; a compare per logit, ~18 operations per
+    logit of a temperature row (div, add, 2 logs, hash)."""
+    nbytes = B * V * 4 + B * 4 + 16 + B * 4
+    ops_count = B * V + hot * V * 18
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops_count / F32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _sample_moe_vocabs(gen, key, flush) -> None:
+    """The moe and vlm slices' vocabs, 49155 (granite), 163840 (moonshot)
+    and 92553 (internvl2), the odd ones putting rows off 16-byte
+    boundaries: B = 8, a greedy tie across blocks of a row's cluster,
+    half the rows at a temperature; checked as ``_check_sample`` does and
+    timed beside the plain version and ``torch.argmax``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sampling as sm
+    for V in (49155, 163840, 92553):
+        logits = torch.randn(8, V, generator=gen, device=DEVICE) * 3.0
+        logits[0, [V // 16, V - 1]] = 90.0         # first and last block
+        temps = torch.tensor([0.0, 0.0, 0.7, 0.0, 1.1, 0.0, 0.5, 0.9],
+                             device=DEVICE)
+        got, _ = _check_sample(logits, temps, key, f"B=8 V={V}")
+        check(int(got[0]) == V // 16, f"V={V}: first-occurrence tie")
+        ms = median_ms(lambda: ops.fused_sample(logits, temps, key),
+                       flush=flush)
+        plain_ms = median_ms(lambda: sm.fused_sample_plain(logits, temps,
+                                                           key), flush=flush)
+        library_ms = median_ms(lambda: torch.argmax(logits, dim=-1),
+                               flush=flush)
+        bound_ms, bound_by = _sample_bound(8, V, int((temps > 0).sum()))
+        print(f"fused_sample B=8 V={V}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.argmax {library_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
+
+
 def phase_sampling(flush) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import sampling as sm
@@ -511,12 +598,7 @@ def phase_sampling(flush) -> dict:
                          flush=flush)
     library_ms = median_ms(lambda: torch.argmax(logits, dim=-1),
                            flush=flush)
-    hot = int((temps > 0).sum())
-    nbytes = B * V * 4 + B * 4 + 16 + B * 4
-    ops_count = B * V + hot * V * 18     # compare; div, add, 2 logs, hash
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops_count / F32_FLOPS_PER_S
-    bound_ms, bound_by = max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f
-                                               else "operations")
+    bound_ms, bound_by = _sample_bound(B, V, int((temps > 0).sum()))
     # the same rows all greedy: what the temperature rows' hash, two IEEE
     # logs and division cost on the blocks that take them
     greedy = torch.zeros_like(temps)
@@ -526,6 +608,7 @@ def phase_sampling(flush) -> dict:
           f"{greedy_ms:.4f}), plain {plain_ms:.4f} ms, torch.argmax "
           f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     _sample_split_cases(gen)
+    _sample_moe_vocabs(gen, key, flush)
     return {"name": "fused_sample", "route": "cuda",
             "source": "src/repro_torch/csrc/sampling.cu",
             "replaces": "src/repro/kernels/sampling.py:51",
@@ -683,42 +766,9 @@ def _paged_split_cases(gen) -> None:
                          free=free)
 
 
-def phase_paged_attention(flush) -> dict:
-    """The paged decode kernel against its plain version at llama3-8b
-    shapes, ps 8 and 16: output within the JAX tests' bound, the fused
-    write-back bitwise on every page but TRASH, pages past each row's
-    position ignored bit for bit; times at ps 8, bf16; then the split
-    cases (``_paged_split_cases``)."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(4)
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(ps, label, dtype, window, cap, {})
-             for ps in (8, 16)
-             for label, dtype, window, cap in (
-                 ("bf16 global", bf16, 0, 0.0), ("f32 global", f32, 0, 0.0),
-                 ("f32 window=11 cap=50", f32, 11, 50.0))]
-    # the reduced configs' head_dim 16 and phi3-mini-3.8b's 96
-    cases += [(8, f"{name} hd={hd} H={H} K={K}{extra}", dtype, window, cap,
-               dict(H=H, K=K, hd=hd))
-              for hd, H, K in ((16, 4, 2), (96, 32, 32))
-              for name, dtype in (("bf16", bf16), ("f32", f32))
-              for extra, window, cap in (("", 0, 0.0),
-                                         (" window=11 cap=50", 11, 50.0))]
-    for ps, label, dtype, window, cap, shape in cases:
-        inputs = _paged_inputs(gen, dtype, ps, **shape)
-        _check_paged(f"ps={ps} {label}", dtype, window, cap, *inputs,
-                     free=(7,))
-    q, k, v, nk, nv, pt, pos = _paged_inputs(gen, torch.bfloat16, 8)
-    kp, vp = k.clone(), v.clone()
-    want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, pos)
-    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos)
-    err = _close(got, want, torch.bfloat16)
-    ms = median_ms(lambda: ops.paged_decode_attention_fused(
-        q, k, v, nk, nv, pt, pos), flush=flush)
-    plain_ms = median_ms(lambda: pa.paged_decode_attention_fused_plain(
-        q, k, v, nk, nv, pt, pos), flush=flush)
+def _paged_library_ms(q, k, v, pt, pos, want, flush) -> dict:
+    """The library yardsticks of the paged call, each checked against the
+    plain output ``want`` and timed: {name: ms}."""
     # the library yardsticks: gather each row's live keys (its pages up to
     # pos) and attend them with variable-length SDPA over nested tensors
     # (a kv head's G q heads are its G queries, so no GQA expansion); or
@@ -764,6 +814,51 @@ def phase_paged_attention(flush) -> dict:
         lib[name] = median_ms(fn, flush=flush)
         print(f"paged_decode_attention library: {name} {lib[name]:.4f} ms, "
               f"max|err| {err_l:.3g} vs plain")
+    return lib
+
+
+def phase_paged_attention(flush) -> dict:
+    """The paged decode kernel against its plain version at llama3-8b
+    shapes, ps 8 and 16, and at the moe and vlm slices' heads
+    (``MOE_SHAPES``, ps 8): output within the JAX tests' bound, the fused
+    write-back bitwise on every page but TRASH, pages past each row's
+    position ignored bit for bit; times at ps 8, bf16 (the
+    ``MOE_SHAPES`` too); then the split cases (``_paged_split_cases``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(ps, label, dtype, window, cap, {})
+             for ps in (8, 16)
+             for label, dtype, window, cap in (
+                 ("bf16 global", bf16, 0, 0.0), ("f32 global", f32, 0, 0.0),
+                 ("f32 window=11 cap=50", f32, 11, 50.0))]
+    # the reduced configs' head_dim 16 and phi3-mini-3.8b's 96
+    cases += [(8, f"{name} hd={hd} H={H} K={K}{extra}", dtype, window, cap,
+               dict(H=H, K=K, hd=hd))
+              for hd, H, K in ((16, 4, 2), (96, 32, 32))
+              for name, dtype in (("bf16", bf16), ("f32", f32))
+              for extra, window, cap in (("", 0, 0.0),
+                                         (" window=11 cap=50", 11, 50.0))]
+    # the moe and vlm slices' heads
+    cases += [(8, f"{name} {tag}", dtype, 0, 0.0, shape)
+              for tag, shape in MOE_SHAPES
+              for name, dtype in (("bf16", bf16), ("f32", f32))]
+    for ps, label, dtype, window, cap, shape in cases:
+        inputs = _paged_inputs(gen, dtype, ps, **shape)
+        _check_paged(f"ps={ps} {label}", dtype, window, cap, *inputs,
+                     free=(7,))
+    q, k, v, nk, nv, pt, pos = _paged_inputs(gen, torch.bfloat16, 8)
+    kp, vp = k.clone(), v.clone()
+    want = pa.paged_decode_attention_fused_plain(q, kp, vp, nk, nv, pt, pos)
+    got = ops.paged_decode_attention_fused(q, k, v, nk, nv, pt, pos)
+    err = _close(got, want, torch.bfloat16)
+    ms = median_ms(lambda: ops.paged_decode_attention_fused(
+        q, k, v, nk, nv, pt, pos), flush=flush)
+    plain_ms = median_ms(lambda: pa.paged_decode_attention_fused_plain(
+        q, k, v, nk, nv, pt, pos), flush=flush)
+    lib = _paged_library_ms(q, k, v, pt, pos, want, flush)
     library_ms = min(lib.values())
     bound_ms, bound_by, ndistinct, nkeys = _paged_bound(q, k, pt, pos)
     print(f"paged_decode_attention bf16 B=8 H=32 K=8 hd=128 ps=8 nb=128, "
@@ -772,6 +867,21 @@ def phase_paged_attention(flush) -> dict:
           f"faster of the two) {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by})")
     _paged_split_cases(gen)
+    for tag, shape in MOE_SHAPES:
+        t = _paged_inputs(gen, bf16, 8, **shape)
+        q2, k2, v2, nk2, nv2, pt2, pos2 = t
+        t_ms = median_ms(lambda: ops.paged_decode_attention_fused(*t),
+                         flush=flush)
+        t_plain = median_ms(lambda: pa.paged_decode_attention_fused_plain(
+            *t), flush=flush)
+        want2 = pa.paged_decode_attention_fused_plain(
+            q2, k2.clone(), v2.clone(), nk2, nv2, pt2, pos2)
+        t_lib = min(_paged_library_ms(q2, k2, v2, pt2, pos2, want2,
+                                      flush).values())
+        t_bound, t_by = _paged_bound(q2, k2, pt2, pos2)[:2]
+        print(f"paged_decode_attention bf16 B=8 {tag} ps=8 nb=128: kernel "
+              f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, library (the faster) "
+              f"{t_lib:.4f} ms, bound {t_bound:.5f} ms ({t_by})")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:48",
@@ -1412,13 +1522,16 @@ def phase_slice_a(records: dict):
     return launches, model, params, eng
 
 
-def trace_window(eng, vocab: int, prompt_lens=(150, 300)) -> None:
+def trace_window(eng, vocab: int, prompt_lens=(150, 300),
+                 scopes=()) -> None:
     """Profile one decode window of ``eng`` (Engine or PagedEngine) with 8
     busy slots (prompts 150-300; the recurrent families' tick does not
     depend on the prompt length, and they take shorter prompts, whose
     per-token prefill scan is shorter): the median wall time of three
     untraced windows, the device time of a traced one's kernels, the
-    device's busy share and the kernels that take the most device time."""
+    device's busy share and the kernels that take the most device time;
+    for each profiler range in ``scopes`` (``record_function`` names) the
+    device time of its ops' kernels and its share of the kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import mixed_requests
@@ -1438,8 +1551,10 @@ def trace_window(eng, vocab: int, prompt_lens=(150, 300)) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng._window().cpu()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # a range may also appear as a device-side annotation: not a kernel
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in scopes]
     dev_us = lambda e: e.self_device_time_total   # noqa: E731
     busy = sum(dev_us(e) for e in kern) / 1e3
     k = eng.ticks_per_sync
@@ -1452,6 +1567,14 @@ def trace_window(eng, vocab: int, prompt_lens=(150, 300)) -> None:
     for e in sorted(kern, key=dev_us, reverse=True)[:8]:
         print(f"  {dev_us(e) / 1e3 / k:8.3f} ms/tick  {e.count // k:5d}/tick"
               f"  {e.key[:80]}")
+    for name in scopes:
+        host = [e for e in events
+                if e.key == name and e.device_type != DeviceType.CUDA]
+        ms = sum(e.device_time_total for e in host) / 1e3
+        calls = sum(e.count for e in host)
+        print(f"  range {name}: {ms / k:.3f} ms/tick of its ops' kernels, "
+              f"{ms / busy:.3f} of the traced kernel time "
+              f"({calls // k} entries a tick)")
 
 
 # ---------------------------------------------------------------- phase 4b
@@ -2524,6 +2647,374 @@ def _equal_states(a, b) -> bool:
                                       for x, y in zip(la, lb))
 
 
+# ---------------------------------------------------------------- phase 5g
+
+
+MOE_ARCHS = {"M": "granite-moe-3b-a800m", "N": "moonshot-v1-16b-a3b",
+             "V": "internvl2-26b"}
+
+
+def _full_width(arch: str, layers=None, dtype="bfloat16", max_seq=1024,
+                **overrides):
+    """``arch`` at full width (``layers`` of its depth when given), weights
+    from ``torch.Generator(seed=0)`` on the card; prints its size."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    cut = {} if layers is None else {"num_layers": layers}
+    cfg = dataclasses.replace(cfg, dtype=dtype, **cut, **overrides)
+    model = build_model(cfg, max_seq=max_seq)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    t = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.values())
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"{arch}: {cfg.num_layers} layers{' (cut)' if cut else ''}, "
+          f"d_model {cfg.d_model}, {cfg.dtype}: {n / 1e9:.3f} B parameters, "
+          f"{wbytes / 1e9:.2f} GB (made in {time.perf_counter() - t:.1f} s)")
+    return model, params
+
+
+def _served(label: str, eng, reqs, attn: str) -> dict:
+    """Run ``reqs`` through ``eng`` in two staggered groups of 8 with the
+    launch counts set to 0 just before and read just after: every request
+    DONE, no quarantine, tokens in the vocabulary, one ``attn`` launch per
+    layer and tick and one sampler launch per tick and prefill.  Returns
+    the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DONE, run_staggered, staggered_groups
+    cfg = eng.model.cfg
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outputs = run_staggered(eng, staggered_groups(reqs, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(all(r.state == DONE for r in reqs),
+          f"{label}: a request did not end DONE")
+    check(eng.resilience_stats()["quarantined"] == 0,
+          f"{label}: non-finite logits")
+    check(all(0 <= tok < cfg.vocab_size for o in outputs.values()
+              for tok in o), f"{label}: token out of the vocabulary")
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    check(ticks > 0 and calls > 0, f"{label}: {ticks} ticks, {calls} "
+          f"prefill calls")
+    check(launches[attn] == cfg.num_layers * ticks,
+          f"{label}: {attn} launches {launches[attn]} != layers x ticks "
+          f"{cfg.num_layers} x {ticks}")
+    check(launches["fused_sample"] == ticks + calls,
+          f"{label}: fused_sample launches != ticks + prefill calls")
+    other = ("decode_attention" if attn != "decode_attention"
+             else "paged_decode_attention")
+    check(launches[other] == 0, f"{label}: {other} ran")
+    print(f"{label}: launches {attn} {launches[attn]}, fused_sample "
+          f"{launches['fused_sample']}; decode ticks {ticks}, prefill calls "
+          f"{calls}; {len(reqs)}/{len(reqs)} DONE, "
+          f"{_serve_stats(reqs, wall)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches
+
+
+def _tick_bytes(label: str, eng, top: int = 6) -> None:
+    """The engine's counted decode window's bytes a tick, by op (the
+    largest ``top``)."""
+    st = eng._traffic["decode"]
+    k = eng.ticks_per_sync
+    parts = sorted(st.bytes_by_op.items(), key=lambda kv: -kv[1])[:top]
+    print(f"{label}: counted {st.bytes / k / 1e9:.4f} GB a decode tick: "
+          + ", ".join(f"{n} {v / k / 1e9:.4f}" for n, v in parts))
+
+
+def _mixed16(vocab: int):
+    """Slice A's 16 requests at ``vocab``."""
+    from repro_torch.serve import mixed_requests
+    return mixed_requests(16, seed=0, vocab=vocab, prompt_lens=(16, 300),
+                          max_new=(16, 64))
+
+
+def _analytic_token_bytes(cfg) -> float:
+    """Bytes of one decoded token by the analytic traffic model
+    (``core/traffic.py``: activation surfaces in and out, every weight
+    streamed once; the moe family streams only its ``top_k`` experts)."""
+    from repro_torch.core.traffic import _lower_config
+    return float(sum(d.in_bytes + d.out_bytes + d.weight_bytes
+                     for d in _lower_config(cfg, 1)))
+
+
+def phase_slice_m(records: dict) -> dict:
+    """Slice M: granite-moe-3b-a800m at full width and depth (32 layers,
+    40 experts padded to 48, top-8), bf16: ``Engine`` (8 slots x 1024,
+    K=8) on slice A's 16 requests, a traced decode window (the dispatch's
+    share), then ``PagedEngine`` (page 8) on slice D's 16 shared-prefix
+    requests; no host sync inside a window of either."""
+    from repro_torch.serve import Engine, PagedEngine
+    t_phase = time.perf_counter()
+    model, params = _full_width(MOE_ARCHS["M"])
+    cfg = model.cfg
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8)
+    _no_sync_in_window(eng, "slice M")
+    launches = {"dense": _served("slice M", eng, _mixed16(cfg.vocab_size),
+                                 "decode_attention")}
+    records["slice M"] = ("serve", eng.serve_records())
+    _tick_bytes("slice M", eng)
+    trace_window(eng, cfg.vocab_size, scopes=("moe_dispatch",))
+    del eng
+    torch.cuda.empty_cache()
+    eng = PagedEngine(model, params, slots=8, max_len=1024, page_size=8,
+                      ticks_per_sync=8)
+    _no_sync_in_window(eng, "slice M paged")
+    reqs = _shared_prefix_workload(16, cfg.vocab_size, 1024)
+    launches["paged"] = _served("slice M paged", eng, reqs,
+                                "paged_decode_attention")
+    eng.pool.check(eng.tree.held_refs())
+    st = eng.paged_stats()
+    check(st["prefix_tokens"] > 0 and st["cow_copies"] > 0,
+          f"slice M paged: no prefix sharing or no copy-on-write: {st}")
+    print(f"slice M paged: prefix hit rate {st['prefix_hit_rate']:.4f} "
+          f"({st['prefix_tokens']}/{st['prompt_tokens']} prompt tokens), "
+          f"CoW copies {st['cow_copies']}, pages_hwm {st['pages_hwm']}; "
+          f"pool conserved")
+    records["slice M paged"] = ("serve", eng.serve_records())
+    del eng, model, params
+    torch.cuda.empty_cache()
+    print(f"slice M: wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_slice_n(records: dict) -> dict:
+    """Slice N: moonshot-v1-16b-a3b at full width (64 experts, top-6,
+    d_ff 1408, 16/16 heads, hd 128, vocab 163840) cut to 8 of its 48
+    layers, bf16: ``Engine`` on slice A's 16 requests, slice M's checks,
+    a traced decode window."""
+    from repro_torch.serve import Engine
+    t_phase = time.perf_counter()
+    model, params = _full_width(MOE_ARCHS["N"], layers=8)
+    cfg = model.cfg
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8)
+    _no_sync_in_window(eng, "slice N")
+    launches = _served("slice N", eng, _mixed16(cfg.vocab_size),
+                       "decode_attention")
+    records["slice N"] = ("serve", eng.serve_records())
+    _tick_bytes("slice N", eng)
+    trace_window(eng, cfg.vocab_size, scopes=("moe_dispatch",))
+    del eng, model, params
+    torch.cuda.empty_cache()
+    print(f"slice N: wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_slice_v() -> dict:
+    """Slice V: internvl2-26b at full width (48/8 heads, hd 128, d_ff
+    16384, vocab 92553) cut to 4 of its 48 layers.  bf16:
+    ``Model.prefill`` on 4 x 1024 tokens whose first 256 positions are
+    seeded vision embeddings (the logits finite, and moved by the vision
+    prefix), then ``Engine`` on slice A's 16 requests on tokens alone.
+    f32 on the same cut: 8 ``decode_step``s through the decode kernel
+    after a 1024-token prefill with the vision prefix, each within 2e-3
+    of a 1032-token prefill's logits at its position."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_inputs
+    from repro_torch.serve import Engine
+    t_phase = time.perf_counter()
+    model, params = _full_width(MOE_ARCHS["V"], layers=4, max_seq=2048)
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    inputs = make_inputs(cfg, ShapeConfig("slice_v", 1032, 4, "prefill"),
+                         gen)
+    toks, ve = inputs["tokens"], inputs["vision_embeds"]
+    batch = {"tokens": toks[:, :1024], "vision_embeds": ve}
+    last = torch.full((4,), 1023, device=DEVICE)
+    lg, _ = model.prefill(params, batch, logits_at=last)        # warm
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, batch, logits_at=last)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(lg).all())
+          and tuple(lg.shape) == (4, 1, cfg.vocab_size),
+          f"slice V: prefill logits {tuple(lg.shape)} not finite")
+    lg0, _ = model.prefill(params, {"tokens": toks[:, :1024]},
+                           logits_at=last)
+    moved = float((lg0 - lg).abs().max())
+    check(moved > 0, "slice V: the vision embeddings moved no logit")
+    wall = statistics.median(walls)
+    print(f"slice V: Model.prefill 4 x 1024 tokens with 256 vision "
+          f"embeddings: {wall * 1e3:.2f} ms (median of "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}), "
+          f"{4 * 1024 / wall:.0f} prompt tokens/s; logits finite, the vision "
+          f"prefix moves them by up to {moved:.3g}")
+    del cache, lg, lg0
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8)
+    _no_sync_in_window(eng, "slice V")
+    launches = _served("slice V", eng, _mixed16(cfg.vocab_size),
+                       "decode_attention")
+    del eng, model, params
+    torch.cuda.empty_cache()
+    model, params = _full_width(MOE_ARCHS["V"], layers=4, dtype="float32",
+                                max_seq=2048)
+    B = 2
+    ve32 = ve[:B].float()
+    full, _ = model.prefill(params, {"tokens": toks[:B],
+                                     "vision_embeds": ve32})
+    _, kv = model.prefill(params, {"tokens": toks[:B, :1024],
+                                   "vision_embeds": ve32},
+                          logits_at=torch.full((B,), 1023, device=DEVICE))
+    cache = model.init_cache(B, 1032)
+    for n in ("k", "v"):
+        cache[n][:, :, :1024] = kv[n]
+    del kv
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    errs = []
+    for i in range(8):
+        pos = torch.full((B,), 1024 + i, dtype=torch.int32, device=DEVICE)
+        dl, cache = model.decode_step(
+            params, cache, {"tokens": toks[:B, 1024 + i:1025 + i]}, pos,
+            attn_impl="kernel")
+        errs.append(_close(dl[:, 0], full[:, 1024 + i], tol=2e-3,
+                           what=f"slice V decode step {i}"))
+    torch.cuda.synchronize()
+    check(ops.launches["decode_attention"] == 8 * cfg.num_layers,
+          f"slice V: {ops.launches['decode_attention']} decode launches "
+          f"for 8 steps x {cfg.num_layers} layers")
+    print(f"slice V: f32, 8 decode_steps through the decode kernel after a "
+          f"1024-token prefill with the vision prefix == a 1032-token "
+          f"prefill's logits: max|err| {max(errs):.3g} (tol 2e-3)")
+    del full, cache, model, params
+    torch.cuda.empty_cache()
+    print(f"slice V: wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_slice_mp() -> dict:
+    """Slice MP: granite's full width at 4 layers, f32.  The kernel
+    ``Engine`` and ``PagedEngine`` against the same engines on the plain
+    attention and sampler (the same dispatch, so the same drops), token
+    for token; then, at a capacity factor of E / top_k = 5 (C >= S in
+    every group, so nothing can drop), the kernel ``Engine`` against
+    ``EngineReference``, with the drops read from the router and held at
+    0: this is why the two may be compared (``EngineReference`` prefills
+    one token at a time and never drops)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import (Engine, EngineReference, PagedEngine,
+                                   mixed_requests, run_staggered,
+                                   staggered_groups)
+    t_phase = time.perf_counter()
+    model, params = _full_width(MOE_ARCHS["M"], layers=4, dtype="float32",
+                                max_seq=512)
+    cfg = model.cfg
+
+    def reqs():
+        return mixed_requests(8, seed=1, vocab=cfg.vocab_size,
+                              prompt_lens=(16, 128), max_new=(8, 32))
+
+    def shared():
+        return _shared_prefix_workload(8, cfg.vocab_size, 256)
+
+    launches = {}
+    for label, cls, kw, work, group in (
+            ("Engine", Engine, {"max_len": 512}, reqs, 4),
+            ("PagedEngine", PagedEngine, {"max_len": 256, "page_size": 8},
+             shared, 4)):
+        plain = cls(model, params, slots=4, ticks_per_sync=8,
+                    attn_impl="plain", sample_impl="plain", **kw)
+        want = run_staggered(plain, staggered_groups(work(), group))
+        del plain
+        ops.reset_launches()
+        eng = cls(model, params, slots=4, ticks_per_sync=8, **kw)
+        with moe.tally_drops() as tally:
+            got = run_staggered(eng, staggered_groups(work(), group))
+        torch.cuda.synchronize()
+        launches[label] = dict(ops.launches)
+        attn = ("paged_decode_attention" if cls is PagedEngine
+                else "decode_attention")
+        check(got == want, f"slice MP: kernel {label} != plain {label}")
+        check(launches[label][attn] == cfg.num_layers
+              * eng.counts["decode_ticks"] > 0, f"slice MP {label}: {attn} "
+              f"launches")
+        check(launches[label]["fused_sample"] == eng.counts["decode_ticks"]
+              + eng.counts["prefill_calls"], f"slice MP {label}: "
+              f"fused_sample launches")
+        drops, total = moe.dropped(tally)
+        print(f"slice MP: kernel {label} == plain {label} on "
+              f"{len(got)} requests, {sum(map(len, got.values()))} greedy "
+              f"tokens; {drops} of {total} assignments dropped at capacity "
+              f"factor {cfg.moe_capacity_factor}; {attn} "
+              f"{launches[label][attn]}, fused_sample "
+              f"{launches[label]['fused_sample']}")
+        del eng
+    E, K = cfg.num_experts, cfg.top_k
+    wide = build_model(dataclasses.replace(
+        cfg, moe_capacity_factor=E / K), max_seq=512)
+    ref = EngineReference(wide, params, slots=4, max_len=512)
+    want = run_staggered(ref, staggered_groups(reqs(), 4))
+    del ref
+    ops.reset_launches()
+    eng = Engine(wide, params, slots=4, max_len=512, ticks_per_sync=8)
+    with moe.tally_drops() as tally:
+        got = run_staggered(eng, staggered_groups(reqs(), 4))
+    launches["Engine, no drops"] = dict(ops.launches)
+    drops, total = moe.dropped(tally)
+    check(drops == 0, f"slice MP: {drops} assignments dropped at capacity "
+          f"factor {E / K}")
+    check(got == want, "slice MP: kernel Engine != EngineReference with "
+          "nothing dropped")
+    check(launches["Engine, no drops"]["decode_attention"] > 0,
+          "slice MP: no decode launch")
+    print(f"slice MP: capacity factor {E}/{K} = {E / K}: 0 of {total} "
+          f"assignments dropped (every group's C >= its S), so Engine and "
+          f"EngineReference may be compared: kernel Engine == "
+          f"EngineReference on {len(got)} requests, "
+          f"{sum(map(len, got.values()))} greedy tokens")
+    del eng, wide, model, params
+    torch.cuda.empty_cache()
+    print(f"slice MP: wall {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in launches.items()}
+
+
+def phase_moe_verdicts(records: dict) -> None:
+    """Counted bytes of a decode tick on slices M and N against the
+    analytic model's bytes of one decoded token (``core/traffic.py``,
+    which streams only the ``top_k`` active experts; the engines compute
+    every padded expert at capacity C)."""
+    from repro_torch.configs import get_config
+    for label, arch, layers in (("slice M", MOE_ARCHS["M"], None),
+                                ("slice N", MOE_ARCHS["N"], 8)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        _, recs = records[label]
+        dec = next(r for r in recs if r["kind"] == "decode")
+        counted = dec["roofline"]["bytes_per_device"]
+        analytic = _analytic_token_bytes(cfg)
+        print(f"moe traffic {label} ({arch}, {cfg.num_layers} layers): "
+              f"counted {counted:.6e} bytes a decode tick of 8 slots "
+              f"({counted / 8:.6e} a token), analytic {analytic:.6e} bytes "
+              f"a token (top-{cfg.top_k} of {cfg.num_experts} experts "
+              f"streamed); counted tick / analytic token "
+              f"{counted / analytic:.3f}")
+
+
+def phase_moe_alone(flush) -> list:
+    """Slices M, N, V and MP alone (``--only moe``), with slices M's and
+    N's verdicts."""
+    records = {}
+    launches = {"M": phase_slice_m(records), "N": phase_slice_n(records),
+                "V": phase_slice_v(), "MP": phase_slice_mp()}
+    phase_verdicts(records, labels=("slice M", "slice M paged", "slice N"))
+    phase_moe_verdicts(records)
+    print(f"moe launches {json.dumps(launches)}")
+    return []
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -2864,9 +3355,12 @@ def phase_pipeline() -> None:
 # ---------------------------------------------------------------- phase 7b
 
 
-def phase_verdicts(records: dict) -> None:
-    """The NVM verdicts of the full-width slices' own traffic: each
-    engine's and the train window's records (counted from the first
+def phase_verdicts(records: dict, labels=("slice A", "slice D", "slice F",
+                                          "slice G", "slice T", "slice M",
+                                          "slice M paged",
+                                          "slice N")) -> None:
+    """The NVM verdicts of the full-width slices' own traffic (``labels``
+    of ``records``): each engine's and the train window's records (counted from the first
     decode window and the first prefill of each padded length, or the
     first train window) and their SRAM/STT/SOT energy and EDP ratios at
     the modeled TPU tier (times modeled at its constants, not measured
@@ -2874,7 +3368,7 @@ def phase_verdicts(records: dict) -> None:
     and a prefill record, slice T a train record."""
     import math
     from repro_torch.core.crosslayer import analyze_serve, analyze_train
-    for label in ("slice A", "slice D", "slice F", "slice G", "slice T"):
+    for label in labels:
         kind, recs = records[label]
         want = {"decode", "prefill"} if kind == "serve" else {"train"}
         kinds = {r["kind"] for r in recs}
@@ -3025,7 +3519,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "cachesim": "phase_cachesim",
                  "recurrent": "phase_recurrent_walls",
                  "serve": "phase_recurrent_serve",
-                 "resilience": "phase_resilience_alone"}
+                 "resilience": "phase_resilience_alone",
+                 "moe": "phase_moe_alone"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -3128,6 +3623,13 @@ def main() -> None:
         phase_slice_u(Path(tmp))
     torch.cuda.empty_cache()
     stamp("slices T, U")
+    launches_m = phase_slice_m(records)
+    stamp("slice M")
+    launches_n = phase_slice_n(records)
+    stamp("slice N")
+    launches_v = phase_slice_v()
+    launches_mp = phase_slice_mp()
+    stamp("slices V, MP")
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     launches_c, rows = phase_slice_c(ns_per_update, scratch.zero_)
     del scratch
@@ -3136,16 +3638,27 @@ def main() -> None:
     phase_pipeline()
     stamp("pipeline")
     phase_verdicts(records)
+    phase_moe_verdicts(records)
     phase_traffic_card_vs_cpu()
     stamp("verdicts")
     slice_of = {"paged_decode_attention": launches_d,
                 "ssd_scan": launches_f, "rglru_scan": launches_g,
                 "cache_sim": launches_c, "cache_sim_ladder": launches_c,
                 "flash_attention": launches_t}
+    # the serve kernels' launches on each slice's run (the moe and vlm
+    # slices beside A's and D's)
+    runs = {"A": [launches], "D": [launches_d],
+            "M": [launches_m["dense"], launches_m["paged"]],
+            "N": [launches_n], "V": [launches_v],
+            "MP": list(launches_mp.values())}
     for k in kernels:
         k["launches"] = slice_of.get(k["name"], launches)[k["name"]]
+        by = {s: sum(r.get(k["name"], 0) for r in rs)
+              for s, rs in runs.items()}
+        k["launches_by_slice"] = {s: n for s, n in by.items() if n}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_slice")
     print(json.dumps({"kernels": [{n: k[n] for n in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,13 @@ The rules follow the walker's, op for op:
   does not count the whole cache;
 - a copy between the host and the card counts nothing: the walker sees a
   program's arguments already on the device;
-- every other op counts its distinct operands plus its outputs.
+- every other op counts its distinct operands plus its outputs, as the
+  walker counts an instruction that is not a dot, a slice or a fusion.
+  The MoE dispatch's ops are counted so, as the walker counts their HLO:
+  a stable ``sort`` (keys in; sorted keys and indices out, as XLA's sort
+  of keys and an iota), ``gather`` and ``index`` (operand, indices,
+  result), ``scatter_add_`` / ``index_add_`` (the whole operand in and
+  out, the indices and the updates, as XLA's scatter) and ``cumsum``.
 
 Autograd runs the backward on a worker thread on the card; the mode
 reaches it with the rest of the thread-local state that autograd carries

@@ -10,6 +10,10 @@
         --no-reduced --slots 8 --max-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --no-reduced --slots 8 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --no-reduced --slots 8 --max-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --paged --shared-prefix
     PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 0.5 \
         --burst-amp 0.6 --deadline-ticks 64 --max-queue-depth 4 \
         --trace-out /tmp/serve.json
@@ -36,9 +40,11 @@ family and the engines that serve it, then exits.  ``--paged`` serves through ``
 page pool with radix-tree prefix sharing) and prints its page and prefix
 counters; ``--shared-prefix`` (paged only) serves the shared-prefix
 template workload and fails if no prompt token was served from the tree.
-The ssm (mamba2) and hybrid (recurrentgemma) families serve through
-``Engine`` only: ``--paged`` raises ``UnsupportedFamilyError`` for them
-before any weight is made.  ``--verdicts`` (the default) counts the
+The moe (granite, moonshot) and vlm (internvl2, on tokens alone) families
+serve through both engines, as the dense one does.  The ssm (mamba2) and
+hybrid (recurrentgemma) families serve through ``Engine`` only:
+``--paged`` raises ``UnsupportedFamilyError`` for them before any weight
+is made, as every engine does for encdec.  ``--verdicts`` (the default) counts the
 engine's traffic and prints its serve-mode NVM verdicts, the SRAM/STT/SOT
 tier energy and EDP ratios of each serve phase (times modeled at the TPU
 tier's constants, not measured); ``--no-verdicts`` counts nothing.

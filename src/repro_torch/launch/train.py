@@ -28,8 +28,11 @@ window's train-mode NVM verdicts at the end (``--verdicts``, the
 default): the SRAM/STT/SOT tier energy and EDP ratios, times modeled at
 the TPU tier's constants, not measured; ``--no-verdicts`` counts nothing.
 
-Only the dense family trains.  ``--compress-grads`` (EF-int8 gradients)
-is refused: it is not ported yet.  There is no ``--strategy``: one
+Only the dense family trains: an ``--arch`` of another family (the moe,
+vlm, ssm and hybrid configs serve through ``launch/serve.py``) raises
+``UnsupportedFamilyError`` naming it before any weight is made.
+``--compress-grads`` (EF-int8 gradients) is refused: it is not ported
+yet.  There is no ``--strategy``: one
 device.
 """
 import argparse
@@ -43,6 +46,7 @@ from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models.api import check_trainable
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import StragglerMonitor
@@ -89,6 +93,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_trainable(cfg, "launch.train")
     if args.reduced:
         cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256)
     model = build_model(cfg, max_seq=args.seq, device=device)

@@ -2,23 +2,26 @@
 init/loss/prefill/decode_step, the ``StateBank`` contract, and serve
 capability metadata (torch counterpart of ``repro/models/api.py``).
 
-The dense decoder, ssm (mamba2) and hybrid (recurrentgemma) families are
-ported for serving; ``build_model`` raises ``UnsupportedFamilyError`` for
-any other.  Training (``mode="train"``, ``loss``) covers the dense family;
-the ssm and hybrid families raise ``UnsupportedFamilyError`` there.
+The dense decoder, moe (granite, moonshot), vlm (internvl2), ssm
+(mamba2) and hybrid (recurrentgemma) families are ported for serving;
+``build_model`` raises ``UnsupportedFamilyError`` for any other (encdec).
+Training (``mode="train"``, ``loss``) covers the dense family; the other
+families raise ``UnsupportedFamilyError`` there.  ``input_specs`` /
+``make_inputs`` give each shape cell's operands (the vlm family's
+``vision_embeds`` too).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (ParamDefs, Params, cross_entropy,
-                                       materialize)
+                                       materialize, torch_dtype)
 
 
 class UnsupportedFamilyError(ValueError):
@@ -79,10 +82,12 @@ class StateBank:
 
 # Which serve engines can host each family: "dense" = Engine /
 # EngineReference slot caches, "paged" = PagedEngine page pools (positioned
-# KV rows only, so not the recurrent families).  Other families come in
-# later slices.
+# KV rows only, so not the recurrent families).  encdec comes in a later
+# slice.
 _FAMILY_SERVE_MODES: Dict[str, frozenset] = {
     "dense": frozenset({"dense", "paged"}),
+    "moe": frozenset({"dense", "paged"}),
+    "vlm": frozenset({"dense", "paged"}),
     "ssm": frozenset({"dense"}),
     "hybrid": frozenset({"dense"}),
 }
@@ -95,6 +100,17 @@ def serve_families(mode: str):
     """Families servable under engine ``mode`` ("dense" | "paged")."""
     return tuple(sorted(f for f, m in _FAMILY_SERVE_MODES.items()
                         if mode in m))
+
+
+def check_trainable(cfg: ModelConfig, component: str) -> None:
+    """Raise ``UnsupportedFamilyError`` unless the port trains ``cfg``'s
+    family."""
+    if cfg.family not in _TRAIN_FAMILIES:
+        untrained = sorted(set(_FAMILY_SERVE_MODES) - _TRAIN_FAMILIES)
+        raise UnsupportedFamilyError(
+            cfg.family, _TRAIN_FAMILIES, component,
+            detail=f"the {', '.join(untrained)} families train in a later "
+                   f"slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,15 +153,14 @@ class Model:
                 page_table: Optional[torch.Tensor] = None,
                 kv_write_mask: Optional[torch.Tensor] = None,
                 logits_at: Optional[torch.Tensor] = None):
-        """Dispatch per family: the hybrid stack, or the decoder (dense and
-        ssm).  Returns (logits, cache); ``mode="train"`` (dense family)
-        returns (B, S, V) f32 logits under autograd and no cache."""
+        """Dispatch per family: the hybrid stack, or the decoder (dense,
+        moe, vlm and ssm; ``batch["vision_embeds"]`` reaches the vlm
+        embedding).  Returns (logits, cache, aux): ``mode="train"`` (dense
+        family) gives (B, S, V) f32 logits under autograd and no cache;
+        ``aux`` is the MoE load-balancing loss in train mode, else None."""
         cfg = self.cfg
-        if mode == "train" and cfg.family not in _TRAIN_FAMILIES:
-            raise UnsupportedFamilyError(
-                cfg.family, _TRAIN_FAMILIES, "repro_torch training",
-                detail="ssm and hybrid training (ssd_chunked under "
-                       "checkpoint) come in a later slice")
+        if mode == "train":
+            check_trainable(cfg, "repro_torch training")
         if cfg.family in ("ssm", "hybrid") and page_table is not None:
             raise ValueError("paged KV serving requires a dense decoder "
                              f"({cfg.family} has recurrent state)")
@@ -153,12 +168,13 @@ class Model:
             return tf.hybrid_forward(cfg, params, batch["tokens"], mode=mode,
                                      cache=cache, cache_pos=cache_pos,
                                      attn_impl=attn_impl,
-                                     logits_at=logits_at)
+                                     logits_at=logits_at) + (None,)
         return tf.decoder_forward(cfg, params, batch["tokens"], mode=mode,
                                   cache=cache, cache_pos=cache_pos,
                                   attn_impl=attn_impl, logits_at=logits_at,
                                   page_table=page_table,
-                                  kv_write_mask=kv_write_mask)
+                                  kv_write_mask=kv_write_mask,
+                                  vision_embeds=batch.get("vision_embeds"))
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
              attn_impl: str = "kernel") -> torch.Tensor:
@@ -166,8 +182,8 @@ class Model:
         ``batch["labels"]`` (both (B, S) int), differentiable.
         ``attn_impl="kernel"`` attends through the flash kernel (its plain
         version on CPU tensors), ``"plain"`` through naive attention."""
-        logits, _ = self.forward(params, batch, mode="train",
-                                 attn_impl=attn_impl)
+        logits, _, _ = self.forward(params, batch, mode="train",
+                                    attn_impl=attn_impl)
         return cross_entropy(logits, batch["labels"], self.cfg.final_softcap)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
@@ -175,9 +191,12 @@ class Model:
         """Full-prompt forward: (logits, fresh cache) — the stacked KV
         (dense), or the recurrent state and ring caches after the prompt
         (ssm, hybrid), whose sequence scans run through ``ops.ssd_scan``
-        and ``ops.rglru_scan`` (the CUDA kernels on CUDA tensors)."""
-        return self.forward(params, batch, mode="prefill",
-                            attn_impl="kernel", logits_at=logits_at)
+        and ``ops.rglru_scan`` (the CUDA kernels on CUDA tensors).  A vlm
+        batch may carry ``vision_embeds`` (B, Nv, D)."""
+        logits, cache, _ = self.forward(params, batch, mode="prefill",
+                                        attn_impl="kernel",
+                                        logits_at=logits_at)
+        return logits, cache
 
     def decode_step(self, params: Params, cache: Params,
                     batch: Dict[str, torch.Tensor], pos: torch.Tensor, *,
@@ -195,10 +214,11 @@ class Model:
         each row's first write position; S > 1 tokens per row is the paged
         suffix prefill (writes masked by ``kv_write_mask``), returning
         (B, S, V) logits, or (B, 1, V) at token index ``logits_at[b]``."""
-        return self.forward(params, batch, mode="decode", cache=cache,
-                            cache_pos=pos, attn_impl=attn_impl,
-                            page_table=page_table,
-                            kv_write_mask=kv_write_mask, logits_at=logits_at)
+        logits, cache, _ = self.forward(
+            params, batch, mode="decode", cache=cache, cache_pos=pos,
+            attn_impl=attn_impl, page_table=page_table,
+            kv_write_mask=kv_write_mask, logits_at=logits_at)
+        return logits, cache
 
     # ---- serve capability metadata -------------------------------------
     @property
@@ -229,11 +249,55 @@ def build_model(cfg: ModelConfig, max_seq: int = 4096,
     if cfg.family not in _FAMILY_SERVE_MODES:
         raise UnsupportedFamilyError(
             cfg.family, _FAMILY_SERVE_MODES, "repro_torch.build_model",
-            detail="only the dense, ssm and hybrid families are ported "
-                   "so far")
+            detail="the encdec family is not ported yet")
     if not cfg.scan_layers and cfg.family != "hybrid":
-        raise ValueError("the port keeps dense and ssm layers stacked "
-                         "(scan_layers=True)")
+        raise ValueError("the port keeps dense, moe, vlm and ssm layers "
+                         "stacked (scan_layers=True)")
     return Model(cfg=cfg, max_seq=max_seq,
                  param_defs=tf.model_param_defs(cfg),
                  device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# input specs (each shape cell's operands)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{name: (shape, dtype)}`` of one (arch x shape) cell's operands, as
+    ``repro.models.api.input_specs`` gives them for the families the port
+    builds: train -> tokens, labels; prefill -> tokens; decode -> tokens
+    (B, 1) (the cache comes from ``Model.cache_defs``); the vlm family's
+    train and prefill cells add ``vision_embeds`` (B, vision_tokens, D)
+    in the model dtype."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": ((B, 1), i32)}
+    specs = {"tokens": ((B, S), i32)}
+    if shape.kind == "train":
+        specs["labels"] = ((B, S), i32)
+    if cfg.family == "vlm":
+        specs["vision_embeds"] = ((B, cfg.vision_tokens, cfg.d_model),
+                                  torch_dtype(cfg.dtype))
+    return specs
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeConfig,
+                generator: torch.Generator,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Random operands matching ``input_specs``, drawn from ``generator``
+    (on its own device) in the specs' order: uniform tokens in [0, vocab)
+    and standard normal embeddings (drawn in f32, then cast)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, (shp, dt) in input_specs(cfg, shape).items():
+        if dt == torch.int32:
+            t = torch.randint(0, cfg.vocab_size, shp, generator=generator,
+                              device=generator.device, dtype=torch.int64)
+        else:
+            t = torch.randn(shp, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+        out[name] = t.to(device=dev, dtype=dt)
+    return out

@@ -1,5 +1,5 @@
-"""Decoder assembly (torch counterpart of the dense, ssm and hybrid parts
-of ``repro/models/transformer.py``).
+"""Decoder assembly (torch counterpart of the dense, moe, vlm, ssm and
+hybrid parts of ``repro/models/transformer.py``).
 
 Modes:
   train   — full-sequence forward under autograd (dense family), each
@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, ParamDefs, Params,
@@ -48,7 +49,10 @@ def _decoder_layer_defs(cfg: ModelConfig) -> ParamDefs:
         return defs
     defs.update(_prefix("attn", attn_mod.attn_param_defs(cfg)))
     defs["ln2/g"] = ParamDef((D,), (None,), init="zeros")
-    defs.update(_prefix("mlp", mlp_mod.mlp_param_defs(cfg)))
+    if cfg.is_moe:
+        defs.update(_prefix("moe", moe_mod.moe_param_defs(cfg)))
+    else:
+        defs.update(_prefix("mlp", mlp_mod.mlp_param_defs(cfg)))
     return defs
 
 
@@ -150,24 +154,41 @@ def _layers(cfg: ModelConfig, params: Params) -> List[Params]:
 
 def _decoder_layer(cfg: ModelConfig, p: Params, x, *, rope_cs, window,
                    cache=None, cache_pos=None, return_kv=False, impl="plain",
-                   page_table=None, kv_write_mask=None):
-    """Dense or ssm layer body. Returns (x, new_cache)."""
+                   page_table=None, kv_write_mask=None, with_aux=False):
+    """Dense, moe, vlm or ssm layer body. Returns (x, new_cache, aux): aux
+    is the MoE router's load-balancing loss when ``with_aux`` and the
+    layer has a router, else None."""
     if cfg.family == "ssm":
         h, new_state = ssm_mod.ssm_block(
             cfg, subtree(p, "ssm"), rms_norm(x, p["ln1/g"]), state=cache)
-        return x + h, new_state
+        return x + h, new_state, None
     h, new_cache = attn_mod.attention_block(
         cfg, subtree(p, "attn"), rms_norm(x, p["ln1/g"]),
         rope_cs=rope_cs, window=window, cache=cache,
         cache_pos=cache_pos, return_kv=return_kv, impl=impl,
         page_table=page_table, kv_write_mask=kv_write_mask)
     x = x + h
-    m = mlp_mod.mlp_block(cfg, subtree(p, "mlp"), rms_norm(x, p["ln2/g"]))
-    return x + m, new_cache
+    z = rms_norm(x, p["ln2/g"])
+    if cfg.is_moe:
+        m, aux = moe_mod.moe_block(cfg, subtree(p, "moe"), z,
+                                   with_aux=with_aux)
+    else:
+        m, aux = mlp_mod.mlp_block(cfg, subtree(p, "mlp"), z), None
+    return x + m, new_cache, aux
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens) -> torch.Tensor:
-    return params["emb/tok"][tokens].to(torch_dtype(cfg.dtype))
+def _embed(cfg: ModelConfig, params: Params, tokens,
+           vision_embeds=None) -> torch.Tensor:
+    """Token embeddings; for the vlm family, ``vision_embeds`` (B, Nv, D)
+    replace each row's first Nv positions (the vision-tower stub)."""
+    x = params["emb/tok"][tokens].to(torch_dtype(cfg.dtype))
+    if cfg.family == "vlm" and vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        if nv > x.shape[1]:
+            raise ValueError(f"{nv} vision embeddings for {x.shape[1]} "
+                             f"positions")
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
@@ -193,8 +214,9 @@ def decoder_forward(
     logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
     page_table: Optional[torch.Tensor] = None,  # paged: (B, nb) int32
     kv_write_mask: Optional[torch.Tensor] = None,   # paged suffix: (B, S)
-) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (logits, cache).
+    vision_embeds: Optional[torch.Tensor] = None,   # vlm: (B, Nv, D)
+) -> Tuple[torch.Tensor, Optional[Params], Optional[torch.Tensor]]:
+    """Returns (logits, cache, aux).
 
     Prefill returns (B, S, V) logits — or (B, 1, V) at token index
     ``logits_at[b]`` when given, which saves the full (B, S, V) f32 tensor
@@ -207,15 +229,21 @@ def decoder_forward(
     S > 1 the paged suffix prefill (positions ``cache_pos[b] + s``, writes
     masked by ``kv_write_mask``), which takes ``logits_at`` as prefill
     does.  ``attn_impl`` ("plain" | "kernel") selects the decode tick's
-    attention, and in train mode (dense family only; logits (B, S, V) f32
-    and no cache) the flash kernel or naive attention (see
-    ``_train_forward``).  The ssm family's cache is its recurrent state
-    (see ``_ssm_forward``); it has no kernel in its decode tick."""
+    attention, and in train mode (logits (B, S, V) f32 and no cache) the
+    flash kernel or naive attention (see ``_train_forward``).  The ssm
+    family's cache is its recurrent state (see ``_ssm_forward``); it has
+    no kernel in its decode tick.
+
+    ``aux`` is the summed MoE load-balancing loss in train mode (moe
+    family); None otherwise (the serve modes do not compute it).  The vlm
+    family's ``vision_embeds`` replace the first positions of each row
+    (``_embed``)."""
     S = tokens.shape[1]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, vision_embeds)
     if cfg.family == "ssm":
         return _ssm_forward(cfg, params, x, mode=mode, cache=cache,
-                            cache_pos=cache_pos, logits_at=logits_at)
+                            cache_pos=cache_pos, logits_at=logits_at) + (
+                                None,)
     windows = layer_windows(cfg)
     layers = _layers(cfg, params)
 
@@ -229,16 +257,16 @@ def decoder_forward(
                                       device=x.device)[None, :])
     if mode == "train":
         return _train_forward(cfg, params, x, layers, windows, rope_cs,
-                              attn_impl), None
+                              attn_impl)
     if mode == "prefill":
         ks, vs = [], []
         for lp, w in zip(layers, windows):
-            x, kv = _decoder_layer(cfg, lp, x, rope_cs=rope_cs, window=w,
-                                   return_kv=True)
+            x, kv, _ = _decoder_layer(cfg, lp, x, rope_cs=rope_cs, window=w,
+                                      return_kv=True)
             ks.append(kv["k"])
             vs.append(kv["v"])
         return (_unembed(cfg, params, _pick(x, logits_at)),
-                {"k": torch.stack(ks), "v": torch.stack(vs)})
+                {"k": torch.stack(ks), "v": torch.stack(vs)}, None)
     if mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
                          f"'decode')")
@@ -250,17 +278,18 @@ def decoder_forward(
     rope_cs = tables(cache_pos.to(torch.int32)[:, None] + torch.arange(
         S, dtype=torch.int32, device=x.device)[None, :])
     for i, (lp, w) in enumerate(zip(layers, windows)):
-        x, _ = _decoder_layer(
+        x, _, _ = _decoder_layer(
             cfg, lp, x, rope_cs=rope_cs, window=w,
             cache={"k": cache["k"][i], "v": cache["v"][i]},
             cache_pos=cache_pos, impl=attn_impl, page_table=page_table,
             kv_write_mask=kv_write_mask)
-    return _unembed(cfg, params, _pick(x, logits_at)), cache
+    return _unembed(cfg, params, _pick(x, logits_at)), cache, None
 
 
 def _train_forward(cfg: ModelConfig, params: Params, x, layers, windows,
-                   rope_cs, attn_impl: str) -> torch.Tensor:
-    """The dense stack in train mode: (B, S, V) f32 logits under autograd.
+                   rope_cs, attn_impl: str):
+    """The decoder stack in train mode: ((B, S, V) f32 logits under
+    autograd, no cache, the summed MoE aux loss or None).
 
     Rematerialisation follows ``_maybe_remat``: with ``cfg.remat`` other
     than "none" each layer runs under ``torch.utils.checkpoint``
@@ -270,16 +299,20 @@ def _train_forward(cfg: ModelConfig, params: Params, x, layers, windows,
     and is treated as "full".  The model draws no random numbers, so the
     RNG state is not stashed for the recompute."""
     def layer(xc, lp, w):
-        return _decoder_layer(cfg, lp, xc, rope_cs=rope_cs, window=w,
-                              impl=attn_impl)[0]
+        y, _, aux = _decoder_layer(cfg, lp, xc, rope_cs=rope_cs, window=w,
+                                   impl=attn_impl, with_aux=cfg.is_moe)
+        return y, aux
 
+    aux_total = None
     for lp, w in zip(layers, windows):
         if cfg.remat == "none":
-            x = layer(x, lp, w)
+            x, aux = layer(x, lp, w)
         else:
-            x = checkpoint(layer, x, lp, w, use_reentrant=False,
-                           preserve_rng_state=False)
-    return _unembed(cfg, params, x)
+            x, aux = checkpoint(layer, x, lp, w, use_reentrant=False,
+                                preserve_rng_state=False)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return _unembed(cfg, params, x), None, aux_total
 
 
 def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):
@@ -312,7 +345,7 @@ def _ssm_forward(cfg: ModelConfig, params: Params, x, *, mode, cache,
     if mode == "prefill":
         convs, ssms = [], []
         for lp in layers:
-            x, st = _decoder_layer(cfg, lp, x, rope_cs=None, window=0)
+            x, st, _ = _decoder_layer(cfg, lp, x, rope_cs=None, window=0)
             convs.append(st["conv"])
             ssms.append(st["ssm"])
         return (_unembed(cfg, params, _pick(x, logits_at)),
@@ -320,7 +353,7 @@ def _ssm_forward(cfg: ModelConfig, params: Params, x, *, mode, cache,
     _check_decode(mode, cache, cache_pos, x.shape[1])
     new = {n: torch.empty_like(c) for n, c in cache.items()}
     for i, lp in enumerate(layers):
-        x, st = _decoder_layer(
+        x, st, _ = _decoder_layer(
             cfg, lp, x, rope_cs=None, window=0,
             cache={"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
         new["conv"][i] = st["conv"]

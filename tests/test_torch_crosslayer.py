@@ -90,7 +90,11 @@ BYTE_BANDS = {("dense", "decode"): (0.56, 0.63),
               ("ssm", "prefill"): (0.81, 0.90),
               ("hybrid", "decode"): (0.94, 1.04),
               ("hybrid", "prefill"): (1.14, 1.27),
-              ("dense", "train"): (0.81, 0.90)}
+              ("dense", "train"): (0.81, 0.90),
+              ("moe", "decode"): (0.93, 1.03),
+              ("moe", "prefill"): (1.06, 1.17),
+              ("paged moe", "decode"): (0.91, 1.01),
+              ("paged moe", "prefill"): (0.96, 1.25)}
 
 
 def _close(a, b, rel=REL):
@@ -508,7 +512,9 @@ def test_uncounted_iterations_and_kernels_leave_the_dispatch_stack():
 @pytest.mark.parametrize("arch,paged", [("llama3-8b", False),
                                         ("llama3-8b", True),
                                         ("mamba2-1.3b", False),
-                                        ("recurrentgemma-2b", False)])
+                                        ("recurrentgemma-2b", False),
+                                        ("granite-moe-3b-a800m", False),
+                                        ("granite-moe-3b-a800m", True)])
 def test_engine_counts_a_window_and_a_scan_by_their_first_step(
         arch, paged, monkeypatch):
     """The decode window's ticks and the recurrent prefill scan's steps run
@@ -647,7 +653,7 @@ def test_byte_bands_lie_within_half_to_four():
 def _unembed_rows(cfg, rec):
     """Products of the JAX prefill's unembedding of the P - 1 positions
     per slot that the port's ``logits_at`` prefill does not unembed."""
-    if cfg.family != "dense" or rec["kind"] != "prefill":
+    if cfg.family not in ("dense", "moe") or rec["kind"] != "prefill":
         return 0.0
     P_ = int(re.search(r"_p(\d+)_", rec["shape"]).group(1))
     return 2.0 * SLOTS * (P_ - 1) * cfg.d_model * cfg.vocab_size
@@ -656,7 +662,9 @@ def _unembed_rows(cfg, rec):
 @pytest.mark.parametrize("arch,paged", [("llama3-8b", False),
                                         ("llama3-8b", True),
                                         ("mamba2-1.3b", False),
-                                        ("recurrentgemma-2b", False)])
+                                        ("recurrentgemma-2b", False),
+                                        ("granite-moe-3b-a800m", False),
+                                        ("granite-moe-3b-a800m", True)])
 def test_serve_records_match_jax(arch, paged, walker_texts):
     jmodel, jparams, model, params = _models(arch)
     kw = dict(slots=SLOTS, max_len=MAX_LEN, ticks_per_sync=K)
@@ -671,7 +679,9 @@ def test_serve_records_match_jax(arch, paged, walker_texts):
     recs, jrecs = eng.serve_records(), jeng.serve_records()
     assert [r["shape"] for r in recs] == [r["shape"] for r in jrecs]
     assert len(recs) >= 2
-    fam = "paged" if paged else model.cfg.family
+    fam = model.cfg.family
+    if paged:
+        fam = "paged" if fam == "dense" else f"paged {fam}"
     for r, j in zip(recs, jrecs):
         for key in ("arch", "mesh", "kind", "family", "ticks", "calls",
                     "read_fraction"):

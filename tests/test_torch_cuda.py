@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, a train step on the
 flash kernel against the plain path, the paged
 engine and the recurrent families' engine on their kernels against
-``EngineReference``, the dense engine's faults and retries on its
+``EngineReference``, the moe family's engines on their kernels against
+their plain twins, the dense engine's faults and retries on its
 kernels, and the traffic count of an engine and a train window
 against the CPU's, on the card.
 
@@ -50,6 +51,9 @@ def dev():
     (3, 8, 2, 700, 16, 40, 30.0),
     (4, 32, 32, 300, 96, 0, 0.0),      # phi3-mini-3.8b's heads
     (2, 6, 3, 1000, 96, 100, 50.0),
+    (8, 24, 8, 1024, 64, 0, 0.0),      # granite-moe-3b-a800m's heads
+    (8, 16, 16, 1024, 128, 0, 0.0),    # moonshot-v1-16b-a3b's
+    (8, 48, 8, 1024, 128, 0, 0.0),     # internvl2-26b's
 ])
 def test_decode_attention_kernel_matches_plain(dev, dtype, B, H, K, L, hd,
                                                window, cap):
@@ -118,7 +122,9 @@ def test_decode_attention_split_edge_cases(dev, dtype, B, L, window, pos):
 
 
 @pytest.mark.parametrize("B,V", [(6, 128256), (6, 1000), (6, 31),
-                                 (1, 128256), (64, 128256)])
+                                 (1, 128256), (64, 128256),
+                                 # granite, moonshot and internvl2 vocabs
+                                 (8, 49155), (8, 163840), (8, 92553)])
 def test_fused_sample_kernel_matches_plain(dev, B, V):
     """Greedy rows bitwise torch.argmax, temperature rows the plain
     version's tokens up to last-ulp ties, on rows split over a cluster: a
@@ -332,6 +338,9 @@ def _paged_inputs(dev, dtype, B, H, K, hd, ps, nb, shared, seed):
     (3, 8, 2, 16, 16, 5, 1, 9, 50.0),
     (4, 32, 32, 96, 8, 16, 4, 0, 0.0),        # phi3-mini-3.8b's heads
     (2, 6, 3, 96, 16, 8, 2, 20, 30.0),
+    (8, 24, 8, 64, 8, 128, 64, 0, 0.0),       # granite-moe-3b-a800m
+    (8, 16, 16, 128, 8, 128, 64, 0, 0.0),     # moonshot-v1-16b-a3b
+    (8, 48, 8, 128, 8, 128, 64, 0, 0.0),      # internvl2-26b
 ])
 def test_paged_attention_kernel_matches_plain(dev, dtype, B, H, K, hd, ps,
                                               nb, shared, window, cap):
@@ -928,3 +937,100 @@ def test_traffic_count_on_card_equals_cpu(dev):
     assert train["cuda"] == train["cpu"]
     assert train["cpu"][0].kernel_calls == {
         "flash_attention": 2 * 2 * tcfg.num_layers}
+
+
+def _granite(dev, max_seq=64):
+    """Reduced granite-moe-3b-a800m (head_dim 16, 8 experts padded to 16,
+    top-2) at float32 with seeded weights."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_config("granite-moe-3b-a800m"), dtype="float32")
+    model = build_model(cfg, max_seq=max_seq, device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def test_moe_decode_window_has_no_host_sync(dev):
+    """A reduced granite ``Engine`` runs its first (counted) and second
+    decode windows under the "error" sync-debug mode: the dispatch's
+    sort, ranks and gathers keep fixed shapes and never wait on the
+    card."""
+    from repro_torch.serve import Request
+    from repro_torch.serve import Engine
+    model, params = _granite(dev)
+    eng = Engine(model, params, slots=3, max_len=64, ticks_per_sync=4,
+                 device=dev)
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=list(range(1 + i, 30 + i)),
+                           max_new_tokens=9))
+    eng._admit()
+    eng._pre_window()
+    before = ops.launches["decode_attention"]
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = eng._window()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng._traffic["decode"] is not None
+    assert ops.launches["decode_attention"] - before == \
+        2 * 4 * model.cfg.num_layers
+    assert bool((out[0] >= 0).all())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_engine_kernels_match_their_plain_twin(dev, paged):
+    """The kernel ``Engine`` / ``PagedEngine`` against the same engine on
+    the plain attention and sampler, greedy, token for token, on reduced
+    granite (head_dim 16): the same dispatch, so the same drops; one
+    attention launch per layer and tick, one sampler launch per tick and
+    prefill."""
+    from repro_torch.serve import (Engine, PagedEngine, mixed_requests,
+                                   run_staggered, shared_prefix_requests,
+                                   staggered_groups)
+    model, params = _granite(dev)
+    cls, kw = (PagedEngine, {"page_size": 8}) if paged else (Engine, {})
+
+    def reqs():
+        if paged:
+            return shared_prefix_requests(6, seed=4, num_templates=2,
+                                          template_len=26,
+                                          suffix_lens=(2, 6), max_new=(2, 8))
+        return mixed_requests(6, seed=9, vocab=model.cfg.vocab_size,
+                              prompt_lens=(20, 32), max_new=(2, 8))
+
+    plain = cls(model, params, slots=3, max_len=64, ticks_per_sync=4,
+                attn_impl="plain", sample_impl="plain", device=dev, **kw)
+    want = run_staggered(plain, staggered_groups(reqs(), 3))
+    ops.reset_launches()
+    eng = cls(model, params, slots=3, max_len=64, ticks_per_sync=4,
+              device=dev, **kw)
+    assert run_staggered(eng, staggered_groups(reqs(), 3)) == want
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    assert ops.launches[attn] == \
+        model.cfg.num_layers * eng.counts["decode_ticks"]
+    assert ops.launches["fused_sample"] == \
+        eng.counts["decode_ticks"] + eng.counts["prefill_calls"]
+
+
+def test_moe_traffic_count_on_card_equals_cpu(dev):
+    """A reduced granite ``Engine``'s traffic records (its decode window
+    and every prefill length) on the card equal the CPU's op for op: the
+    dispatch's sort, scatters and gathers count the same on both."""
+    from repro_torch.serve import Engine, mixed_requests, run_staggered
+    from repro_torch.serve import staggered_groups
+    model, params = _granite(torch.device("cpu"))
+    stats, recs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        m, _ = _granite(d)
+        eng = Engine(m, _to(params, d), slots=3, max_len=64,
+                     ticks_per_sync=4, device=d)
+        reqs = mixed_requests(6, seed=9, vocab=model.cfg.vocab_size,
+                              prompt_lens=(20, 32), max_new=(2, 8))
+        run_staggered(eng, staggered_groups(reqs, 3))
+        tr = eng._traffic
+        stats[d.type] = [tr["decode"]] + [tr["prefill"][P]
+                                          for P in sorted(tr["prefill"])]
+        recs[d.type] = eng.serve_records()
+    assert stats["cuda"] == stats["cpu"]
+    assert recs["cuda"] == recs["cpu"] and len(recs["cpu"]) >= 2

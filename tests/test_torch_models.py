@@ -210,7 +210,7 @@ def test_other_families_raise_unsupported():
     with pytest.raises(UnsupportedFamilyError, match="'encdec'") as ei:
         build_model(reduced(get_config("whisper-tiny")), device="cpu")
     assert ei.value.family == "encdec"
-    assert ei.value.supported == ("dense", "hybrid", "ssm")
+    assert ei.value.supported == ("dense", "hybrid", "moe", "ssm", "vlm")
     assert isinstance(ei.value, ValueError)
 
 
