@@ -6,7 +6,8 @@
 
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
-``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``), of this
+``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``,
+``train_families``), of this
 checkout
 or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
@@ -17,7 +18,9 @@ at slice C's shapes; ``recurrent`` runs slice F's and G's ``Model.prefill``
 on 4 x 2048 tokens and a traced slice G decode window; ``serve`` times
 slice F's and G's serving runs, with the traffic recorded and without;
 ``resilience`` runs phase 4c and its parity at slice B's model alone;
-``moe`` runs phase 5g, slices M, N, V and MP, with M's and N's verdicts).
+``moe`` runs phase 5g, slices M, N, V and MP, with M's and N's verdicts;
+``train_families`` runs phase 5h, slices TS, TG, TM, TV and UR, with the
+verdicts of TS, TG and TM).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -51,7 +54,12 @@ result line:
      for bit with their plain versions: the recurrence (f32 a, b) and the
      gated scan (bf16 x, r, i, Lambda; the gates in the launch), the
      latter timed beside the unfused path (torch prologue + recurrence);
-     all timed as phase 2's kernels;
+     all timed as phase 2's kernels; then both under autograd at those
+     shapes (``SSDScan``: SSD bf16 and f32, its gradients equal plain
+     autograd's of the plain scan within 2e-2 / 2e-5, its backward being
+     that plain recompute; ``RGLRUGatedScan``: f32 (4, 2048, 2560) from
+     h0, the gradients within 2e-5 of plain autograd, three launches),
+     forward + backward timed beside plain autograd, with their bounds;
   2d. the flash-attention kernel (bf16: TMA and wgmma) against its plain
      version on the five shapes of ``tests/test_kernels.py`` (Pallas
      layout), a ragged one (Sq = Skv = 1000, window 256, softcap 30),
@@ -176,14 +184,39 @@ result line:
      and ``PagedEngine`` equal their plain twins token for token, and at
      capacity factor E / top_k (0 drops, read from the router) the kernel
      ``Engine`` equals ``EngineReference``;
+  5h. training of the other families (slice T's recipe: bf16, remat
+     full, AdamW with f32 master weights, 2 ``TrainWindow``s of 4 steps
+     of 4 x 2048 tokens in 2 microbatches, the last under the sync-error
+     mode, one traced step; every parameter's gradient present and finite
+     after one step, losses finite and falling, exact launches): slice
+     TS, mamba2-1.3b at full width and depth (``ssd_scan`` under
+     ``SSDScan``, 1536 launches; the ``ssd_backward`` range's share of
+     the traced step); slice TG, recurrentgemma-2b at full width
+     (``TG_LAYERS`` deep; each R layer's ``rglru_scan`` under
+     ``RGLRUGatedScan``, 4 launches a layer and microbatch, each A
+     layer's flash kernel at window 2048; the ``rglru_backward`` range's
+     share); slice TM, granite-moe-3b-a800m at full width cut to 16 of 32
+     layers (the aux loss, the assignments a step's forward drops, the
+     ``moe_dispatch`` range's share); slice TV, internvl2-26b at full
+     width cut to 2 of 48 layers (4 steps of ``make_train_step`` on
+     batches with 256 seeded vision embeddings a row, then one window on
+     tokens); slice UR, slice U's contracts (kernel path within rel 1e-4
+     of the plain path over 4 steps, gradients within rtol 3e-4 / atol
+     3e-5, window == per-step loop, 2 windows == 1, checkpoint resume,
+     bit for bit under deterministic algorithms, which raise on an op
+     without a deterministic implementation) for mamba2, recurrentgemma
+     and granite at 4 layers, reduced width, f32;
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
      ladder and 64 per-point launches; all 64 (trace, rung) counts equal
-     bit for bit to the 64 per-point ``simulate_reference`` runs and to
-     the plain ladder, the 16 rungs of trace 0 to an OrderedDict LRU
-     carried here, the 3 MB rung of trace 0 to the per-point plain
-     version; kernels and plain versions timed at these shapes, the
+     bit for bit to the 64 per-point ``simulate_reference`` runs, the 16
+     rungs of trace 0 to an OrderedDict LRU carried here; the plain
+     ladder and the per-point plain version (3 MB rung of trace 0),
+     sequential oracles, each run once on the first 2**20 accesses of
+     each trace and equal to the kernels' counts there (one more ladder
+     and per-point launch); kernels timed at full scale, the plain
+     versions at 2**20, the
      ladder's ten CUDA kernels each between CUDA events, and one set of
      2**22 accesses without a repeat (the chain no collapse shortens); the
      longest per-set chain before and after the collapse of repeated hits
@@ -195,7 +228,8 @@ result line:
      identical Algorithm-1 selections and iso-area capacities, PPA and
      traffic fields within rel 1e-6;
   7b. the NVM verdicts of the full-width slices' own traffic: slices A,
-     D, F, G, M (dense and paged) and N (each engine's first decode window, counted under
+     D, F, G, M (dense and paged), N, TS, TG and TM (each engine's first
+     decode window, counted under
      ``OpCounter`` inside the sync-error check of phase 4, and the first
      prefill of each padded length) and T (the first train window); each
      record's flops and bytes, its dominant term and its STT/SOT energy
@@ -210,9 +244,11 @@ result line:
      every counted program's ``OpStats`` equal, op for op;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
-     kernel, and ``launches_by_slice`` with the serve kernels' launches on
-     slices A, D, M, N, V and MP, F's ``Model.prefill`` for the SSD scan, G's serving for the
-     RG-LRU scan, T for flash attention, C for the simulator), error
+     kernel, and ``launches_by_slice`` with the kernels' launches on
+     slices A, D, M, N, V, MP, T, TS, TG, TM and TV, F's
+     ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
+     T for flash attention, C for the simulator; the two scans also with
+     their ``autograd`` forward + backward), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
      an LRU simulation or either scan: null; SDPA for flash attention).
@@ -990,7 +1026,61 @@ def phase_ssd_scan(flush) -> dict:
                    "max_abs_err": main["err"], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
+    row["autograd"] = {str(dtype).split(".")[1]: _ssd_autograd(args, Q, flush)
+                       for dtype, args in by_dtype.items()}
     return row
+
+
+def _ssd_autograd(args, Q, flush) -> dict:
+    """``SSDScan`` (kernel forward, plain backward) against plain
+    autograd of ``ssd_scan_plain`` from the same inputs and upstream
+    gradients (dy, and ds of the final state): every gradient within
+    ``TOL`` (its backward is the plain one at the saved inputs); forward +
+    backward timed beside plain autograd's (medians of 50, L2 flushed).
+    The bound: the inputs and the upstream gradients read once, y, the
+    state and the five gradients written once, and 3x the forward's
+    products (each product's backward is two more)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    dtype = args[0].dtype
+    b, S, H, P = args[0].shape
+    N = args[3].shape[-1]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(14)
+    xs = [t.detach().requires_grad_() for t in args]
+    dy = torch.randn(args[0].shape, generator=gen, device=DEVICE).to(dtype)
+    ds = torch.randn((b, H, P, N), generator=gen, device=DEVICE)
+
+    def kern():
+        return torch.autograd.grad(ops.SSDScan.apply(*xs, Q, None), xs,
+                                   (dy, ds))
+
+    def plain():
+        return torch.autograd.grad(ssd.ssd_scan_plain(*xs, chunk=Q), xs,
+                                   (dy, ds))
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for n, g, w in zip(("x", "dt", "dtA", "B", "C"), got, want):
+        err = max(err, _close(g, w, tol=TOL[dtype],
+                              what=f"SSDScan {dtype} d{n}"))
+    ms = median_ms(kern, flush=flush)
+    plain_ms = median_ms(plain, flush=flush)
+    elt = args[0].element_size()
+    fwd_ms, _, flops, _ = _ssd_bound(b, S, H, P, N, Q, elt, False)
+    nbytes = 2 * sum(t.numel() * elt for t in args) + 2 * b * S * H * P * elt \
+        + 2 * b * H * P * N * 4
+    rate = BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 3 * flops / rate
+    bound = max(t_b, t_f) * 1e3
+    print(f"SSDScan {dtype} (4, 2048, 64, 64, 128) chunk {Q}: gradients "
+          f"within {TOL[dtype]} of plain autograd (max|err| {err:.3g}); "
+          f"forward + backward {ms:.4f} ms (one kernel launch, the plain "
+          f"backward), plain autograd {plain_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({'bytes' if t_b >= t_f else 'operations'})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "max_abs_err": err}
 
 
 def _rglru_bound(B, S, R, elt: int = 4, gated: bool = False):
@@ -1091,7 +1181,63 @@ def phase_rglru_scan(flush) -> dict:
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None}
+    row["autograd"] = _rglru_autograd(gen, flush, 4, 2048, R)
     return row
+
+
+def _rglru_autograd(gen, flush, B, S, R) -> dict:
+    """``RGLRUGatedScan`` at f32 (B, S, R) from a nonzero h0, with
+    upstream gradients on y and the final state, against plain autograd
+    of ``rglru_gated_scan_plain``: every gradient within 2e-5; three
+    kernel launches (the gated forward, the ungated kernel for h and for
+    the reversed adjoint).  Forward + backward timed (median of 50, L2
+    flushed) beside plain autograd's (median of 5: a Python loop of S
+    steps each way).  Two bounds: the function's (x, r, i, dy read, y and
+    dx, dr, di written, lam, h0 and dh small) and the design's (the
+    forward's, the two ungated scans' a, b read and h written, and the
+    gate chain's x, r, i, dy, h and the adjoint read and dx, dr, di
+    written)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    xs = [r(B, S, R), torch.sigmoid(r(B, S, R)), torch.sigmoid(r(B, S, R)),
+          r(R), r(B, R)]
+    xs = [t.requires_grad_() for t in xs]
+    dy, dh = r(B, S, R), r(B, R)
+
+    def kern():
+        return torch.autograd.grad(ops.RGLRUGatedScan.apply(*xs), xs,
+                                   (dy, dh))
+
+    def plain():
+        return torch.autograd.grad(rg.rglru_gated_scan_plain(*xs), xs,
+                                   (dy, dh))
+
+    before = ops.launches["rglru_scan"]
+    got = kern()
+    torch.cuda.synchronize()
+    check(ops.launches["rglru_scan"] == before + 3,
+          "RGLRUGatedScan: not three launches a forward + backward")
+    want = plain()
+    err = 0.0
+    for n, g, w in zip(("x", "r", "i", "lam", "h0"), got, want):
+        err = max(err, _close(g, w, tol=2e-5,
+                              what=f"RGLRUGatedScan d{n}"))
+    ms = median_ms(kern, flush=flush)
+    plain_ms = median_ms(plain, runs=5, flush=flush)
+    n = B * S * R
+    t_fn = (8 * n * 4) / HBM_BYTES_PER_S * 1e3
+    t_design = ((4 * n + 2 * 3 * n + 8 * n) * 4) / HBM_BYTES_PER_S * 1e3
+    print(f"RGLRUGatedScan f32 B={B} S={S} R={R}: gradients within 2e-5 of "
+          f"plain autograd (max|err| {err:.3g}); forward + backward "
+          f"{ms:.4f} ms (3 launches + the gate chain), plain autograd "
+          f"{plain_ms:.4f} ms; bound {t_fn:.5f} ms (bytes, the function), "
+          f"{t_design:.5f} ms (bytes, 2 ungated scans + the gate chain)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": t_fn,
+            "design_bound_ms": t_design, "max_abs_err": err}
 
 
 def _flash_bound(B, H, K, Sq, Skv, hd, elt, causal, window):
@@ -2414,34 +2560,90 @@ def phase_slice_t(records: dict):
     (layers x microbatches x (forward + remat recompute) x steps); then
     traces one more step."""
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
+    return _train_full_width("slice T", cfg, records)
+
+
+def _train_launches(cfg, micro: int, steps: int) -> dict:
+    """The kernel launches ``steps`` train steps of ``cfg`` (remat full,
+    ``micro`` microbatches) make: per layer and microbatch a forward and a
+    remat recompute of the layer's kernel (``ssd_scan``, flash), and for
+    an R layer also the RG-LRU backward's two ungated launches."""
+    from repro_torch.models.transformer import hybrid_pattern
+    n, L = micro * steps, cfg.num_layers
+    if cfg.family == "ssm":
+        return {"ssd_scan": 2 * L * n}
+    if cfg.family == "hybrid":
+        rec = hybrid_pattern(cfg).count("R")
+        return {"rglru_scan": 4 * rec * n, "flash_attention": 2 * (L - rec) * n}
+    return {"flash_attention": 2 * L * n}
+
+
+def _launched() -> dict:
     from repro_torch.kernels import ops
+    return {k: v for k, v in ops.launches.items() if v}
+
+
+def _grads_present(label: str, model, params, batch) -> None:
+    """One loss and backward from ``params``: every parameter's gradient
+    present and finite (a scan whose output left the graph gives None)."""
+    leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+    grads = torch.autograd.grad(model.loss(leaves, batch),
+                                list(leaves.values()), allow_unused=True)
+    bad = [n for n, g in zip(leaves, grads)
+           if g is None or not bool(torch.isfinite(g).all())]
+    check(not bad, f"{label}: gradient missing or not finite: {bad[:6]}")
+    print(f"{label}: all {len(grads)} parameters have a finite gradient "
+          f"after one step")
+
+
+def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
+                      steps_done=0, state=None, model=None,
+                      first_loss=None, peak_lr=1e-3):
+    """Slice T's recipe on ``cfg`` (bf16, remat full): weights from
+    ``torch.Generator(seed=0)``, AdamW with f32 master weights,
+    ``warmup_cosine(peak_lr, 10, 8)``, 2 ``TrainWindow``s of 4 steps of 4 x
+    2048 tokens in 2 microbatches, the last under the sync-error mode;
+    then one traced step.  Checks every parameter's gradient after one
+    step (unless the caller did), finite losses, the last window's mean
+    below the first step's loss and exact kernel launches; records the
+    first window's traffic under ``label``.  ``state``, ``model``,
+    ``steps_done`` and ``first_loss``: go on from a caller's first steps
+    (slice TV), whose gradients the caller checked."""
+    from repro_torch.data import DataConfig, device_batch_at
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.train.trainer import init_state, make_train_window
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
     K, steps, micro, seq, batch = 4, 8, 2, 2048, 4
-    model = build_model(cfg, max_seq=seq, device=DEVICE)
-    opt = AdamW(lr=warmup_cosine(1e-3, 10, steps))
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(0)
-    state = init_state(model, opt, gen)
-    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    dcfg = DataConfig(cfg.vocab_size, seq, batch)
+    opt = AdamW(lr=warmup_cosine(peak_lr, 10, steps))
+    if state is None:
+        model = build_model(cfg, max_seq=seq, device=DEVICE)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        state = init_state(model, opt, gen)
+        torch.cuda.synchronize()
     n = sum(p.numel() for p in state["params"].values())
-    sbytes = sum(t.numel() * t.element_size()
-                 for t in _leaves(state))
-    print(f"slice T: llama3-8b full width, {cfg.num_layers} layers, "
+    sbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    print(f"{label}: {cfg.arch} full width, {cfg.num_layers} layers, "
           f"{cfg.dtype}, remat {cfg.remat}: {n / 1e9:.3f} B parameters, "
-          f"train state {sbytes / 1e9:.2f} GB")
+          f"train state {sbytes / 1e9:.2f} GB; peak lr {peak_lr:.3g}")
+    if not steps_done:
+        first = {k: v[:batch // micro]
+                 for k, v in device_batch_at(dcfg, 0, DEVICE).items()}
+        _grads_present(label, model, state["params"], first)
+        torch.cuda.empty_cache()
     win = make_train_window(model, opt, steps_per_sync=K,
-                            microbatches=micro,
-                            data_cfg=DataConfig(cfg.vocab_size, seq, batch))
+                            microbatches=micro, data_cfg=dcfg)
     torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels import ops
     ops.reset_launches()
     traj = []
-    for w in range(steps // K):
+    windows = (steps - steps_done) // K
+    for w in range(windows):
         t0 = time.perf_counter()
-        if w == 1:
+        if w == windows - 1:
             torch.cuda.set_sync_debug_mode("error")
         try:
             state, m = win(state)
@@ -2451,41 +2653,44 @@ def phase_slice_t(records: dict):
         step_s = (time.perf_counter() - t0) / K
         traj.append(drained)
         tokens = batch * seq
-        print(f"slice T: window {w}: {step_s * 1e3:.1f} ms/step, "
+        print(f"{label}: window {w}: {step_s * 1e3:.1f} ms/step, "
               f"{tokens / step_s:.0f} tok/s, 6N-model-flops utilisation "
               f"{6 * n * tokens / step_s / BF16_FLOPS_PER_S:.4f}; loss "
               f"{[round(x, 4) for x in drained[0]]}, grad_norm "
               f"{[round(x, 3) for x in drained[1]]}, lr "
               f"{[round(x, 6) for x in drained[2]]}")
-    launches = dict(ops.launches)
+    launches = _launched()
     losses = [x for d in traj for x in d[0]]
-    check(all(np.isfinite(losses)), f"slice T: non-finite loss {losses}")
-    check(statistics.mean(traj[-1][0]) < losses[0],
-          f"slice T: last window's mean loss "
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    first_loss = losses[0] if first_loss is None else first_loss
+    check(statistics.mean(traj[-1][0]) < first_loss,
+          f"{label}: last window's mean loss "
           f"{statistics.mean(traj[-1][0]):.4f} not below the first step's "
-          f"{losses[0]:.4f}")
-    want = cfg.num_layers * micro * 2 * steps
-    check(launches["flash_attention"] == want,
-          f"slice T: {launches['flash_attention']} flash launches, want "
-          f"{want}")
-    check(int(state["step"]) == steps, "slice T: step counter")
-    print(f"slice T: {steps} steps, losses finite and falling, "
-          f"{launches['flash_attention']} flash launches, no host sync "
-          f"inside window 1; peak memory "
+          f"{first_loss:.4f}")
+    want = _train_launches(cfg, micro, steps - steps_done)
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    check(int(state["step"]) == steps, f"{label}: step counter")
+    print(f"{label}: {steps} steps, losses finite and falling, launches "
+          f"{launches}, no host sync inside the last window; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; window 0 "
           f"ran with its traffic counted")
-    records["slice T"] = ("train", win.train_records())
-    trace_train_step(model, opt, state, micro, DataConfig(cfg.vocab_size,
-                                                          seq, batch))
+    records[label] = ("train", win.train_records())
+    trace_train_step(model, opt, state, micro, dcfg, scopes=scopes)
+    print(f"{label}: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def _kernel_group(name: str) -> str:
-    """A kernel's group in the train step: the flash kernel, f32 GEMMs
-    (the blockwise attention backward's products), the other GEMMs (bf16
-    projections, MLP, unembedding), everything else."""
+    """A kernel's group in the train step: the flash kernel, the SSD and
+    RG-LRU kernels, f32 GEMMs (the blockwise attention backward's
+    products), the other GEMMs (bf16 projections, MLP, unembedding),
+    everything else."""
     if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
         return "flash kernel"
+    if "ssd_" in name:
+        return "ssd_scan kernels"
+    if "rglru" in name:
+        return "rglru_scan kernels"
     if "f32f32" in name or "sgemm" in name:
         return "f32 GEMM"
     if "nvjet" in name or "gemm" in name.lower():
@@ -2493,10 +2698,12 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def trace_train_step(model, opt, state, micro: int, dcfg) -> None:
+def trace_train_step(model, opt, state, micro: int, dcfg,
+                     scopes=()) -> None:
     """Profile one more train step (a window of 1): its wall time, the
     device time of its kernels, the device's busy share, and the kernels
-    that take the most device time."""
+    that take the most device time; for each profiler range in ``scopes``
+    the device time of its ops' kernels and its share of the kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.trainer import make_train_window
@@ -2509,8 +2716,9 @@ def trace_train_step(model, opt, state, micro: int, dcfg) -> None:
                              ProfilerActivity.CUDA]) as prof:
         win(state)[1]["loss"].cpu()
     wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in scopes]
     dev_ms = lambda e: e.self_device_time_total / 1e3   # noqa: E731
     busy = sum(dev_ms(e) for e in kern)
     print(f"trace: one train step: {wall * 1e3:.1f} ms wall traced, "
@@ -2523,6 +2731,13 @@ def trace_train_step(model, opt, state, micro: int, dcfg) -> None:
                                      for g, ms in groups.most_common()))
     for e in sorted(kern, key=dev_ms, reverse=True)[:10]:
         print(f"  {dev_ms(e):8.2f} ms  {e.count:5d}x  {e.key[:80]}")
+    for name in scopes:
+        host = [e for e in events
+                if e.key == name and e.device_type != DeviceType.CUDA]
+        ms = sum(e.device_time_total for e in host) / 1e3
+        print(f"  range {name}: {ms:.1f} ms of its ops' kernels, "
+              f"{ms / busy:.3f} of the traced kernel time "
+              f"({sum(e.count for e in host)} entries)")
 
 
 def _leaves(tree):
@@ -2541,15 +2756,18 @@ def _host_batches(dcfg, start, n):
             for s in range(start, start + n)]
 
 
-def phase_slice_u(tmp: Path) -> None:
-    """Training parity: llama3-8b cut to 4 layers, reduced width, hd 16,
+def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
+                  label: str = "slice U") -> None:
+    """Training parity: ``arch`` cut to 4 layers, reduced width, hd 16,
     f32, remat full, seq 256, 4 rows in 2 microbatches.  The kernel path's
     loss and grad_norm over 4 steps within rel 1e-4 of the plain path's
-    (naive attention under autograd); one step's gradients within the JAX
-    attention test's bounds (rtol 3e-4, atol 3e-5).  Under deterministic
-    algorithms: the window equals the per-step loop on host batches bit
-    for bit, two windows equal one twice as long, and a checkpoint saved
-    at step 4 and restored resumes to the same step-8 state."""
+    (naive attention and the plain scans under autograd); one step's
+    gradients within the JAX attention test's bounds (rtol 3e-4, atol
+    3e-5).  Under deterministic algorithms: the window equals the
+    per-step loop on host batches bit for bit, two windows equal one
+    twice as long, and a checkpoint saved at step 4 and restored resumes
+    to the same step-8 state; an op without a deterministic
+    implementation raises."""
     import os
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import DataConfig
@@ -2560,7 +2778,7 @@ def phase_slice_u(tmp: Path) -> None:
     from repro_torch.train.trainer import (clone_state, init_state,
                                            make_train_step,
                                            make_train_window)
-    cfg = reduced(get_config("llama3-8b"), dtype="float32", num_layers=4,
+    cfg = reduced(get_config(arch), dtype="float32", num_layers=4,
                   remat="full")
     model = build_model(cfg, max_seq=256, device=DEVICE)
     opt = AdamW(lr=warmup_cosine(1e-3, 2, 8))
@@ -2581,14 +2799,14 @@ def phase_slice_u(tmp: Path) -> None:
 
     ops.reset_launches()
     kern, _ = per_step("kernel", 4)
-    check(ops.launches["flash_attention"] == 4 * 2 * 2 * 4,
-          "slice U: flash launches of the kernel path")
+    check(_launched() == _train_launches(cfg, 2, 4),
+          f"{label}: launches of the kernel path {_launched()}")
     plain, _ = per_step("plain", 4)
     rel = float(((kern - plain).abs() / plain.abs()).max())
-    check(rel <= 1e-4, f"slice U: kernel vs plain loss/grad_norm rel {rel}")
-    print(f"slice U: 4 steps, kernel path {kern[:, 0].tolist()} vs plain "
-          f"{plain[:, 0].tolist()}: max rel diff of loss and grad_norm "
-          f"{rel:.3g} (tol 1e-4)")
+    print(f"{label}: {arch} 4 steps, kernel path {kern[:, 0].tolist()} vs "
+          f"plain {plain[:, 0].tolist()}: max rel diff of loss and "
+          f"grad_norm {rel:.3g} (tol 1e-4)")
+    check(rel <= 1e-4, f"{label}: kernel vs plain loss/grad_norm rel {rel}")
     grads = {}
     for impl in ("kernel", "plain"):
         leaves = {n: p.detach().requires_grad_()
@@ -2599,52 +2817,216 @@ def phase_slice_u(tmp: Path) -> None:
     for a, b, name in zip(grads["kernel"], grads["plain"], state0["params"]):
         err = max(err, float((a - b).abs().max()))
         bad = (a - b).abs() > 3e-5 + 3e-4 * b.abs()
-        check(not bool(bad.any()), f"slice U: gradient of {name} beyond "
-              f"rtol 3e-4 / atol 3e-5")
-    print(f"slice U: one step's gradients, kernel vs plain: max|err| "
+        check(not bool(bad.any()), f"{label}: gradient of {name} beyond "
+              f"rtol 3e-4 / atol 3e-5 (max|err| "
+              f"{float((a - b).abs().max()):.3g})")
+    print(f"{label}: one step's gradients, kernel vs plain: max|err| "
           f"{err:.3g} (rtol 3e-4, atol 3e-5)")
 
-    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    def contracts():
         loop, s_loop = per_step("kernel", 4)
         win = make_train_window(model, opt, steps_per_sync=4,
                                 microbatches=2, data_cfg=dcfg)
         s_win, m = win(clone_state(state0))
         check(torch.equal(torch.stack([m["loss"], m["grad_norm"]], 1), loop)
               and _equal_states(s_win, s_loop),
-              "slice U: window != per-step loop")
+              f"{label}: window != per-step loop")
         win2 = make_train_window(model, opt, steps_per_sync=2,
                                  microbatches=2, data_cfg=dcfg)
         s2, m1 = win2(clone_state(state0))
         s2, m2 = win2(s2)
         check(torch.equal(torch.cat([m1["loss"], m2["loss"]]), m["loss"])
               and _equal_states(s2, s_win),
-              "slice U: two windows of 2 != one window of 4")
-        mgr = CheckpointManager(str(tmp / "slice_u"))
+              f"{label}: two windows of 2 != one window of 4")
+        mgr = CheckpointManager(str(tmp / label.replace(" ", "_") / arch))
         mgr.save(4, s_win, blocking=True)
         s_cont, m_cont = win(s_win)
         like = init_state(model, opt, torch.Generator(device=DEVICE))
         s_res, m_res = win(mgr.restore(like))
         check(int(s_res["step"]) == 8 and _equal_states(s_res, s_cont)
               and torch.equal(m_res["loss"], m_cont["loss"]),
-              "slice U: restored run differs at step 8")
+              f"{label}: restored run differs at step 8")
+
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        contracts()
     finally:
         torch.use_deterministic_algorithms(False)
         if old_env is None:
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
-    print("slice U: deterministic: window == per-step loop, 2 windows == 1 "
-          "window of 4, checkpoint at step 4 restored == uninterrupted at "
-          "step 8, all bit for bit")
+    print(f"{label}: deterministic: window == per-step loop, 2 windows == "
+          f"1 window of 4, checkpoint at step 4 restored == uninterrupted "
+          f"at step 8, all bit for bit")
 
 
 def _equal_states(a, b) -> bool:
     la, lb = _leaves(a), _leaves(b)
     return len(la) == len(lb) and all(torch.equal(x, y)
                                       for x, y in zip(la, lb))
+
+
+# ------------------------------------------------- slices TS, TG, TM, TV, UR
+
+# recurrentgemma-2b's depth on slice TG: all 26 layers (18 R, 8 A)
+TG_LAYERS = 26
+# The peak learning rate of slices TS, TG, TM and TV, a tenth of slice
+# T's, and scaled by 2048 / d_model above d_model 2048: Adam's first
+# steps move every weight by about the learning rate, so a logit by about
+# the learning rate x d_model.  At 1e-3 mamba2-1.3b and internvl2-26b
+# diverge within 8 steps (loss 11.2 -> 15.9, grad_norm 7886 on mamba2) on
+# the plain path as on the kernel path, step for step, and at 1e-4
+# internvl2 (d_model 6144) still does (PERF.md §6)
+FAMILY_PEAK_LR = 1e-4
+
+
+def _family_lr(cfg) -> float:
+    return FAMILY_PEAK_LR * min(1.0, 2048 / cfg.d_model)
+
+
+def phase_slice_ts(records: dict) -> dict:
+    """Slice TS: mamba2-1.3b at full width and depth (48 layers) through
+    slice T's recipe: ``ssd_scan`` under ``SSDScan`` (48 x 2 x 2 launches
+    a step: forward and remat recompute), its plain backward's share
+    of the traced step (range ``ssd_backward``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-1.3b")
+    return _train_full_width("slice TS", cfg, records,
+                             scopes=("ssd_backward",), peak_lr=_family_lr(cfg))
+
+
+def phase_slice_tg(records: dict) -> dict:
+    """Slice TG: recurrentgemma-2b at full width, ``TG_LAYERS`` deep,
+    through slice T's recipe: each R layer's gated ``rglru_scan`` under
+    ``RGLRUGatedScan`` (forward, remat, two ungated launches in the
+    backward), each A layer's flash kernel (window 2048)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              num_layers=TG_LAYERS)
+    if TG_LAYERS != 26:
+        print(f"slice TG: cut to {TG_LAYERS} of 26 layers")
+    return _train_full_width("slice TG", cfg, records,
+                             scopes=("rglru_backward",),
+                             peak_lr=_family_lr(cfg))
+
+
+def phase_slice_tm(records: dict) -> dict:
+    """Slice TM: granite-moe-3b-a800m at full width cut to 16 of 32 layers
+    (32 would hold 62.4 GB of train state) through slice T's recipe; the
+    aux loss and the assignments dropped in one step's forward
+    (``tally_drops``), and the ``moe_dispatch`` range's share of the
+    traced step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, device_batch_at
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCHS["M"]), num_layers=16)
+    launches = _train_full_width("slice TM", cfg, records,
+                                 scopes=("moe_dispatch",),
+                                 peak_lr=_family_lr(cfg))
+    from repro_torch.models import build_model
+    model = build_model(cfg, max_seq=2048, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    batch = device_batch_at(DataConfig(cfg.vocab_size, 2048, 4), 0, DEVICE)
+    with torch.no_grad(), moe.tally_drops() as tally:
+        logits, _, aux = model.forward(params, batch, mode="train",
+                                       attn_impl="kernel")
+    dropped, total = moe.dropped(tally)
+    check(bool(torch.isfinite(aux)) and float(aux) > 0,
+          f"slice TM: aux loss {float(aux)}")
+    print(f"slice TM: at the initial weights, aux loss {float(aux):.6f} "
+          f"(coef {cfg.router_aux_coef}); a step's forward (4 x 2048 "
+          f"tokens, capacity {moe.capacity(cfg, 2048)} a row and expert) "
+          f"drops {dropped} of {total} assignments ({dropped / total:.4f})")
+    return launches
+
+
+def phase_slice_tv(records: dict) -> dict:
+    """Slice TV: internvl2-26b at full width cut to 2 of 48 layers (48
+    would hold 318 GB of train state).  4 steps of ``make_train_step``
+    (slice T's batch, optimizer and microbatches) on batches whose rows
+    carry 256 seeded vision embeddings through ``Model.loss``, the
+    gradients checked on one of them; then one ``TrainWindow`` of 4
+    steps on tokens (the pipeline has no vision rows, as JAX's has none),
+    under the sync-error mode, and one traced step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, device_batch_at
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train.trainer import init_state, make_train_step
+    cfg = dataclasses.replace(get_config(MOE_ARCHS["V"]), num_layers=2)
+    t0 = time.perf_counter()
+    model = build_model(cfg, max_seq=2048, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(_family_lr(cfg), 10, 8))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state = init_state(model, opt, gen)
+    vision = torch.randn((4, cfg.vision_tokens, cfg.d_model), generator=gen,
+                         device=DEVICE).to(torch.bfloat16)
+    dcfg = DataConfig(cfg.vocab_size, 2048, 4)
+    first = {k: v[:2] for k, v in device_batch_at(dcfg, 0, DEVICE).items()}
+    _grads_present("slice TV", model, state["params"],
+                   dict(first, vision_embeds=vision[:2]))
+    torch.cuda.empty_cache()
+    step = make_train_step(model, opt, microbatches=2)
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    losses = []
+    for _ in range(4):
+        batch = dict(device_batch_at(dcfg, state["step"]),
+                     vision_embeds=vision)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    launched = _launched()
+    want = _train_launches(cfg, 2, 4)
+    check(launched == want and all(np.isfinite(losses)),
+          f"slice TV: vision steps: launches {launched} (want {want}), "
+          f"losses {losses}")
+    print(f"slice TV: 4 steps with 256 vision embeddings a row: losses "
+          f"{[round(x, 4) for x in losses]}, launches {launched}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    more = _train_full_width("slice TV", cfg, records, steps_done=4,
+                             state=state, model=model, first_loss=losses[0],
+                             peak_lr=_family_lr(cfg))
+    return {k: launched.get(k, 0) + more.get(k, 0)
+            for k in set(launched) | set(more)}
+
+
+def phase_slice_ur(tmp: Path) -> None:
+    """Slice UR: slice U's parity contracts for mamba2-1.3b,
+    recurrentgemma-2b and granite-moe-3b-a800m (the SSD and RG-LRU kernels
+    under autograd against the plain scans, flash against naive
+    attention)."""
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", MOE_ARCHS["M"]):
+        phase_slice_u(tmp, arch, "slice UR")
+        torch.cuda.empty_cache()
+
+
+def phase_train_families(records: dict, tmp: Path) -> dict:
+    """Slices TS, TG, TM, TV and UR in turn; their launches by slice."""
+    launches = {}
+    for name, phase in (("TS", phase_slice_ts), ("TG", phase_slice_tg),
+                        ("TM", phase_slice_tm), ("TV", phase_slice_tv)):
+        launches[name] = phase(records)
+        torch.cuda.empty_cache()
+    phase_slice_ur(tmp)
+    return launches
+
+
+def phase_train_families_alone(flush) -> list:
+    """Slices TS, TG, TM, TV and UR alone (``--only train_families``),
+    with the verdicts of TS, TG and TM."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    records = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_train_families(records, Path(tmp))
+    phase_verdicts(records, labels=("slice TS", "slice TG", "slice TM"))
+    print(f"train families: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}")
+    return []
 
 
 # ---------------------------------------------------------------- phase 5g
@@ -3172,14 +3554,19 @@ def phase_cachesim(flush):
                                         flush))
 
 
+# accesses a trace that slice C's plain oracles run (2**20 of 2**22)
+ORACLE_T = 2 ** 20
+
+
 def phase_slice_c(ns_per_update: float, flush, W: int = 4,
                   T: int = 2 ** 22, scale: int = 1):
     """The simulator at full scale: 16 rungs at 1:``scale``, ``W`` traces
-    of ``T`` accesses.  Every (trace, rung) count is held against the
-    plain ladder (independent of the update the two kernels share) and
-    the 64 per-point runs, every rung of trace 0 against an OrderedDict
-    LRU, and the 3 MB rung of trace 0 against the per-point plain
-    version.  Returns the launches of the main path and the kernels' rows
+    of ``T`` accesses.  Every (trace, rung) count is held against the 64
+    per-point runs and every rung of trace 0 against an OrderedDict LRU;
+    the plain ladder (independent of the update the two kernels share)
+    and the per-point plain version at the 3 MB rung of trace 0, each a
+    sequential oracle run once, are held to the kernels' counts on the
+    first ``ORACLE_T`` accesses of each trace.  Returns the launches of the main path and the kernels' rows
     for the JSON line, timed at these shapes."""
     from repro_torch.core.cachesim import (ANALYTIC_TOL_PCT, capacity_lines,
                                            dram_reduction_curve,
@@ -3228,31 +3615,38 @@ def phase_slice_c(ns_per_update: float, flush, W: int = 4,
           f"({time.perf_counter() - t0:.1f} s)")
 
     lines = torch.from_numpy(traces.astype(np.int32)).to(DEVICE)
+    # the plain versions are sequential oracles: each runs once, on the
+    # first ORACLE_T accesses of every trace, against the kernels' counts
+    # on the same prefixes
+    pre = lines[:, :ORACLE_T].contiguous()
+    short = ops.cache_sim_ladder(pre, num_sets=ladder, ways=ways).cpu()
     torch.cuda.reset_peak_memory_stats()
     plain, ladder_plain_ms = timed_once(
-        lambda: cs.cache_sim_ladder_plain(lines, ladder, ways=ways))
+        lambda: cs.cache_sim_ladder_plain(pre, ladder, ways=ways))
     plain_peak = torch.cuda.max_memory_allocated()
-    plain = plain.cpu().numpy()
-    check(np.array_equal(counts, plain),
-          f"ladder != plain at {np.argwhere(counts != plain)[:4]}")
-    print(f"slice C: all {W * L} (trace, rung) counts == plain ladder bit "
-          f"for bit; plain {ladder_plain_ms:.1f} ms (once, peak memory "
-          f"{plain_peak / 1e9:.3f} GB); no library call")
-    ladder_err = float(np.abs(counts - plain).max())
+    plain = plain.cpu()
+    check(torch.equal(short, plain),
+          f"ladder != plain at {torch.nonzero(short != plain)[:4].tolist()}")
+    print(f"slice C: all {W * L} (trace, rung) counts of the first "
+          f"{ORACLE_T} accesses == plain ladder bit for bit; plain "
+          f"{ladder_plain_ms:.1f} ms (once, {W} x {ORACLE_T} accesses, peak "
+          f"memory {plain_peak / 1e9:.3f} GB); no library call")
+    ladder_err = float((short - plain).abs().max())
     del plain
     torch.cuda.empty_cache()
 
     raw, col, kept = set_chains(lines, ladder)
     t = time_cachesim(lines, ladder, ladder_mb, ways, kept, flush)
     ns3, (sid, tag) = t["ns3"], t["point_args"]
+    sid, tag = sid[:ORACLE_T], tag[:ORACLE_T]
     got = ops.cache_sim(sid, tag, num_sets=ns3, ways=ways)
     want, point_plain_ms = timed_once(
         lambda: cs.cache_sim_plain(sid, tag, num_sets=ns3, ways=ways))
     check(torch.equal(got, want), f"cache_sim at 3 MB, trace 0: kernel "
           f"{got.tolist()} != plain {want.tolist()}")
-    print(f"slice C: 3 MB rung of trace 0 ({ns3} sets): cache_sim == "
-          f"cache_sim_plain {want.tolist()}; plain {point_plain_ms:.1f} ms "
-          f"(once); no library call")
+    print(f"slice C: 3 MB rung of trace 0 ({ns3} sets), first {ORACLE_T} "
+          f"accesses: cache_sim == cache_sim_plain {want.tolist()}; plain "
+          f"{point_plain_ms:.1f} ms (once); no library call")
     rows = _cachesim_rows(t, {
         "cache_sim_ladder": (ladder_plain_ms, ladder_err),
         "cache_sim": (point_plain_ms, float((got - want).abs().max()))})
@@ -3357,15 +3751,17 @@ def phase_pipeline() -> None:
 
 def phase_verdicts(records: dict, labels=("slice A", "slice D", "slice F",
                                           "slice G", "slice T", "slice M",
-                                          "slice M paged",
-                                          "slice N")) -> None:
+                                          "slice M paged", "slice N",
+                                          "slice TS", "slice TG",
+                                          "slice TM")) -> None:
     """The NVM verdicts of the full-width slices' own traffic (``labels``
     of ``records``): each engine's and the train window's records (counted from the first
     decode window and the first prefill of each padded length, or the
     first train window) and their SRAM/STT/SOT energy and EDP ratios at
     the modeled TPU tier (times modeled at its constants, not measured
-    here).  Every ratio finite and positive; each serve slice has a decode
-    and a prefill record, slice T a train record."""
+    here).  Every ratio, flops and bytes finite and positive; each serve
+    slice has a decode and a prefill record, each train slice a train
+    record."""
     import math
     from repro_torch.core.crosslayer import analyze_serve, analyze_train
     for label in labels:
@@ -3383,6 +3779,9 @@ def phase_verdicts(records: dict, labels=("slice A", "slice D", "slice F",
                       for m in ("STT", "SOT")]
             check(all(math.isfinite(x) and x > 0 for x in ratios),
                   f"{label}: {r['shape']} ratios {ratios}")
+            check(all(math.isfinite(roof[k]) and roof[k] > 0
+                      for k in ("flops_per_device", "bytes_per_device")),
+                  f"{label}: {r['shape']} flops / bytes {roof}")
             per = {"decode": "tick", "prefill": "call", "train": "step"}
             n = r.get("ticks", r.get("calls", r.get("steps")))
             upf = r.get("unique_page_fraction")
@@ -3520,7 +3919,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "recurrent": "phase_recurrent_walls",
                  "serve": "phase_recurrent_serve",
                  "resilience": "phase_resilience_alone",
-                 "moe": "phase_moe_alone"}
+                 "moe": "phase_moe_alone",
+                 "train_families": "phase_train_families_alone"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -3623,6 +4023,10 @@ def main() -> None:
         phase_slice_u(Path(tmp))
     torch.cuda.empty_cache()
     stamp("slices T, U")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_train = phase_train_families(records, Path(tmp))
+    torch.cuda.empty_cache()
+    stamp("slices TS, TG, TM, TV, UR")
     launches_m = phase_slice_m(records)
     stamp("slice M")
     launches_n = phase_slice_n(records)
@@ -3650,7 +4054,8 @@ def main() -> None:
     runs = {"A": [launches], "D": [launches_d],
             "M": [launches_m["dense"], launches_m["paged"]],
             "N": [launches_n], "V": [launches_v],
-            "MP": list(launches_mp.values())}
+            "MP": list(launches_mp.values()), "T": [launches_t],
+            **{s: [n] for s, n in launches_train.items()}}
     for k in kernels:
         k["launches"] = slice_of.get(k["name"], launches)[k["name"]]
         by = {s: sum(r.get(k["name"], 0) for r in rs)
@@ -3659,7 +4064,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_slice")
-    print(json.dumps({"kernels": [{n: k[n] for n in keys} for k in kernels]}))
+    print(json.dumps({"kernels": [{n: k[n] for n in keys + ("autograd",)
+                                   if n in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,6 +14,11 @@ call adds its kernel's declared flops and surface bytes (the kernel
 module's ``traffic``) and one ``kernel_calls`` entry, and nothing inside
 it is counted, on the CPU's plain version as on the card's kernel.  What
 runs is the same with or without a counter.
+
+The two scans train under autograd through ``SSDScan`` and
+``RGLRUGatedScan``: the kernel forward and a backward in plain PyTorch
+(the RG-LRU's around two launches of the ungated kernel), counted op by
+op as any plain code is.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import cache_sim as _cs
@@ -253,6 +259,40 @@ def ssd_scan(x, dt, dtA, Bm, Cm, *, chunk: int,
         return out
 
 
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` under autograd: kernel forward, plain backward, as
+    ``models.attention.FlashAttention`` pairs them.
+
+    Forward: ``ssd_scan`` (the CUDA kernels on CUDA tensors, the plain
+    version on CPU ones); the inputs are saved.  Backward:
+    ``ssd_scan.ssd_scan_backward`` in plain PyTorch on both devices: the
+    chunks recomputed from their entering states under autograd, in
+    groups capped by ``ssd_scan.GROUP_ELEMENTS`` (the JAX package
+    recomputes them one at a time under ``jax.checkpoint``,
+    ``repro/models/ssm.py``).  The
+    gradient is the plain forward's at the saved inputs: the bf16 kernel
+    rounds C.B^T, the weights and the entering states to bf16 for its
+    tensor-core products (y within 0.125 of the plain version's), and
+    the gradient does not follow that rounding.  The final state is an
+    output with its own gradient; an unused one is zeros.  The backward
+    runs inside the profiler range ``ssd_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dtA, Bm, Cm, chunk: int,
+                s0: Optional[torch.Tensor]):
+        ctx.save_for_backward(x, dt, dtA, Bm, Cm, s0)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, dtA, Bm, Cm, chunk=chunk, s0=s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        x, dt, dtA, Bm, Cm, s0 = ctx.saved_tensors
+        with record_function("ssd_backward"):
+            *grads, ds0 = _ssd.ssd_scan_backward(x, dt, dtA, Bm, Cm,
+                                                 ctx.chunk, s0, dy, ds)
+        return (*grads, None, ds0)
+
+
 def ssd_scan_fns():
     """The C entry ``ssd_scan`` of ``csrc/ssd_scan.cu`` and its scratch
     sizer."""
@@ -293,3 +333,24 @@ def rglru_gated_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None
         out = _rg.launch_gated_cuda(fn, x, r, i, lam, h0)
         launches["rglru_scan"] += 1
         return out
+
+
+class RGLRUGatedScan(torch.autograd.Function):
+    """``rglru_gated_scan`` under autograd.  Forward: the gated entry (one
+    CUDA launch on CUDA tensors, the plain version on CPU ones); x, r, i,
+    lam and h0 are saved.  Backward: ``rglru_scan.rglru_gated_scan_backward``
+    with ``rglru_scan`` (the ungated kernel) run twice, once for h in f32
+    and once, reversed in time, for the adjoint; the gate chain in plain
+    PyTorch, inside the profiler range ``rglru_backward``.  An unused
+    final state's gradient is zeros."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, lam, h0: Optional[torch.Tensor]):
+        ctx.save_for_backward(x, r, i, lam, h0)
+        return rglru_gated_scan(x, r, i, lam, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        with record_function("rglru_backward"):
+            return _rg.rglru_gated_scan_backward(
+                rglru_scan, *ctx.saved_tensors, dy, dh)

@@ -45,23 +45,66 @@ def rglru_scan_plain(a, b, h0: Optional[torch.Tensor] = None
     return y, h
 
 
+def _gates(x, r, i, lam):
+    """(softplus(lam), log_a, a, beta, b) in f32, as the JAX package forms
+    them: ``log_a = -8 softplus(lam) r``, ``a = exp(log_a)``, ``beta =
+    sqrt(1 - a^2)`` (as ``sqrt(-expm1(2 log_a))``, stable), ``b = beta i
+    x``; softplus as ``logaddexp(lam, 0)``."""
+    lam = lam.float()
+    sp = torch.logaddexp(lam, torch.zeros_like(lam))
+    log_a = -_C * sp * r.float()
+    a = torch.exp(log_a)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
+    return sp, log_a, a, beta, beta * i.float() * x.float()
+
+
 def rglru_gated_scan_plain(x, r, i, lam, h0: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The gates in f32 as the JAX package forms them, then the sequential
-    recurrence: ``log_a = -8 softplus(lam) r``, ``a = exp(log_a)``, ``b =
-    sqrt(1 - a^2) i x`` (``1 - a^2`` as ``-expm1(2 log_a)``, softplus as
-    ``logaddexp(lam, 0)``).  Returns (y (B,S,R) in x's dtype, h_final (B,R)
-    f32)."""
-    lam = lam.float()
-    log_a = -_C * torch.logaddexp(lam, torch.zeros_like(lam)) * r.float()
-    a = torch.exp(log_a)
-    # sqrt(1 - a^2) computed stably via expm1
-    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
-    gated = beta * i.float() * x.float()
+    """The gates in f32 as the JAX package forms them (``_gates``), then
+    the sequential recurrence ``h_t = a_t h_{t-1} + b_t``.  Returns (y
+    (B,S,R) in x's dtype, h_final (B,R) f32)."""
+    _, _, a, _, gated = _gates(x, r, i, lam)
     y, h = rglru_scan_plain(a.contiguous(), gated.contiguous(),
                             h0.float().contiguous() if h0 is not None
                             else None)
     return y.to(x.dtype), h
+
+
+def rglru_gated_scan_backward(scan, x, r, i, lam, h0, dy, dh):
+    """Gradients (dx, dr, di, dlam, dh0) of the gated scan at (x, r, i,
+    lam, h0) for upstream gradients dy (B,S,R) of y and dh (B,R) of
+    h_final, with two runs of ``scan``, the ungated recurrence ``(a, b,
+    h0) -> (h (B,S,R) f32, h_final)`` (``ops.rglru_scan``: the CUDA kernel
+    on CUDA tensors):
+
+    1. h in f32 again from the gates (the gated entry returned y in x's
+       dtype, and the backward needs f32 ``h_{t-1}``);
+    2. the adjoint ``g_t = dy_t + a_{t+1} g_{t+1}``, ``g_{S-1} = dy_{S-1}
+       + dh``: the same recurrence reversed in time, run on flipped
+       inputs whose first coefficient is 1, so that dh enters as the
+       initial state;
+    3. ``db_t = g_t``, ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``), ``dh0 =
+       a_0 g_0``, chained through the gates in f32.
+
+    dh0 is None when h0 is.  The JAX package differentiates its blocked
+    associative scan with XLA; the sums run in another order."""
+    sp, log_a, a, beta, b = _gates(x, r, i, lam)
+    h, _ = scan(a.contiguous(), b.contiguous(), h0)
+    a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    g, _ = scan(a_next.flip(1).contiguous(), dy.float().flip(1).contiguous(),
+                dh.float().contiguous())
+    g = g.flip(1)
+    start = (h0.float() if h0 is not None else torch.zeros_like(h[:, 0]))
+    da = g * torch.cat([start[:, None], h[:, :-1]], dim=1)
+    xf, i_f = x.float(), i.float()
+    dbeta = g * i_f * xf
+    # d beta / d log_a = -exp(2 log_a) / beta
+    dlog_a = da * a - dbeta * torch.exp(2.0 * log_a) / beta
+    dlam = (dlog_a * r.float()).sum((0, 1)) * (-_C) \
+        * torch.sigmoid(lam.float())
+    return ((g * beta * i_f).to(x.dtype), (dlog_a * (-_C * sp)).to(r.dtype),
+            (g * beta * xf).to(i.dtype), dlam.to(lam.dtype),
+            a[:, 0] * g[:, 0] if h0 is not None else None)
 
 
 def traffic(a, b, h0=None):

@@ -27,6 +27,9 @@ from repro_torch.launch.graph_analysis import tensor_bytes
 
 P_MAX, N_MAX = 64, 128        # what one CUDA block covers
 CHUNK_MAX = 4096              # bounds the (b, S / chunk, chunk, chunk) C.B^T
+# the backward recomputes chunks in groups whose (b, Q, Q, H) temporaries
+# hold at most this many elements each (512 MiB in f32)
+GROUP_ELEMENTS = 1 << 27
 STAGE_NAMES = ("cumsum", "cb", "chunk_state", "state_pass", "chunk_out")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,6 +38,33 @@ def check_chunk(S: int, chunk: int) -> None:
     if chunk < 1 or S % chunk:
         raise ValueError(f"chunk {chunk} must divide the sequence length "
                          f"S = {S}")
+
+
+def _tri(chunk: int, device) -> torch.Tensor:
+    return torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=device))[None, :, :, None]
+
+
+def _chunk(xc, dtc, dtAc, Bc, Cc, s, tri, out_dtype=None):
+    """One chunk of ``ssd_chunked``'s body, f32 inside, from the entering
+    state s (b,H,P,N) f32: (y (b,Q,H,P) in ``out_dtype``, or None when it
+    is None, the leaving state)."""
+    xf, dtf, Bf = xc.float(), dtc.float(), Bc.float()
+    cum = torch.cumsum(dtAc.float(), dim=1)                 # (b,Q,H)
+    dstates = torch.exp(cum[:, -1:, :] - cum) * dtf          # (b,Q,H)
+    s_inc = torch.einsum("bjn,bjhp->bhpn", Bf, xf * dstates[..., None])
+    s_new = s * torch.exp(cum[:, -1, :])[..., None, None] + s_inc
+    if out_dtype is None:
+        return None, s_new
+    Cf = Cc.float()
+    li = cum[:, :, None, :] - cum[:, None, :, :]             # (b,Q,Q,H)
+    # mask before exp: exp of a positive cum_i - cum_j is never formed
+    decay = torch.exp(torch.where(tri, li, float("-inf")))
+    cb = torch.einsum("bin,bjn->bij", Cf, Bf)                # (b,Q,Q)
+    w = cb[..., None] * decay * dtf[:, None, :, :]           # (b,Q,Q,H)
+    y_diag = torch.einsum("bijh,bjhp->bihp", w, xf)
+    y_off = torch.einsum("bin,bhpn->bihp", Cf, s) * torch.exp(cum)[..., None]
+    return (y_diag + y_off).to(out_dtype), s_new
 
 
 def ssd_scan_plain(x, dt, dtA, Bm, Cm, *, chunk: int,
@@ -46,28 +76,86 @@ def ssd_scan_plain(x, dt, dtA, Bm, Cm, *, chunk: int,
     check_chunk(S, chunk)
     s = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
          if s0 is None else s0.float())
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))[None, :, :, None]
+    tri = _tri(chunk, x.device)
     ys = []
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
-        xf, dtf = x[:, sl].float(), dt[:, sl].float()
-        Bf, Cf = Bm[:, sl].float(), Cm[:, sl].float()
-        cum = torch.cumsum(dtA[:, sl].float(), dim=1)          # (b,Q,H)
-        li = cum[:, :, None, :] - cum[:, None, :, :]            # (b,Q,Q,H)
-        # mask before exp: exp of a positive cum_i - cum_j is never formed
-        decay = torch.exp(torch.where(tri, li, float("-inf")))
-        cb = torch.einsum("bin,bjn->bij", Cf, Bf)               # (b,Q,Q)
-        w = cb[..., None] * decay * dtf[:, None, :, :]          # (b,Q,Q,H)
-        y_diag = torch.einsum("bijh,bjhp->bihp", w, xf)
-        y_off = torch.einsum("bin,bhpn->bihp", Cf, s) \
-            * torch.exp(cum)[..., None]
-        dstates = torch.exp(cum[:, -1:, :] - cum) * dtf          # (b,Q,H)
-        s_inc = torch.einsum("bjn,bjhp->bhpn", Bf,
-                             xf * dstates[..., None])
-        s = s * torch.exp(cum[:, -1, :])[..., None, None] + s_inc
-        ys.append((y_diag + y_off).to(x.dtype))
+        y, s = _chunk(x[:, sl], dt[:, sl], dtA[:, sl], Bm[:, sl], Cm[:, sl],
+                      s, tri, x.dtype)
+        ys.append(y)
     return torch.cat(ys, dim=1), s
+
+
+def ssd_scan_backward(x, dt, dtA, Bm, Cm, chunk: int, s0, dy, ds):
+    """Gradients (dx, ddt, ddtA, dB, dC, ds0) of ``ssd_scan_plain`` at its
+    inputs for upstream gradients dy (like x) and ds (b,H,P,N) of the final
+    state, in plain PyTorch, with many chunks at once (the chunk axis
+    folded into the batch axis of ``_chunk``):
+
+    1. without grad, each chunk's state increment and decay, and from
+       them the state entering each chunk (a loop of 2 ops a chunk);
+    2. in groups of chunks, the last group first: the group recomputed
+       from its entering states under autograd; the entering states'
+       gradient through y alone, then the leaving states' gradients g by
+       the recurrence in reverse (``g_{c-1} = decay_c g_c + (through
+       y)_c``, ``g_{nc-1} = ds``; 2 ops a chunk); one autograd call for
+       (y, the leaving states) against (dy, g).
+
+    A group holds as many chunks as keep each (b, Q, Q, H) temporary
+    within ``GROUP_ELEMENTS``: every chunk at mamba2-1.3b's training
+    shapes (~150 ops a call instead of ~100 a chunk), and memory flat in
+    the sequence length beyond them.  JAX's ``jax.checkpoint`` of the
+    chunk body recomputes one chunk at a time.  ds0 is None when s0 is."""
+    b, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    per = max(1, GROUP_ELEMENTS // (b * chunk * chunk * H))
+    tri = _tri(chunk, x.device)
+    ins = (x, dt, dtA, Bm, Cm)
+
+    def fold(t, c0=0, c1=nc):   # chunks [c0, c1): (b * (c1 - c0), chunk, ...)
+        return t[:, c0 * chunk:c1 * chunk].reshape(
+            (b * (c1 - c0), chunk) + tuple(t.shape[2:]))
+
+    with torch.no_grad():
+        folded = [fold(t) for t in ins[:4]]
+        decay = torch.exp(torch.cumsum(folded[2].float(), dim=1)[:, -1]).view(
+            b, nc, H, 1, 1)
+        zero = torch.zeros((b * nc, H, P, N), dtype=torch.float32,
+                           device=x.device)
+        inc = _chunk(*folded, None, zero, tri)[1].view(b, nc, H, P, N)
+        del folded, zero
+        s = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+             if s0 is None else s0.float())
+        entering = []
+        for c in range(nc):
+            entering.append(s)
+            s = s * decay[:, c] + inc[:, c]
+        entering = torch.stack(entering, 1)                # (b, nc, H, P, N)
+    grads = [torch.empty_like(t) for t in ins]
+    gc = ds.float()
+    for c1 in range(nc, 0, -per):
+        c0 = max(0, c1 - per)
+        n = c1 - c0
+        leaves = [fold(t, c0, c1).detach().requires_grad_() for t in ins]
+        s_in = entering[:, c0:c1].reshape(b * n, H, P, N).requires_grad_()
+        dyf = fold(dy, c0, c1)
+        with torch.enable_grad():
+            y, s_out = _chunk(*leaves, s_in, tri, x.dtype)
+            through_y = torch.autograd.grad(y, s_in, dyf,
+                                            retain_graph=True)[0]
+            through_y = through_y.view(b, n, H, P, N)
+            g = torch.empty((b, n, H, P, N), dtype=torch.float32,
+                            device=x.device)
+            for c in reversed(range(n)):
+                g[:, c] = gc
+                gc = decay[:, c0 + c] * gc + through_y[:, c]
+            part = torch.autograd.grad((y, s_out), leaves,
+                                       (dyf, g.view(b * n, H, P, N)))
+        for out, gr in zip(grads, part):
+            out[:, c0 * chunk:c1 * chunk] = gr.reshape(
+                (b, n * chunk) + tuple(out.shape[2:]))
+    return (*grads, gc.to(s0.dtype) if s0 is not None else None)
 
 
 def traffic(x, dt, dtA, Bm, Cm, chunk, s0=None):

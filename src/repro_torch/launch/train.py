@@ -4,10 +4,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 8 --steps-per-sync 4
 
-``--reduced`` is the JAX launcher's smoke config (4 layers, d_model 128,
-d_ff 256, head_dim 16).  Without it the full config is built: llama3-8b's
-32 layers (8 B parameters at 16 bytes of train state each) do not fit one
-80 GB card.
+``--arch`` takes every family the port builds: dense, moe (granite,
+moonshot), vlm (internvl2, trained on tokens alone, as the JAX launcher
+trains it), ssm (mamba2) and hybrid (recurrentgemma); encdec
+(whisper-tiny) raises ``UnsupportedFamilyError`` naming it before any
+weight is made.  ``--reduced`` is the JAX launcher's smoke config (4
+layers, d_model 128, d_ff 256, head_dim 16; for the ssm family also
+ssm_head_dim 64, so that the inner width 256 is 4 heads x 64, where the
+JAX launcher's would stop on it).  Without it the full config is built:
+``--layers N`` cuts its depth (llama3-8b's 32 layers, 8 B parameters at
+16 bytes of train state each, do not fit one 80 GB card; mamba2-1.3b and
+recurrentgemma-2b fit at full depth).
 Runs on the CUDA device unless ``--device cpu`` is given (it never falls
 back to the CPU).  Weights are random, drawn from a ``torch.Generator``
 seeded with 0; the data are the counter-hash token stream (seed 0).  It
@@ -28,14 +35,12 @@ window's train-mode NVM verdicts at the end (``--verdicts``, the
 default): the SRAM/STT/SOT tier energy and EDP ratios, times modeled at
 the TPU tier's constants, not measured; ``--no-verdicts`` counts nothing.
 
-Only the dense family trains: an ``--arch`` of another family (the moe,
-vlm, ssm and hybrid configs serve through ``launch/serve.py``) raises
-``UnsupportedFamilyError`` naming it before any weight is made.
 ``--compress-grads`` (EF-int8 gradients) is refused: it is not ported
 yet.  There is no ``--strategy``: one
 device.
 """
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -70,6 +75,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-sized config (4 layers, d_model 128, "
                          "head_dim 16)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers")
     ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fused K-step train windows (--no-fused for the "
@@ -95,7 +102,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     check_trainable(cfg, "launch.train")
     if args.reduced:
-        cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256)
+        ssm = {"ssm_head_dim": 64} if cfg.family == "ssm" else {}
+        cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256, **ssm)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg, max_seq=args.seq, device=device)
     opt = AdamW(lr=warmup_cosine(args.lr, 10, args.steps))
     dcfg = DataConfig(cfg.vocab_size, args.seq, args.batch)

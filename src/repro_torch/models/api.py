@@ -3,10 +3,9 @@ init/loss/prefill/decode_step, the ``StateBank`` contract, and serve
 capability metadata (torch counterpart of ``repro/models/api.py``).
 
 The dense decoder, moe (granite, moonshot), vlm (internvl2), ssm
-(mamba2) and hybrid (recurrentgemma) families are ported for serving;
-``build_model`` raises ``UnsupportedFamilyError`` for any other (encdec).
-Training (``mode="train"``, ``loss``) covers the dense family; the other
-families raise ``UnsupportedFamilyError`` there.  ``input_specs`` /
+(mamba2) and hybrid (recurrentgemma) families are ported for serving and
+training (``mode="train"``, ``loss``); ``build_model`` raises
+``UnsupportedFamilyError`` for any other (encdec).  ``input_specs`` /
 ``make_inputs`` give each shape cell's operands (the vlm family's
 ``vision_embeds`` too).
 """
@@ -93,7 +92,7 @@ _FAMILY_SERVE_MODES: Dict[str, frozenset] = {
 }
 
 
-_TRAIN_FAMILIES = frozenset({"dense"})
+_TRAIN_FAMILIES = frozenset(_FAMILY_SERVE_MODES)
 
 
 def serve_families(mode: str):
@@ -106,11 +105,9 @@ def check_trainable(cfg: ModelConfig, component: str) -> None:
     """Raise ``UnsupportedFamilyError`` unless the port trains ``cfg``'s
     family."""
     if cfg.family not in _TRAIN_FAMILIES:
-        untrained = sorted(set(_FAMILY_SERVE_MODES) - _TRAIN_FAMILIES)
         raise UnsupportedFamilyError(
             cfg.family, _TRAIN_FAMILIES, component,
-            detail=f"the {', '.join(untrained)} families train in a later "
-                   f"slice")
+            detail="the encdec family is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,9 +152,9 @@ class Model:
                 logits_at: Optional[torch.Tensor] = None):
         """Dispatch per family: the hybrid stack, or the decoder (dense,
         moe, vlm and ssm; ``batch["vision_embeds"]`` reaches the vlm
-        embedding).  Returns (logits, cache, aux): ``mode="train"`` (dense
-        family) gives (B, S, V) f32 logits under autograd and no cache;
-        ``aux`` is the MoE load-balancing loss in train mode, else None."""
+        embedding).  Returns (logits, cache, aux): ``mode="train"`` gives
+        (B, S, V) f32 logits under autograd and no cache; ``aux`` is the
+        MoE load-balancing loss in train mode, else None."""
         cfg = self.cfg
         if mode == "train":
             check_trainable(cfg, "repro_torch training")
@@ -179,12 +176,17 @@ class Model:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *,
              attn_impl: str = "kernel") -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (both (B, S) int), differentiable.
-        ``attn_impl="kernel"`` attends through the flash kernel (its plain
-        version on CPU tensors), ``"plain"`` through naive attention."""
-        logits, _, _ = self.forward(params, batch, mode="train",
-                                    attn_impl=attn_impl)
-        return cross_entropy(logits, batch["labels"], self.cfg.final_softcap)
+        ``batch["labels"]`` (both (B, S) int), plus the MoE aux loss (moe
+        family), differentiable, as ``repro.models.api.Model.loss``.  A vlm
+        batch may carry ``vision_embeds`` (B, Nv, D).
+        ``attn_impl="kernel"`` attends through the flash kernel and scans
+        through the SSD and RG-LRU kernels under autograd (their plain
+        versions on CPU tensors), ``"plain"`` through naive attention and
+        the plain RG-LRU scan."""
+        logits, _, aux = self.forward(params, batch, mode="train",
+                                      attn_impl=attn_impl)
+        loss = cross_entropy(logits, batch["labels"], self.cfg.final_softcap)
+        return loss if aux is None else loss + aux
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 logits_at: Optional[torch.Tensor] = None):

@@ -56,7 +56,7 @@ def _check_names(cfg: ModelConfig, flat: Mapping[str, np.ndarray]):
 
 def train_state_from_numpy(cfg: ModelConfig, state: Mapping, *,
                            device: DeviceLike = None) -> dict:
-    """A JAX ``TrainState`` of the dense family as numpy (``{"params",
+    """A JAX ``TrainState`` as numpy (``{"params",
     "opt": {"m", "v", "count"[, "master"]}, "step"}``, AdamW's state as
     ``AdamW.init`` builds it) -> the port's train state on ``device``:
     params through ``params_from_numpy``, moments and master weights f32

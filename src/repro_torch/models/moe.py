@@ -19,7 +19,10 @@ Three choices differ in mechanism, not in result, from the JAX code:
   the stable sort, so no sort and no inverse permutation is needed;
 - the combine gathers each token's K expert outputs back and sums them
   in a fixed order, where JAX scatter-adds them: a scatter-add of f32
-  rows on CUDA runs on atomics, whose order changes from run to run.
+  rows on CUDA runs on atomics, whose order changes from run to run;
+- the backward of both row gathers (tokens into the buffer, buffer rows
+  back to the assignments) gathers too (``_GatherSlots``,
+  ``_PickSlots``), in a fixed order, where autograd's would accumulate.
 
 The expert products are ``torch.bmm`` over the padded experts; every
 padded expert runs at capacity C, as the JAX design has it (a decode tick
@@ -154,12 +157,66 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         return _combine(cfg, out, gates, d, C).to(x.dtype), aux
 
 
+class _GatherSlots(torch.autograd.Function):
+    """``x_pad[tokmap]``, the buffer rows' tokens, with a backward that
+    gathers: each token's gradient is the sum over its K assignments of
+    the buffer rows they filled (through ``slot``; a dropped one adds 0),
+    in f32 in a fixed order.  Autograd's own backward of the index is a
+    sorted accumulate that walks the rows sharing a source one after
+    another, and every empty row shares the zero row."""
+
+    @staticmethod
+    def forward(ctx, x_pad, tokmap, slot, keep, K: int):
+        ctx.save_for_backward(slot, keep)
+        ctx.K = K
+        return x_pad[tokmap]
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, keep = ctx.saved_tensors
+        B, SK = slot.shape
+        D = g.shape[-1]
+        rows = g[torch.clamp(slot, max=g.shape[0] - 1)]
+        rows = torch.where(keep[..., None], rows, 0).float()
+        gx = rows.view(B * SK // ctx.K, ctx.K, D).sum(1).to(g.dtype)
+        return torch.cat([gx, gx.new_zeros((1, D))]), None, None, None, None
+
+
+class _PickSlots(torch.autograd.Function):
+    """``flat[min(slot, last row)]``, each assignment's expert output row
+    (a dropped one reads the last row, masked after), with a backward
+    that gathers: each buffer row's gradient is that of the one
+    assignment that filled it, found by scattering the assignment ids
+    into the rows (in the backward only), where autograd's own backward
+    would accumulate every dropped assignment into the last row one after
+    another."""
+
+    @staticmethod
+    def forward(ctx, flat, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        ctx.rows = flat.shape[0]
+        return flat[torch.clamp(slot, max=flat.shape[0] - 1)]
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, keep = ctx.saved_tensors
+        B, SK = slot.shape
+        n = B * SK
+        owner = torch.full((ctx.rows + 1,), n, dtype=torch.int64,
+                           device=g.device)
+        owner.scatter_(0, torch.where(keep, slot, ctx.rows).reshape(-1),
+                       torch.arange(n, device=g.device))
+        g_pad = torch.cat([g.reshape(n, -1), g.new_zeros((1, g.shape[-1]))])
+        return g_pad[owner[:-1]], None, None
+
+
 def _gather_slots(cfg: ModelConfig, x: torch.Tensor, d: Dispatch,
                   C: int) -> torch.Tensor:
     """The buffer rows' tokens as (Ep, B*C, D); an empty row is zeros."""
     B, S, D = x.shape
     x_pad = torch.cat([x.reshape(B * S, D), x.new_zeros((1, D))])
-    return x_pad[d.tokmap].view(padded_experts(cfg), B * C, D)
+    return _GatherSlots.apply(x_pad, d.tokmap, d.slot, d.keep,
+                              cfg.top_k).view(padded_experts(cfg), B * C, D)
 
 
 def _experts(cfg: ModelConfig, p: Params, buf: torch.Tensor) -> torch.Tensor:
@@ -177,8 +234,7 @@ def _combine(cfg: ModelConfig, out: torch.Tensor, gates: torch.Tensor,
     and summed over K in f32 (a dropped assignment adds 0)."""
     B, SK = d.slot.shape
     D = out.shape[-1]
-    flat = out.view(-1, D)
-    picked = flat[torch.clamp(d.slot, max=flat.shape[0] - 1)]
+    picked = _PickSlots.apply(out.view(-1, D), d.slot, d.keep)
     picked = torch.where(d.keep[..., None], picked, 0).float()
     K = cfg.top_k
     return (picked * gates.reshape(B, SK, 1)).view(B, SK // K, K, D).sum(2)

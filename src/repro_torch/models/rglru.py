@@ -10,8 +10,9 @@ Recurrence (per channel):
 Wrapped in the Griffin recurrent block: linear_in -> [gate branch (GeLU)] x
 [conv1d(4) -> RG-LRU branch] -> linear_out.  The gates (a, sqrt(1 - a^2)
 i x) and the recurrence run as one call, ``kernels.ops.rglru_gated_scan``
-(``impl="kernel"``: one CUDA launch on CUDA tensors) or its plain version
-(``impl="plain"``), in every mode, the decode step (S = 1) included.
+(``impl="kernel"``: one CUDA launch on CUDA tensors; in train mode under
+``ops.RGLRUGatedScan``) or its plain version (``impl="plain"``), in every
+mode, the decode step (S = 1) included.
 """
 from __future__ import annotations
 
@@ -52,14 +53,18 @@ def rglru_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None, *,
     as the JAX package forms them; the recurrence itself is sequential
     (the JAX package's associative scan sums in another order).  Gates and
     recurrence are one call: ``kernels.ops.rglru_gated_scan`` (one launch
-    on CUDA tensors) or its plain version."""
+    on CUDA tensors; under autograd when grad is enabled,
+    ``ops.RGLRUGatedScan``, whose backward runs the ungated kernel twice)
+    or, with ``impl="plain"``, its plain version under plain autograd."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"scan impl {impl!r} not in {SCAN_IMPLS}")
-    scan = kernel_ops.rglru_gated_scan if impl == "kernel" \
-        else rglru_gated_scan_plain
-    return scan(x.contiguous(), r.contiguous(), i.contiguous(),
-                lam.contiguous(),
-                h0.float().contiguous() if h0 is not None else None)
+    args = (x.contiguous(), r.contiguous(), i.contiguous(), lam.contiguous(),
+            h0.float().contiguous() if h0 is not None else None)
+    if impl == "plain":
+        return rglru_gated_scan_plain(*args)
+    if torch.is_grad_enabled():
+        return kernel_ops.RGLRUGatedScan.apply(*args)
+    return kernel_ops.rglru_gated_scan(*args)
 
 
 def rglru_block(

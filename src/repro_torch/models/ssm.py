@@ -2,10 +2,11 @@
 
 Per-head scalar A, data-dependent dt (softplus), shared B/C projections
 (n_groups=1), a depthwise short conv on (x, B, C) and a gated output.  The
-sequence path (prefill) runs the chunked SSD scan through
+sequence path (prefill and train) runs the chunked SSD scan through
 ``kernels.ops.ssd_scan`` (the CUDA kernel on CUDA tensors, its plain
-version on CPU ones); the decode step is the O(1) recurrent update in
-plain torch, as in the JAX package.
+version on CPU ones; in train mode under ``ops.SSDScan``, whose backward
+is plain); the decode step is the O(1) recurrent update in plain torch,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.common import ParamDef, ParamDefs, Params, softplus
+
+SCAN_IMPLS = ("plain", "kernel")
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -47,17 +51,27 @@ def ssm_param_defs(cfg: ModelConfig) -> ParamDefs:
     }
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
-    """Chunked SSD scan through ``kernels.ops.ssd_scan``.  x (b,S,H,P); dt
-    (b,S,H) positive and A (H,) negative, both in x's dtype; B, C (b,S,N).
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None, *,
+                impl: str = "kernel"):
+    """Chunked SSD scan through ``kernels.ops.ssd_scan``, under autograd
+    (``ops.SSDScan``: the kernel forward, a plain backward that
+    recomputes the chunks) when grad is enabled; ``impl="plain"`` runs the plain
+    version under plain autograd (the oracle).  x (b,S,H,P); dt (b,S,H)
+    positive and A (H,) negative, both in x's dtype; B, C (b,S,N).
     Returns (y (b,S,H,P), final state (b,H,P,N) f32).  ``dtA = dt * A`` is
     formed in x's dtype, as the JAX package forms it."""
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"scan impl {impl!r} not in {SCAN_IMPLS}")
     dtA = dt * A
     s0 = initial_state.float().contiguous() \
         if initial_state is not None else None
-    return kernel_ops.ssd_scan(x.contiguous(), dt.contiguous(),
-                               dtA.contiguous(), B.contiguous(),
-                               C.contiguous(), chunk=chunk, s0=s0)
+    args = (x.contiguous(), dt.contiguous(), dtA.contiguous(),
+            B.contiguous(), C.contiguous())
+    if impl == "plain":
+        return ssd_scan_plain(*args, chunk=chunk, s0=s0)
+    if torch.is_grad_enabled():
+        return kernel_ops.SSDScan.apply(*args, chunk, s0)
+    return kernel_ops.ssd_scan(*args, chunk=chunk, s0=s0)
 
 
 def _gated_rmsnorm(x, z, g, eps=1e-6):
@@ -73,9 +87,11 @@ def ssm_block(
     u: torch.Tensor,                               # (B, S, D)
     *,
     state: Optional[Dict[str, torch.Tensor]] = None,   # {"conv", "ssm"}
+    impl: str = "kernel",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full mamba2 mixer.  With a state and S == 1 it takes the recurrent
-    decode step; otherwise the causal conv and the chunked SSD scan.
+    decode step; otherwise the causal conv and the chunked SSD scan
+    (``ssd_chunked``'s ``impl``).
     Returns (out, new state): the decode step's state is new tensors, the
     cache it was given stays as it was."""
     B, S, D = u.shape
@@ -123,7 +139,8 @@ def ssm_block(
 
     init = state["ssm"] if state is not None else None
     y, s_final = ssd_chunked(xh, dt.to(xh.dtype), A.to(xh.dtype), Bm, Cm,
-                             min(cfg.ssm_chunk, S), initial_state=init)
+                             min(cfg.ssm_chunk, S), initial_state=init,
+                             impl=impl)
     y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, d_inner)
     y = _gated_rmsnorm(y, z, p["norm_g"])

@@ -2,9 +2,10 @@
 hybrid parts of ``repro/models/transformer.py``).
 
 Modes:
-  train   — full-sequence forward under autograd (dense family), each
+  train   — full-sequence forward under autograd (every family), each
             layer under ``torch.utils.checkpoint`` when ``cfg.remat`` asks
-            for rematerialisation; returns logits only
+            for rematerialisation; returns logits (and the MoE aux loss)
+            and no cache
   prefill — full-sequence forward, returns the per-layer KV cache (dense)
             or the recurrent state and ring caches (ssm, hybrid)
   decode  — one token per row against an existing cache, at per-row
@@ -160,7 +161,8 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x, *, rope_cs, window,
     layer has a router, else None."""
     if cfg.family == "ssm":
         h, new_state = ssm_mod.ssm_block(
-            cfg, subtree(p, "ssm"), rms_norm(x, p["ln1/g"]), state=cache)
+            cfg, subtree(p, "ssm"), rms_norm(x, p["ln1/g"]), state=cache,
+            impl=impl)
         return x + h, new_state, None
     h, new_cache = attn_mod.attention_block(
         cfg, subtree(p, "attn"), rms_norm(x, p["ln1/g"]),
@@ -232,7 +234,9 @@ def decoder_forward(
     attention, and in train mode (logits (B, S, V) f32 and no cache) the
     flash kernel or naive attention (see ``_train_forward``).  The ssm
     family's cache is its recurrent state (see ``_ssm_forward``); it has
-    no kernel in its decode tick.
+    no kernel in its decode tick.  Its train mode runs each layer's
+    sequence path (conv, ``ssd_chunked`` under autograd, gated RMSNorm)
+    through ``_train_forward`` and returns no state.
 
     ``aux`` is the summed MoE load-balancing loss in train mode (moe
     family); None otherwise (the serve modes do not compute it).  The vlm
@@ -240,7 +244,7 @@ def decoder_forward(
     (``_embed``)."""
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens, vision_embeds)
-    if cfg.family == "ssm":
+    if cfg.family == "ssm" and mode != "train":
         return _ssm_forward(cfg, params, x, mode=mode, cache=cache,
                             cache_pos=cache_pos, logits_at=logits_at) + (
                                 None,)
@@ -248,7 +252,7 @@ def decoder_forward(
     layers = _layers(cfg, params)
 
     def tables(positions):                  # (B or 1, S) -> rope_tables
-        if not cfg.rope_theta:
+        if not cfg.rope_theta or cfg.family == "ssm":
             return None
         return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
@@ -288,16 +292,9 @@ def decoder_forward(
 
 def _train_forward(cfg: ModelConfig, params: Params, x, layers, windows,
                    rope_cs, attn_impl: str):
-    """The decoder stack in train mode: ((B, S, V) f32 logits under
-    autograd, no cache, the summed MoE aux loss or None).
-
-    Rematerialisation follows ``_maybe_remat``: with ``cfg.remat`` other
-    than "none" each layer runs under ``torch.utils.checkpoint``
-    (non-reentrant), which keeps only the layer's input and runs the layer
-    forward again in the backward.  "dots" (JAX's ``checkpoint_dots``
-    policy, which also keeps the matmul outputs) has no torch policy here
-    and is treated as "full".  The model draws no random numbers, so the
-    RNG state is not stashed for the recompute."""
+    """The decoder stack in train mode (dense, moe, vlm and ssm layers):
+    ((B, S, V) f32 logits under autograd, no cache, the summed MoE aux
+    loss or None).  Each layer runs under ``_remat``."""
     def layer(xc, lp, w):
         y, _, aux = _decoder_layer(cfg, lp, xc, rope_cs=rope_cs, window=w,
                                    impl=attn_impl, with_aux=cfg.is_moe)
@@ -305,14 +302,24 @@ def _train_forward(cfg: ModelConfig, params: Params, x, layers, windows,
 
     aux_total = None
     for lp, w in zip(layers, windows):
-        if cfg.remat == "none":
-            x, aux = layer(x, lp, w)
-        else:
-            x, aux = checkpoint(layer, x, lp, w, use_reentrant=False,
-                                preserve_rng_state=False)
+        x, aux = _remat(cfg, layer, x, lp, w)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return _unembed(cfg, params, x), None, aux_total
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, rematerialised as ``_maybe_remat`` asks: with
+    ``cfg.remat`` other than "none" under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only the layer's inputs and runs the
+    layer forward again in the backward.  "dots" (JAX's
+    ``checkpoint_dots`` policy, which also keeps the matmul outputs) has
+    no torch policy here and is treated as "full".  The model draws no
+    random numbers, so the RNG state is not stashed for the recompute."""
+    if cfg.remat == "none":
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):
@@ -345,7 +352,8 @@ def _ssm_forward(cfg: ModelConfig, params: Params, x, *, mode, cache,
     if mode == "prefill":
         convs, ssms = [], []
         for lp in layers:
-            x, st, _ = _decoder_layer(cfg, lp, x, rope_cs=None, window=0)
+            x, st, _ = _decoder_layer(cfg, lp, x, rope_cs=None, window=0,
+                                      impl="kernel")
             convs.append(st["conv"])
             ssms.append(st["ssm"])
         return (_unembed(cfg, params, _pick(x, logits_at)),
@@ -417,14 +425,21 @@ def hybrid_forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) int
     *,
-    mode: str = "prefill",                # prefill | decode
+    mode: str = "prefill",                # train | prefill | decode
     cache: Optional[Params] = None,
     cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
     attn_impl: str = "plain",
     logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
-) -> Tuple[torch.Tensor, Params]:
+) -> Tuple[torch.Tensor, Optional[Params]]:
     """The recurrentgemma stack (unrolled ``layer_{i}``, pattern of "R"
     RG-LRU and "A" local-attention blocks).  Returns (logits, cache).
+
+    Train: (B, S, V) f32 logits under autograd and no cache; each layer
+    (``_hybrid_train_layer``) under ``_remat``, as JAX's ``_train_layer``
+    under ``_maybe_remat``.  ``attn_impl="kernel"`` runs R layers through
+    ``ops.RGLRUGatedScan`` and A layers through the flash kernel
+    (``FlashAttention``, window ``local_window``); ``"plain"`` through
+    the plain scan and naive attention under autograd.
 
     Prefill: every R layer's recurrence runs through ``attn_impl``'s scan
     (``"kernel"``: ``ops.rglru_scan``), every A layer's windowed prefill
@@ -440,12 +455,18 @@ def hybrid_forward(
     if decode:
         _check_decode(mode, cache, cache_pos, S)
         positions = cache_pos.to(torch.int32)[:, None]
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     else:
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
+                         f"'decode')")
     rope_cs = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
                if cfg.rope_theta else None)
+    if mode == "train":
+        for lp, kind in zip(_layers(cfg, params), hybrid_pattern(cfg)):
+            x = _remat(cfg, _hybrid_train_layer, cfg, lp, x, kind, rope_cs,
+                       attn_impl)
+        return _unembed(cfg, params, x), None
     W = cfg.local_window
     new = {n: [] for n in ("rec/h", "rec/conv", "attn/k", "attn/v",
                            "attn/pos")}
@@ -478,3 +499,20 @@ def hybrid_forward(
                                   rms_norm(x, lp["ln2/g"]))
     return (_unembed(cfg, params, _pick(x, logits_at)),
             {n: torch.stack(ts) for n, ts in new.items() if ts})
+
+
+def _hybrid_train_layer(cfg: ModelConfig, lp: Params, x, kind: str, rope_cs,
+                        attn_impl: str):
+    """One hybrid layer in train mode: no state in, none out."""
+    z = rms_norm(x, lp["ln1/g"])
+    if kind == "R":
+        h, _ = rglru_mod.rglru_block(cfg, subtree(lp, "rec"), z,
+                                     impl=attn_impl)
+    else:
+        h, _ = attn_mod.attention_block(cfg, subtree(lp, "attn"), z,
+                                        rope_cs=rope_cs,
+                                        window=cfg.local_window,
+                                        impl=attn_impl)
+    x = x + h
+    return x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
+                                 rms_norm(x, lp["ln2/g"]))

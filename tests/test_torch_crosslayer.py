@@ -91,6 +91,8 @@ BYTE_BANDS = {("dense", "decode"): (0.56, 0.63),
               ("hybrid", "decode"): (0.94, 1.04),
               ("hybrid", "prefill"): (1.14, 1.27),
               ("dense", "train"): (0.81, 0.90),
+              ("ssm", "train"): (0.94, 1.04),
+              ("moe", "train"): (0.88, 0.97),
               ("moe", "decode"): (0.93, 1.03),
               ("moe", "prefill"): (1.06, 1.17),
               ("paged moe", "decode"): (0.91, 1.01),
@@ -838,6 +840,52 @@ def test_train_records_match_jax(walker_texts):
     for mem in ("STT", "SOT"):
         _close(verdicts[0].energy_ratio[mem], jv.energy_ratio[mem], 1e-4)
         _close(verdicts[0].edp_ratio[mem], jv.edp_ratio[mem], 1e-4)
+
+
+@pytest.mark.parametrize("arch,kernel", [("mamba2-1.3b", "ssd_scan"),
+                                         ("granite-moe-3b-a800m",
+                                          "flash_attention")])
+def test_train_records_of_the_ssm_and_moe_families_match_jax(
+        arch, kernel, walker_texts):
+    """The train window's record on reduced mamba2 (the SSD scan under
+    autograd: kernel forward, plain backward) and granite (the
+    router's dispatch and its backward) against the JAX window's, remat
+    full: flops within 5%, bytes in their band, one kernel call per layer
+    and step for the forward and one for the recompute, and the verdicts
+    within 1e-4 of JAX's ``analyze_train`` (``TRAIN_READ_FRACTION`` for
+    every family, as there)."""
+    over = dict(dtype="float32", remat="full")
+    jcfg = jreduced(jget_config(arch), **over)
+    jmodel = jbuild_model(jcfg, max_seq=SEQ)
+    jopt = JAdamW(lr=jconstant(1e-3))
+    jwin = jmake_train_window(jmodel, jopt, steps_per_sync=2,
+                              data_cfg=JDataConfig(jcfg.vocab_size, SEQ,
+                                                   BATCH))
+    jwin(jinit_state(jmodel, jopt, jax.random.PRNGKey(0)))
+    cfg = reduced(get_config(arch), **over)
+    model = build_model(cfg, max_seq=SEQ, device="cpu")
+    opt = AdamW(lr=constant(1e-3))
+    win = make_train_window(model, opt, steps_per_sync=2,
+                            data_cfg=DataConfig(cfg.vocab_size, SEQ, BATCH))
+    win(init_state(model, opt, torch.Generator().manual_seed(0)))
+    (rec,), (j,) = win.train_records(), jwin.train_records()
+    assert rec["shape"] == j["shape"] and rec["steps"] == 2
+    assert win._traffic.kernel_calls == {kernel: 2 * cfg.num_layers * 2}
+    r, jr = rec["roofline"], j["roofline"]
+    assert r["flops_per_device"] == pytest.approx(jr["flops_per_device"],
+                                                  rel=0.05)
+    moves = _walker_moves(walker_texts[id(jwin._traffic)]) / 2
+    lo, hi = BYTE_BANDS[(cfg.family, "train")]
+    assert lo <= _byte_ratio(j["shape"], r["bytes_per_device"],
+                             jr["bytes_per_device"], moves) <= hi
+    assert r["memory_s"] > r["compute_s"] and jr["memory_s"] > jr["compute_s"]
+    jv, = jcl.analyze_train([j])
+    v, = win.nvm_verdicts()
+    assert v.reads / (v.reads + v.writes) == pytest.approx(
+        cl.TRAIN_READ_FRACTION, rel=1e-6)
+    for mem in ("STT", "SOT"):
+        _close(v.energy_ratio[mem], jv.energy_ratio[mem], 1e-4)
+        _close(v.edp_ratio[mem], jv.edp_ratio[mem], 1e-4)
 
 
 def test_recording_changes_no_loss():

@@ -47,10 +47,9 @@ from repro.serve import staggered_groups as jstaggered_groups
 from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.launch import graph_analysis as ga
 from repro_torch.launch import serve as launch_serve
-from repro_torch.launch import train as launch_train
 from repro_torch.models import UnsupportedFamilyError, build_model, moe
 from repro_torch.models import transformer as tf
-from repro_torch.models.api import input_specs, make_inputs
+from repro_torch.models.api import check_trainable, input_specs, make_inputs
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import (DONE, Engine, EngineReference, PagedEngine,
                                mixed_requests, run_staggered,
@@ -296,7 +295,7 @@ def test_vector_position_decode_matches_jax(arch, impl):
 
 def test_train_mode_forward_carries_the_aux_loss():
     """The decoder's train mode sums every MoE layer's aux loss, as JAX's
-    ``forward`` does; ``Model.forward`` refuses moe training for now."""
+    ``forward`` does; ``Model.loss`` adds it to a finite cross-entropy."""
     jmodel, jparams, model, params = _pair(GRANITE)
     toks = np.random.default_rng(2).integers(0, 512, (2, 32)).astype(
         np.int32)
@@ -314,9 +313,9 @@ def test_train_mode_forward_carries_the_aux_loss():
     dp = dense.init(torch.Generator().manual_seed(0))
     assert dense.forward(dp, {"tokens": torch.from_numpy(toks)},
                          mode="train")[2] is None
-    with pytest.raises(UnsupportedFamilyError, match="later slice"):
-        model.loss(params, {"tokens": torch.from_numpy(toks),
-                            "labels": torch.from_numpy(toks)})
+    loss = model.loss(params, {"tokens": torch.from_numpy(toks),
+                               "labels": torch.from_numpy(toks)})
+    assert bool(torch.isfinite(loss)) and float(loss) > float(aux)
 
 
 # --- engines ------------------------------------------------------------------
@@ -474,14 +473,15 @@ def test_serve_records_name_the_family():
 
 
 def test_build_model_takes_moe_and_vlm_and_training_refuses_them(capsys):
+    """Both families build, serve on both engines and pass
+    ``check_trainable``: training now refuses only the encdec family
+    (``tests/test_torch_train_moe.py::test_encdec_training_is_still_refused``),
+    which does not build either."""
     for arch in (GRANITE, MOONSHOT, INTERNVL):
         cfg = get_config(arch)
         model = build_model(reduced(cfg), device="cpu")
         assert model.serve_modes == frozenset({"dense", "paged"})
-        with pytest.raises(UnsupportedFamilyError) as ei:
-            launch_train.main(["--arch", arch, "--device", "cpu"])
-        assert ei.value.family == cfg.family
-        assert "moe" in str(ei.value) and "vlm" in str(ei.value)
+        check_trainable(cfg, "launch.train")
     with pytest.raises(UnsupportedFamilyError, match="'encdec'"):
         build_model(reduced(get_config("whisper-tiny")), device="cpu")
     launch_serve.main(["--list-configs"])

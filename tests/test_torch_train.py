@@ -48,7 +48,7 @@ from repro_torch.data import (DataConfig, Pipeline, batch_for_step,  # noqa: E40
                               device_batch_at)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import UnsupportedFamilyError, build_model  # noqa: E402,E501
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         train_state_from_numpy)
@@ -210,15 +210,6 @@ def test_train_loss_and_grads_match_jax(arch, impl, remat):
     for n, g in tg.items():
         np.testing.assert_allclose(g.numpy(), np.asarray(jg[n]), rtol=3e-4,
                                    atol=3e-5, err_msg=n)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
-def test_train_mode_refuses_recurrent_families(arch):
-    model = build_model(reduced(get_config(arch)), max_seq=32, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(UnsupportedFamilyError, match="later slice"):
-        model.loss(params, {"tokens": toks, "labels": toks})
 
 
 # --- optimizer and schedule --------------------------------------------------
