@@ -83,9 +83,11 @@ result line:
   3b. the launchers with their defaults: ``launch.serve`` (reduced
      llama3-8b, head_dim 16, through the decode kernel and the sampler),
      ``launch.serve --arrival-rate 0.5 --deadline-ticks 64
-     --max-queue-depth 4 --trace-out`` (its chrome trace validated) and
-     ``launch.train --reduced`` (head_dim 16, through the flash kernel),
-     launch counts reset before and read after each;
+     --max-queue-depth 4 --trace-out`` (its chrome trace validated),
+     ``launch.train --reduced`` (head_dim 16, through the flash kernel)
+     and ``launch.train --reduced --compress-grads --compress-shards 2``
+     (falling window means, a verdict line, 400 flash launches), launch
+     counts reset before and read after each;
   4. slice A: ``Engine`` serving 16 mixed requests with llama3-8b at full
      width and depth (bf16, random weights from a seeded generator),
      checking that no decode window syncs with the host, every request
@@ -157,14 +159,21 @@ result line:
      step's loss, no host sync inside the second window, 128 flash
      launches (layers x microbatches x (forward + remat) x steps); then a
      ``torch.profiler`` trace of one more step (device busy share,
-     kernels by device time);
+     kernels by device time); slice TC, the same with EF-int8 gradient
+     compression (``compress_grads=True, compress_shards=2``, one
+     microbatch a shard): the same checks, every error buffer finite, the
+     ``ef_compress`` range's share of the traced step, and the step time,
+     tokens/s and peak memory beside slice T's;
   5f. slice U: training parity at 4 layers, reduced width, hd 16, f32:
      the kernel path's loss and grad_norm over 4 steps within rel 1e-4 of
      the plain path's (naive attention under autograd), one step's
      gradients within rtol 3e-4 / atol 3e-5; under deterministic
      algorithms the window equals the per-step loop bit for bit, two
      windows equal one twice as long, and a checkpoint saved at step 4
-     resumes to the same step-8 state;
+     resumes to the same step-8 state; slice UC, those contracts with
+     EF-int8 compression at ``compress_shards`` 1 and 2 (error buffers
+     included), and ``quantize``, ``apply_error_feedback`` and
+     ``compressed_psum_ef`` on the card equal to the CPU bit for bit;
   5g. the moe and vlm families (bf16, weights from a seeded generator):
      slice M, granite-moe-3b-a800m at full width and depth (40 experts
      padded to 48, top-8) through ``Engine`` (8 x 1024, K=8) on slice A's
@@ -226,7 +235,11 @@ result line:
   7. the DeepNVM++ pipeline on the card against the same code on the CPU:
      the quickstart's five steps, ``tune_all()`` and ``paper_profiles()``;
      identical Algorithm-1 selections and iso-area capacities, PPA and
-     traffic fields within rel 1e-6;
+     traffic fields within rel 1e-6; then the calibration tools
+     (``repro_torch.tools.calibrate_cache``, ``calibrate_traffic``), 20
+     Adam steps each on the card and on the CPU: per-step losses within
+     rel ``TOOL_REL``, the same best step, the best loss at most the
+     frozen constants';
   7b. the NVM verdicts of the full-width slices' own traffic: slices A,
      D, F, G, M (dense and paged), N, TS, TG and TM (each engine's first
      decode window, counted under
@@ -240,12 +253,13 @@ result line:
      which streams only the top-k experts);
   7c. the traffic count on the card against the CPU: reduced llama3-8b
      (f32) through ``Engine`` (4 slots x 64, 8 requests) and a reduced
-     ``TrainWindow`` (remat full), the same weights and requests on both:
-     every counted program's ``OpStats`` equal, op for op;
+     ``TrainWindow`` (remat full), plain and compressed over 2 shard
+     groups, the same weights and requests on both: every counted
+     program's ``OpStats`` equal, op for op;
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, and ``launches_by_slice`` with the kernels' launches on
-     slices A, D, M, N, V, MP, T, TS, TG, TM and TV, F's
+     slices A, D, M, N, V, MP, T, TC, TS, TG, TM and TV, F's
      ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
      T for flash attention, C for the simulator; the two scans also with
      their ``autograd`` forward + backward), error
@@ -256,7 +270,9 @@ result line:
 The last line is ``{"ok": true, "device": {...}}``.
 """
 import collections
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -295,6 +311,9 @@ FLASH_BF16_GRAD_REL = 5e-3
 # Gumbel-max rows may flip between two tokens whose scores differ by less
 # than this (logf in CUDA and torch.log may differ in the last ulp)
 SAMPLE_TIE_REL = 1e-5
+# The calibration tools' per-step losses on the card against the CPU (20
+# Adam steps over the sweep and the traffic engine, float32 on both)
+TOOL_REL = 1e-5
 RUNS = 50
 
 
@@ -1575,6 +1594,42 @@ def phase_launchers(tmp: Path) -> None:
           f"launches, want 4 layers x 50 steps")
     print(f"launchers: launch.train --reduced in "
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    _launch_train_compressed(tmp)
+
+
+def _launch_train_compressed(tmp: Path) -> None:
+    """``launch.train --reduced --compress-grads --compress-shards 2``
+    (50 steps in windows of 10, each step's 8 rows in 2 shard groups):
+    exit 0, falling window means, the verdict line, and 4 layers x 2
+    shards x 50 steps flash launches."""
+    import io
+    import re
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--reduced", "--compress-grads",
+                                "--compress-shards", "2", "--ckpt-dir",
+                                str(tmp / "ckpt_compressed")])
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    out = out.getvalue()
+    print(out, end="")
+    means = [float(m) for m in re.findall(r"window mean (\S+)\)", out)]
+    check(rc == 0, f"launch.train --compress-grads returned {rc}")
+    check(len(means) == 5 and all(np.isfinite(means))
+          and means[-1] < means[0],
+          f"launch.train --compress-grads: window means {means}")
+    check("train_window_b8_s128_k10: energy vs SRAM STT" in out,
+          "launch.train --compress-grads: no verdict line")
+    check(launches["flash_attention"] == 4 * 2 * 50,
+          f"launch.train --compress-grads: {launches['flash_attention']} "
+          f"flash launches, want 4 layers x 2 shards x 50 steps")
+    print(f"launchers: launch.train --reduced --compress-grads "
+          f"--compress-shards 2 in {time.perf_counter() - t0:.1f} s, window "
+          f"means {means[0]:.4f} -> {means[-1]:.4f}, launches {launches}")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2548,7 +2603,7 @@ def phase_slice_h(arch: str) -> None:
 # ---------------------------------------------------------------- slice T
 
 
-def phase_slice_t(records: dict):
+def phase_slice_t(records: dict, stats: dict):
     """Training at full width: llama3-8b (d_model 4096, 32 heads, 8 KV
     heads, hd 128, d_ff 14336, vocab 128256) cut to 4 layers, bf16, remat
     full, weights from ``torch.Generator(seed=0)``; AdamW with f32 master
@@ -2561,7 +2616,26 @@ def phase_slice_t(records: dict):
     traces one more step."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
-    return _train_full_width("slice T", cfg, records)
+    return _train_full_width("slice T", cfg, records, stats=stats)
+
+
+def phase_slice_tc(records: dict, stats: dict):
+    """Slice T's recipe with EF-int8 gradient compression:
+    ``compress_grads=True, compress_shards=2``, one microbatch a shard (2
+    rows each), so the same 128 flash launches; every error buffer finite
+    after the 8 steps, the ``ef_compress`` range's share of the traced
+    step, and the step time, tokens/s and peak memory beside slice T's
+    (``stats``, from this run)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4)
+    launches = _train_full_width("slice TC", cfg, records, stats=stats,
+                                 compress_shards=2, scopes=("ef_compress",))
+    t, tc = stats["slice T"], stats["slice TC"]
+    print(f"slice TC beside slice T: {tc['ms']:.1f} / {t['ms']:.1f} ms a "
+          f"step ({tc['ms'] / t['ms']:.3f}x), {tc['tok_s']:.0f} / "
+          f"{t['tok_s']:.0f} tok/s, peak {tc['peak_gb']:.2f} / "
+          f"{t['peak_gb']:.2f} GB")
+    return launches
 
 
 def _train_launches(cfg, micro: int, steps: int) -> dict:
@@ -2599,22 +2673,32 @@ def _grads_present(label: str, model, params, batch) -> None:
 
 def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
                       steps_done=0, state=None, model=None,
-                      first_loss=None, peak_lr=1e-3):
+                      first_loss=None, peak_lr=1e-3, compress_shards=0,
+                      stats=None):
     """Slice T's recipe on ``cfg`` (bf16, remat full): weights from
     ``torch.Generator(seed=0)``, AdamW with f32 master weights,
     ``warmup_cosine(peak_lr, 10, 8)``, 2 ``TrainWindow``s of 4 steps of 4 x
-    2048 tokens in 2 microbatches, the last under the sync-error mode;
-    then one traced step.  Checks every parameter's gradient after one
-    step (unless the caller did), finite losses, the last window's mean
-    below the first step's loss and exact kernel launches; records the
-    first window's traffic under ``label``.  ``state``, ``model``,
-    ``steps_done`` and ``first_loss``: go on from a caller's first steps
-    (slice TV), whose gradients the caller checked."""
+    2048 tokens in 2 microbatches (with ``compress_shards``: EF-int8
+    compression over that many shard groups of one microbatch each), the
+    last under the sync-error mode; then one traced step.  Checks every
+    parameter's gradient after one step (unless the caller did), finite
+    losses, the last window's mean below the first step's loss, exact
+    kernel launches and finite error buffers; records the first window's
+    traffic under ``label`` and, given ``stats``, the last window's ms a
+    step, tok/s and the peak memory under ``stats[label]``.  ``state``,
+    ``model``, ``steps_done`` and ``first_loss``: go on from a caller's
+    first steps (slice TV), whose gradients the caller checked."""
     from repro_torch.data import DataConfig, device_batch_at
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.trainer import init_state, make_train_window
+    from repro_torch.train.trainer import (effective_optimizer, init_state,
+                                           make_train_window)
     K, steps, micro, seq, batch = 4, 8, 2, 2048, 4
+    train_kw = {"microbatches": micro}
+    if compress_shards:
+        train_kw = {"microbatches": micro // compress_shards,
+                    "compress_grads": True,
+                    "compress_shards": compress_shards}
     t_phase = time.perf_counter()
     dcfg = DataConfig(cfg.vocab_size, seq, batch)
     opt = AdamW(lr=warmup_cosine(peak_lr, 10, steps))
@@ -2622,7 +2706,8 @@ def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
         model = build_model(cfg, max_seq=seq, device=DEVICE)
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(0)
-        state = init_state(model, opt, gen)
+        state = init_state(model, effective_optimizer(
+            opt, bool(compress_shards), max(compress_shards, 1)), gen)
         torch.cuda.synchronize()
     n = sum(p.numel() for p in state["params"].values())
     sbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
@@ -2634,8 +2719,8 @@ def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
                  for k, v in device_batch_at(dcfg, 0, DEVICE).items()}
         _grads_present(label, model, state["params"], first)
         torch.cuda.empty_cache()
-    win = make_train_window(model, opt, steps_per_sync=K,
-                            microbatches=micro, data_cfg=dcfg)
+    win = make_train_window(model, opt, steps_per_sync=K, data_cfg=dcfg,
+                            **train_kw)
     torch.cuda.reset_peak_memory_stats()
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -2670,12 +2755,21 @@ def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
     want = _train_launches(cfg, micro, steps - steps_done)
     check(launches == want, f"{label}: launches {launches}, want {want}")
     check(int(state["step"]) == steps, f"{label}: step counter")
+    if compress_shards:
+        bad = [n for n, e in state["opt"]["err"].items()
+               if not bool(torch.isfinite(e).all())]
+        check(not bad, f"{label}: error buffers not finite: {bad[:6]}")
+        print(f"{label}: all {len(state['opt']['err'])} error buffers "
+              f"(shards {compress_shards}) finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: {steps} steps, losses finite and falling, launches "
           f"{launches}, no host sync inside the last window; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; window 0 "
-          f"ran with its traffic counted")
+          f"{peak:.2f} GB; window 0 ran with its traffic counted")
+    if stats is not None:
+        stats[label] = {"ms": step_s * 1e3, "tok_s": tokens / step_s,
+                        "peak_gb": peak}
     records[label] = ("train", win.train_records())
-    trace_train_step(model, opt, state, micro, dcfg, scopes=scopes)
+    trace_train_step(model, opt, state, dcfg, train_kw, scopes=scopes)
     print(f"{label}: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2698,7 +2792,7 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def trace_train_step(model, opt, state, micro: int, dcfg,
+def trace_train_step(model, opt, state, dcfg, train_kw: dict,
                      scopes=()) -> None:
     """Profile one more train step (a window of 1): its wall time, the
     device time of its kernels, the device's busy share, and the kernels
@@ -2707,9 +2801,8 @@ def trace_train_step(model, opt, state, micro: int, dcfg,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.trainer import make_train_window
-    win = make_train_window(model, opt, steps_per_sync=1,
-                            microbatches=micro, data_cfg=dcfg,
-                            record_traffic=False)
+    win = make_train_window(model, opt, steps_per_sync=1, data_cfg=dcfg,
+                            record_traffic=False, **train_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2756,6 +2849,87 @@ def _host_batches(dcfg, start, n):
             for s in range(start, start + n)]
 
 
+def _per_step(model, opt, state0, batches, n, impl="kernel", **train_kw):
+    """``n`` per-step train steps of ``make_train_step`` from a copy of
+    ``state0`` on host ``batches``: (the (n, 2) stacked loss and
+    grad_norm, the state)."""
+    from repro_torch.train.trainer import clone_state, make_train_step
+    state = clone_state(state0)
+    fn = make_train_step(model, opt, attn_impl=impl, **train_kw)
+    rows = []
+    for b in batches[:n]:
+        state, m = fn(state, b)
+        rows.append(torch.stack([m["loss"], m["grad_norm"]]))
+    return torch.stack(rows), state
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Strict ``torch.use_deterministic_algorithms(True)`` (an op without a
+    deterministic implementation raises) with cuBLAS's fixed workspace."""
+    import os
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+
+
+def _window_contracts(label, model, opt, dcfg, state0, batches, ckpt_dir,
+                      **train_kw) -> None:
+    """Under ``_deterministic``: a window of 4 equals the per-step loop on
+    host batches bit for bit, two windows of 2 equal one of 4, and a
+    checkpoint saved at step 4 and restored resumes to the same step-8
+    state (optimizer state, error buffers included) and losses."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import (clone_state, init_state,
+                                           make_train_window)
+    loop, s_loop = _per_step(model, opt, state0, batches, 4, **train_kw)
+    win = make_train_window(model, opt, steps_per_sync=4, data_cfg=dcfg,
+                            **train_kw)
+    s_win, m = win(clone_state(state0))
+    check(torch.equal(torch.stack([m["loss"], m["grad_norm"]], 1), loop)
+          and _equal_states(s_win, s_loop),
+          f"{label}: window != per-step loop")
+    win2 = make_train_window(model, opt, steps_per_sync=2, data_cfg=dcfg,
+                             **train_kw)
+    s2, m1 = win2(clone_state(state0))
+    s2, m2 = win2(s2)
+    check(torch.equal(torch.cat([m1["loss"], m2["loss"]]), m["loss"])
+          and _equal_states(s2, s_win),
+          f"{label}: two windows of 2 != one window of 4")
+    mgr = CheckpointManager(str(ckpt_dir))
+    mgr.save(4, s_win, blocking=True)
+    s_cont, m_cont = win(s_win)
+    like = init_state(model, win.opt, torch.Generator(device=DEVICE))
+    s_res, m_res = win(mgr.restore(like))
+    check(int(s_res["step"]) == 8 and _equal_states(s_res, s_cont)
+          and torch.equal(m_res["loss"], m_cont["loss"]),
+          f"{label}: restored run differs at step 8")
+
+
+def _reduced_train(arch: str):
+    """Slices U's and UC's model: ``arch`` cut to 4 layers, reduced width,
+    hd 16, f32, remat full, seq 256; AdamW ``warmup_cosine(1e-3, 2, 8)``;
+    4 rows a step; 8 host batches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    cfg = reduced(get_config(arch), dtype="float32", num_layers=4,
+                  remat="full")
+    model = build_model(cfg, max_seq=256, device=DEVICE)
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 8))
+    dcfg = DataConfig(cfg.vocab_size, 256, 4)
+    return cfg, model, opt, dcfg, _host_batches(dcfg, 0, 8)
+
+
 def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
                   label: str = "slice U") -> None:
     """Training parity: ``arch`` cut to 4 layers, reduced width, hd 16,
@@ -2768,40 +2942,19 @@ def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
     twice as long, and a checkpoint saved at step 4 and restored resumes
     to the same step-8 state; an op without a deterministic
     implementation raises."""
-    import os
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.data import DataConfig
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
-    from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.trainer import (clone_state, init_state,
-                                           make_train_step,
-                                           make_train_window)
-    cfg = reduced(get_config(arch), dtype="float32", num_layers=4,
-                  remat="full")
-    model = build_model(cfg, max_seq=256, device=DEVICE)
-    opt = AdamW(lr=warmup_cosine(1e-3, 2, 8))
-    dcfg = DataConfig(cfg.vocab_size, 256, 4)
+    from repro_torch.train.trainer import init_state
+    cfg, model, opt, dcfg, batches = _reduced_train(arch)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     state0 = init_state(model, opt, gen)
-    batches = _host_batches(dcfg, 0, 8)
-
-    def per_step(impl, n, state=None, start=0):
-        state = clone_state(state0) if state is None else state
-        fn = make_train_step(model, opt, microbatches=2, attn_impl=impl)
-        rows = []
-        for b in batches[start:start + n]:
-            state, m = fn(state, b)
-            rows.append(torch.stack([m["loss"], m["grad_norm"]]))
-        return torch.stack(rows), state
 
     ops.reset_launches()
-    kern, _ = per_step("kernel", 4)
+    kern, _ = _per_step(model, opt, state0, batches, 4, microbatches=2)
     check(_launched() == _train_launches(cfg, 2, 4),
           f"{label}: launches of the kernel path {_launched()}")
-    plain, _ = per_step("plain", 4)
+    plain, _ = _per_step(model, opt, state0, batches, 4, "plain",
+                         microbatches=2)
     rel = float(((kern - plain).abs() / plain.abs()).max())
     print(f"{label}: {arch} 4 steps, kernel path {kern[:, 0].tolist()} vs "
           f"plain {plain[:, 0].tolist()}: max rel diff of loss and "
@@ -2822,45 +2975,81 @@ def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
               f"{float((a - b).abs().max()):.3g})")
     print(f"{label}: one step's gradients, kernel vs plain: max|err| "
           f"{err:.3g} (rtol 3e-4, atol 3e-5)")
-
-    def contracts():
-        loop, s_loop = per_step("kernel", 4)
-        win = make_train_window(model, opt, steps_per_sync=4,
-                                microbatches=2, data_cfg=dcfg)
-        s_win, m = win(clone_state(state0))
-        check(torch.equal(torch.stack([m["loss"], m["grad_norm"]], 1), loop)
-              and _equal_states(s_win, s_loop),
-              f"{label}: window != per-step loop")
-        win2 = make_train_window(model, opt, steps_per_sync=2,
-                                 microbatches=2, data_cfg=dcfg)
-        s2, m1 = win2(clone_state(state0))
-        s2, m2 = win2(s2)
-        check(torch.equal(torch.cat([m1["loss"], m2["loss"]]), m["loss"])
-              and _equal_states(s2, s_win),
-              f"{label}: two windows of 2 != one window of 4")
-        mgr = CheckpointManager(str(tmp / label.replace(" ", "_") / arch))
-        mgr.save(4, s_win, blocking=True)
-        s_cont, m_cont = win(s_win)
-        like = init_state(model, opt, torch.Generator(device=DEVICE))
-        s_res, m_res = win(mgr.restore(like))
-        check(int(s_res["step"]) == 8 and _equal_states(s_res, s_cont)
-              and torch.equal(m_res["loss"], m_cont["loss"]),
-              f"{label}: restored run differs at step 8")
-
-    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
-        contracts()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if old_env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+    with _deterministic():
+        _window_contracts(label, model, opt, dcfg, state0, batches,
+                          tmp / label.replace(" ", "_") / arch,
+                          microbatches=2)
     print(f"{label}: deterministic: window == per-step loop, 2 windows == "
           f"1 window of 4, checkpoint at step 4 restored == uninterrupted "
           f"at step 8, all bit for bit")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits on the host (so that -0.0 != +0.0)."""
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+def phase_slice_uc(tmp: Path) -> None:
+    """Slice U's contracts with EF-int8 compression: slice U's model at
+    ``compress_shards`` 1 and 2 (2 microbatches of 2 rows, or 2 shard
+    groups of 2 microbatches of 1 row), under strict deterministic
+    algorithms: window == per-step loop, 2 windows == 1, checkpoint resume
+    to the same step-8 state, error buffers included, all bit for bit,
+    and the error buffers nonzero and finite.  Then ``quantize``,
+    ``apply_error_feedback`` and ``compressed_psum_ef`` (2, 3 and 4
+    shards, mean) on the card equal the CPU's bit for bit on the same f32
+    inputs (the size of one full-width llama3-8b key projection, 4096 x
+    1024, a shard), and so do the scales of 256 small tensors whose
+    maxima spread over 12 decades."""
+    from repro_torch.optim import (apply_error_feedback, compressed_psum_ef,
+                                   quantize)
+    from repro_torch.train.trainer import effective_optimizer, init_state
+    t0 = time.perf_counter()
+    cfg, model, opt, dcfg, batches = _reduced_train("llama3-8b")
+    for shards, micro in ((1, 2), (2, 2)):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1)
+        state0 = init_state(model, effective_optimizer(opt, True, shards),
+                            gen)
+        kw = {"microbatches": micro, "compress_grads": True,
+              "compress_shards": shards}
+        with _deterministic():
+            _window_contracts(f"slice UC shards {shards}", model, opt, dcfg,
+                              state0, batches, tmp / f"uc{shards}", **kw)
+        _, s4 = _per_step(model, opt, state0, batches, 4, **kw)
+        errs = list(s4["opt"]["err"].values())
+        check(all(bool(torch.isfinite(e).all()) for e in errs)
+              and any(bool(e.abs().sum() > 0) for e in errs),
+              f"slice UC shards {shards}: error buffers zero or not finite")
+        print(f"slice UC: shards {shards}, microbatches {micro}: "
+              f"deterministic: window == per-step loop, 2 windows == 1, "
+              f"checkpoint resume at step 8 (error buffers included), bit "
+              f"for bit; {len(errs)} error buffers finite and nonzero")
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 4096, 1024, generator=gen)
+    e = torch.randn(4096, 1024, generator=gen) * 1e-3
+    rows = torch.randn(256, 8, generator=gen).mul_(
+        torch.logspace(-6, 6, 256)[:, None])
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        q, scale = quantize(x[0].to(dev))
+        comp, err = apply_error_feedback({"w": x[0].to(dev)},
+                                         {"w": e.to(dev)})
+        res = [q.cpu().view(torch.uint8), _bits(scale.reshape(1)),
+               _bits(comp["w"]), _bits(err["w"])]
+        for n in (2, 3, 4):
+            comb, errs = compressed_psum_ef({"w": x[:n].to(dev)}, mean=True)
+            res += [_bits(comb["w"]), _bits(errs["w"])]
+        # the scales of 256 tensors whose maxima spread over the floats
+        for t in rows:
+            res.append(_bits(quantize(t.to(dev))[1].reshape(1)))
+        out[dev] = res
+    same = [torch.equal(a, b) for a, b in zip(out[DEVICE], out["cpu"])]
+    check(all(same), f"slice UC: compress functions card != CPU: {same}")
+    print(f"slice UC: quantize, apply_error_feedback and compressed_psum_ef "
+          f"(2, 3, 4 shards) on {tuple(x.shape[1:])} a shard, and 256 "
+          f"scales over 12 decades: card == CPU bit for bit; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _equal_states(a, b) -> bool:
@@ -3746,6 +3935,34 @@ def phase_pipeline() -> None:
           f"6-9.5 MB, SOT 8.5-13 MB; paper 7 and 10)")
 
 
+def phase_tools() -> None:
+    """The calibration tools (``repro_torch.tools``), 20 steps at lr 0.02
+    each, on the card and on the CPU: every iterate's loss within rel
+    ``TOOL_REL``, the same best step, and the best loss at most the
+    frozen constants' (the first iterate's)."""
+    from repro_torch.tools import calibrate_cache, calibrate_traffic
+    for tool in (calibrate_cache, calibrate_traffic):
+        name = tool.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        runs = {d: tool.calibrate(20, 0.02, d, log=None)
+                for d in (DEVICE, "cpu")}
+        hist = {d: r[2] for d, r in runs.items()}
+        rel = max(_rel(a, b) for a, b in zip(hist[DEVICE], hist["cpu"]))
+        best = {d: h.index(runs[d][1]) for d, h in hist.items()}
+        print(f"tools: {name} 20 steps on {DEVICE} and cpu in "
+              f"{time.perf_counter() - t0:.2f} s: losses "
+              f"{hist[DEVICE][0]:.6f} -> {hist[DEVICE][-1]:.6f}, max rel "
+              f"difference {rel:.3g} (bound {TOOL_REL:g}), best step "
+              f"{best[DEVICE]} / {best['cpu']}, best loss "
+              f"{runs[DEVICE][1]:.6f} (frozen {hist[DEVICE][0]:.6f})")
+        check(len(hist[DEVICE]) == 21 and rel <= TOOL_REL,
+              f"tools: {name} card vs cpu losses differ by rel {rel}")
+        check(best[DEVICE] == best["cpu"], f"tools: {name} best steps "
+              f"{best}")
+        check(runs[DEVICE][1] <= hist[DEVICE][0],
+              f"tools: {name} best loss above the frozen constants'")
+
+
 # ---------------------------------------------------------------- phase 7b
 
 
@@ -3823,8 +4040,9 @@ def phase_traffic_card_vs_cpu() -> None:
     """The traffic count on the card against the CPU: reduced llama3-8b
     (f32) through ``Engine`` at 4 slots x 64 on 8 requests, and a reduced
     ``TrainWindow`` (the train launcher's ``--reduced`` config with remat
-    full, 2 steps of 4 x 64 tokens), each on the card and on the CPU with
-    the same weights and requests.  Their ``OpStats`` must be equal,
+    full, 2 steps of 4 x 64 tokens), plain and with EF-int8 compression
+    over 2 shard groups, each on the card and on the CPU with the same
+    weights and requests.  Their ``OpStats`` must be equal,
     record for record (flops and bytes, both by op, kernel calls): the
     kernels' boundary counts what the plain versions' does, and the
     backward that autograd runs on a worker thread on the card, with its
@@ -3862,23 +4080,30 @@ def phase_traffic_card_vs_cpu() -> None:
     tcfg = reduced(get_config("llama3-8b"), num_layers=4, d_model=128,
                    d_ff=256, remat="full")
     opt = AdamW(lr=constant(1e-3))
-    state = init_state(build_model(tcfg, max_seq=64, device="cpu"), opt,
-                       torch.Generator().manual_seed(0))
-    train, trec = {}, {}
-    for dev in (DEVICE, "cpu"):
-        win = make_train_window(build_model(tcfg, max_seq=64, device=dev),
-                                opt, steps_per_sync=2,
-                                data_cfg=DataConfig(tcfg.vocab_size, 64, 4))
-        win(_to(state, dev))
-        train[dev] = [win._traffic]
-        trec[dev] = win.train_records()
-    _same_stats("traffic: reduced TrainWindow", train[DEVICE], train["cpu"])
-    check(trec[DEVICE] == trec["cpu"], "traffic: train_records differ")
-    r = trec["cpu"][0]
-    print(f"traffic card vs CPU: reduced TrainWindow (remat full) equal op "
-          f"for op: {r['shape']} {r['roofline']['flops_per_device']:.6e} "
-          f"flops {r['roofline']['bytes_per_device']:.6e} bytes a step; "
-          f"kernel calls {train['cpu'][0].kernel_calls}")
+    for what, kw in (("", {}),
+                     (" compressed (2 shards)",
+                      {"compress_grads": True, "compress_shards": 2})):
+        train, trec = {}, {}
+        for dev in (DEVICE, "cpu"):
+            win = make_train_window(
+                build_model(tcfg, max_seq=64, device=dev), opt,
+                steps_per_sync=2,
+                data_cfg=DataConfig(tcfg.vocab_size, 64, 4), **kw)
+            state = init_state(build_model(tcfg, max_seq=64, device="cpu"),
+                               win.opt, torch.Generator().manual_seed(0))
+            win(_to(state, dev))
+            train[dev] = [win._traffic]
+            trec[dev] = win.train_records()
+        _same_stats(f"traffic: reduced TrainWindow{what}", train[DEVICE],
+                    train["cpu"])
+        check(trec[DEVICE] == trec["cpu"],
+              f"traffic: train_records{what} differ")
+        r = trec["cpu"][0]
+        print(f"traffic card vs CPU: reduced TrainWindow (remat full){what} "
+              f"equal op for op: {r['shape']} "
+              f"{r['roofline']['flops_per_device']:.6e} flops "
+              f"{r['roofline']['bytes_per_device']:.6e} bytes a step; "
+              f"kernel calls {train['cpu'][0].kernel_calls}")
 
 
 def phase_resilience_alone(flush) -> list:
@@ -4017,12 +4242,18 @@ def main() -> None:
         phase_slice_h(arch)
         torch.cuda.empty_cache()
     stamp("slice H")
-    launches_t = phase_slice_t(records)
+    train_stats = {}
+    launches_t = phase_slice_t(records, train_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tc = phase_slice_tc(records, train_stats)
+    gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice_u(Path(tmp))
+        phase_slice_uc(Path(tmp))
     torch.cuda.empty_cache()
-    stamp("slices T, U")
+    stamp("slices T, TC, U, UC")
     with tempfile.TemporaryDirectory() as tmp:
         launches_train = phase_train_families(records, Path(tmp))
     torch.cuda.empty_cache()
@@ -4040,7 +4271,8 @@ def main() -> None:
     kernels += rows
     stamp("slice C")
     phase_pipeline()
-    stamp("pipeline")
+    phase_tools()
+    stamp("pipeline, tools")
     phase_verdicts(records)
     phase_moe_verdicts(records)
     phase_traffic_card_vs_cpu()
@@ -4055,6 +4287,7 @@ def main() -> None:
             "M": [launches_m["dense"], launches_m["paged"]],
             "N": [launches_n], "V": [launches_v],
             "MP": list(launches_mp.values()), "T": [launches_t],
+            "TC": [launches_tc],
             **{s: [n] for s, n in launches_train.items()}}
     for k in kernels:
         k["launches"] = slice_of.get(k["name"], launches)[k["name"]]

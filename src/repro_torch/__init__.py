@@ -2,7 +2,8 @@
 pipeline.
 
 The package mirrors ``repro`` module for module (``configs``, ``core``,
-``models``, ``kernels``, ``serve``, ``launch``, ``examples``) and imports
+``models``, ``kernels``, ``serve``, ``optim``, ``data``, ``train``,
+``launch``, ``examples``, and the ``tools`` scripts) and imports
 neither JAX nor anything of ``repro``.  Its hot-path kernels are CUDA C++
 under ``csrc/``, built for ``sm_90a`` at first use (``kernels/_build.py``).
 """

@@ -35,9 +35,14 @@ window's train-mode NVM verdicts at the end (``--verdicts``, the
 default): the SRAM/STT/SOT tier energy and EDP ratios, times modeled at
 the TPU tier's constants, not measured; ``--no-verdicts`` counts nothing.
 
-``--compress-grads`` (EF-int8 gradients) is refused: it is not ported
-yet.  There is no ``--strategy``: one
-device.
+``--compress-grads`` runs the error-feedback int8 gradient compressor
+(``optim/compress.py``) in the train step, and ``--compress-shards N``
+splits each batch into N shard groups whose gradients combine through
+the compressed all-reduce's arithmetic, each banking its own residual
+(the JAX launcher's data-parallel schedule, on one device).  The state
+is built and restored with ``effective_optimizer``, so a compressed run
+resumes only from a compressed checkpoint with the same shard count.
+There is no ``--strategy``: one device.
 """
 import argparse
 import dataclasses
@@ -55,8 +60,8 @@ from repro_torch.models.api import check_trainable
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import StragglerMonitor
-from repro_torch.train.trainer import (init_state, make_train_step,
-                                       make_train_window,
+from repro_torch.train.trainer import (effective_optimizer, init_state,
+                                       make_train_step, make_train_window,
                                        window_boundary_crossed)
 
 DEFAULT_CKPT_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -85,18 +90,17 @@ def main(argv=None):
                     help="fused train steps per host sync (K)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true",
-                    help="refused: EF-int8 gradient compression is not "
-                         "ported yet")
+                    help="error-feedback int8 gradient compression "
+                         "(optim/compress.py) in the train step")
+    ap.add_argument("--compress-shards", type=int, default=1,
+                    help="data-parallel shard groups combined through "
+                         "compressed_psum (requires --compress-grads)")
     ap.add_argument("--verdicts", action=argparse.BooleanOptionalAction,
                     default=True, help="print train-mode NVM verdicts "
                                        "(fused mode only)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.compress_grads:
-        print("--compress-grads: EF-int8 gradient compression "
-              "(optim/compress.py) is not ported yet", file=sys.stderr)
-        return 2
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -108,10 +112,12 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg, max_seq=args.seq, device=device)
     opt = AdamW(lr=warmup_cosine(args.lr, 10, args.steps))
+    opt_eff = effective_optimizer(opt, args.compress_grads,
+                                  args.compress_shards)
     dcfg = DataConfig(cfg.vocab_size, args.seq, args.batch)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    state = init_state(model, opt, gen)
+    state = init_state(model, opt_eff, gen)
     nparams = sum(p.numel() for p in state["params"].values())
     print(f"device={device} arch={cfg.arch} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} params={nparams / 1e6:.1f}M "
@@ -160,8 +166,10 @@ def _run_fused(args, model, opt, dcfg, state, mgr, mon, start):
               f"do (checkpoints {mgr.all_steps()})")
         return None
     win = make_train_window(model, opt, steps_per_sync=K,
-                            microbatches=args.microbatches, data_cfg=dcfg,
-                            record_traffic=args.verdicts)
+                            microbatches=args.microbatches,
+                            compress_grads=args.compress_grads,
+                            compress_shards=args.compress_shards,
+                            data_cfg=dcfg, record_traffic=args.verdicts)
     tokens = dcfg.global_batch * dcfg.seq_len
     step, last_loss = start, None
     t0 = time.perf_counter()
@@ -186,7 +194,9 @@ def _run_fused(args, model, opt, dcfg, state, mgr, mon, start):
 
 def _run_per_step(args, model, opt, dcfg, state, mgr, mon, start):
     """The per-step oracle loop (host pipeline, one sync per step)."""
-    step_fn = make_train_step(model, opt, microbatches=args.microbatches)
+    step_fn = make_train_step(model, opt, microbatches=args.microbatches,
+                              compress_grads=args.compress_grads,
+                              compress_shards=args.compress_shards)
     data = Pipeline(dcfg, start_step=start)
     metrics = {}
     t0 = time.perf_counter()

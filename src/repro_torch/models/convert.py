@@ -56,17 +56,15 @@ def _check_names(cfg: ModelConfig, flat: Mapping[str, np.ndarray]):
 
 def train_state_from_numpy(cfg: ModelConfig, state: Mapping, *,
                            device: DeviceLike = None) -> dict:
-    """A JAX ``TrainState`` as numpy (``{"params",
-    "opt": {"m", "v", "count"[, "master"]}, "step"}``, AdamW's state as
-    ``AdamW.init`` builds it) -> the port's train state on ``device``:
-    params through ``params_from_numpy``, moments and master weights f32
-    under the same names, count and step 0-d int32."""
+    """A JAX ``TrainState`` as numpy -> the port's train state on
+    ``device``.  Its optimizer state is AdamW's as ``AdamW.init`` builds it
+    (``{"m", "v", "count"[, "master"]}``) or the compressed optimizer's
+    (``{"inner": <AdamW state>, "err": {name: array}}``, each error buffer
+    shaped like its parameter or, with shards, ``(shards, *shape)``).
+    Params go through ``params_from_numpy``; moments, master weights and
+    error buffers are f32 under the same names, count and step 0-d
+    int32."""
     dev = resolve_device(device)
-    opt = state["opt"]
-    unknown = sorted(set(opt) - {"m", "v", "count", "master"})
-    if unknown:
-        raise ValueError(f"optimizer state has keys {unknown} the port's "
-                         f"AdamW does not carry")
 
     def f32_tree(tree):
         _check_names(cfg, tree)
@@ -77,9 +75,48 @@ def train_state_from_numpy(cfg: ModelConfig, state: Mapping, *,
         return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
                             device=dev)
 
-    out_opt = {"m": f32_tree(opt["m"]), "v": f32_tree(opt["v"]),
+    def adamw(opt):
+        unknown = sorted(set(opt) - {"m", "v", "count", "master"})
+        if unknown:
+            raise ValueError(f"optimizer state has keys {unknown} the "
+                             f"port's AdamW does not carry")
+        out = {"m": f32_tree(opt["m"]), "v": f32_tree(opt["v"]),
                "count": int32(opt["count"])}
-    if "master" in opt:
-        out_opt["master"] = f32_tree(opt["master"])
+        if "master" in opt:
+            out["master"] = f32_tree(opt["master"])
+        return out
+
+    opt = state["opt"]
+    if set(opt) == {"inner", "err"}:
+        out_opt = {"inner": adamw(opt["inner"]),
+                   "err": _err_tree(cfg, opt["err"], dev)}
+    else:
+        out_opt = adamw(opt)
     return {"params": params_from_numpy(cfg, state["params"], device=dev),
             "opt": out_opt, "step": int32(state["step"])}
+
+
+def _err_tree(cfg: ModelConfig, tree: Mapping[str, np.ndarray],
+              dev: torch.device) -> dict:
+    """The compressed optimizer's error buffers: the parameters' names,
+    each shaped like its parameter, or all with one leading shard axis."""
+    defs = model_param_defs(cfg)
+    if set(tree) != set(defs):
+        raise ValueError(f"error buffer names differ: missing "
+                         f"{sorted(set(defs) - set(tree))}, extra "
+                         f"{sorted(set(tree) - set(defs))}")
+    leads = set()
+    for n, d in defs.items():
+        shape = tuple(np.shape(tree[n]))
+        if shape == tuple(d.shape):
+            leads.add(())
+        elif shape[1:] == tuple(d.shape):
+            leads.add(shape[:1])
+        else:
+            raise ValueError(f"error buffer {n}: shape {shape} is neither "
+                             f"{tuple(d.shape)} nor (shards, *that)")
+    if len(leads) > 1:
+        raise ValueError(f"error buffers with leading shapes "
+                         f"{sorted(leads)}: want one for all")
+    return {n: _to_tensor(np.asarray(a, np.float32)).to(dev)
+            for n, a in tree.items()}

@@ -19,13 +19,22 @@ it IN PLACE (parameters, optimizer state and step) and return it: at full
 width a second copy would not fit on the card.  Copy a state before a step
 to keep it.
 
-Traffic records: with ``record_traffic=True`` (the default) the first
-window runs under ``launch/graph_analysis.py``'s ``OpCounter``;
-``train_records`` gives its per-step roofline terms and ``nvm_verdicts``
-scores them with ``core/crosslayer.py``'s SRAM/STT/SOT tier model.
+Gradient compression (``compress_grads=True``) wraps the optimizer with
+``optim/compress.py``'s error-feedback int8 ``CompressedOptimizer`` (build
+and restore the state with ``effective_optimizer``).  With
+``compress_shards > 1`` the batch's rows split into that many shard
+groups, each microbatch-accumulates its own gradients (the groups in
+turn), and the gradients, stacked on a leading ``(shards,)`` axis, combine
+in the wrapped optimizer through the ``compressed_psum_ef(mean=True)``
+arithmetic, each shard's residual banked in its own error buffer; the
+loss is the mean over the shards.  This is the JAX trainer's schedule on
+one device, where the shard groups stand in for data-parallel workers.
 
-Not ported yet: EF-int8 gradient compression (``compress_grads=True``
-raises).
+Traffic records: with ``record_traffic=True`` (the default) the first
+window runs under ``launch/graph_analysis.py``'s ``OpCounter``, the
+compression with the rest of the step; ``train_records`` gives its
+per-step roofline terms and ``nvm_verdicts`` scores them with
+``core/crosslayer.py``'s SRAM/STT/SOT tier model.
 """
 from __future__ import annotations
 
@@ -41,22 +50,36 @@ from repro_torch.launch.roofline import Roofline
 from repro_torch.models.api import Model
 from repro_torch.models.common import Params
 from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.compress import wrap_optimizer
 
 TrainState = Dict[str, Any]  # {"params", "opt", "step"}
 
 
-def _refuse_compression(compress_grads: bool) -> None:
-    if compress_grads:
-        raise NotImplementedError(
-            "compress_grads=True (EF-int8 gradient compression, "
-            "optim/compress.py) is not ported yet; it comes in a later "
-            "slice of the port")
+def effective_optimizer(opt: AdamW, compress_grads: bool = False,
+                        compress_shards: int = 1):
+    """The optimizer whose state the train step actually carries.
+
+    ``compress_grads=True`` wraps ``opt`` with the error-feedback int8
+    compressor (per-shard error buffers when ``compress_shards > 1``);
+    build and restore train state with THIS, so that the state structure
+    matches what ``make_train_step`` / ``TrainWindow`` expect.
+    """
+    return (wrap_optimizer(opt, shards=compress_shards) if compress_grads
+            else opt)
 
 
-def init_state(model: Model, opt: AdamW,
+def _check_compression(compress_grads: bool, compress_shards: int) -> None:
+    if compress_shards < 1:
+        raise ValueError("compress_shards must be >= 1")
+    if compress_shards > 1 and not compress_grads:
+        raise ValueError("compress_shards > 1 requires compress_grads=True")
+
+
+def init_state(model: Model, opt,
                generator: torch.Generator) -> TrainState:
     """Weights drawn from ``generator`` by the model's init rules, a fresh
-    optimizer state and step 0, on the model's device."""
+    state of ``opt`` (``AdamW`` or, for compressed steps, what
+    ``effective_optimizer`` gives) and step 0, on the model's device."""
     params = model.init(generator)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32,
@@ -82,15 +105,18 @@ def _split_leading(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
-                    compress_grads: bool = False,
+                    compress_grads: bool = False, compress_shards: int = 1,
                     attn_impl: str = "kernel") -> Callable:
     """The train step ``(state, batch) -> (state, metrics)``; ``batch``
     holds (B, S) ``tokens`` and ``labels`` on the model's device, B a
-    multiple of ``microbatches``.  Metrics are 0-d device tensors
-    ``loss``, ``grad_norm`` and ``lr``.  Updates ``state`` in place."""
+    multiple of ``microbatches`` x ``compress_shards``.  Metrics are 0-d
+    device tensors ``loss``, ``grad_norm`` and ``lr``.  Updates ``state``
+    in place; build it with ``effective_optimizer(opt, compress_grads,
+    compress_shards)``."""
     if microbatches < 1:
         raise ValueError("microbatches must be >= 1")
-    _refuse_compression(compress_grads)
+    _check_compression(compress_grads, compress_shards)
+    opt_eff = effective_optimizer(opt, compress_grads, compress_shards)
     names = sorted(model.param_defs)
 
     def value_and_grad(params: Params, batch):
@@ -118,9 +144,31 @@ def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
             grads[n].div_(microbatches)
         return loss / microbatches, grads
 
+    def shard_grads(params: Params, batch):
+        """(mean loss over the shards, each shard group's local grads
+        stacked on a leading (shards,) axis); the groups run in turn and
+        write into one stacked buffer a leaf."""
+        groups = {k: _split_leading(x, compress_shards)
+                  for k, x in batch.items()}
+        losses, stacked = [], {}
+        for i in range(compress_shards):
+            l, g = local_grads(params, {k: x[i] for k, x in groups.items()})
+            losses.append(l)
+            for n in names:
+                if n not in stacked:
+                    stacked[n] = torch.empty(
+                        (compress_shards,) + tuple(g[n].shape),
+                        dtype=g[n].dtype, device=g[n].device)
+                stacked[n][i].copy_(g[n])
+            del g
+        return torch.mean(torch.stack(losses)), stacked
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        loss, grads = local_grads(state["params"], batch)
-        metrics = opt.update(grads, state["opt"], state["params"])
+        if compress_shards == 1:
+            loss, grads = local_grads(state["params"], batch)
+        else:
+            loss, grads = shard_grads(state["params"], batch)
+        metrics = opt_eff.update(grads, state["opt"], state["params"])
         del grads
         state["step"] += 1
         return state, dict(metrics, loss=loss)
@@ -135,29 +183,33 @@ class TrainWindow:
     in place) and the stacked (K,) ``loss``, ``grad_norm`` and ``lr`` as
     device tensors; reading them is the window's one host sync.
     ``record_traffic`` counts the first window for ``train_records`` /
-    ``nvm_verdicts``; the trajectory is the same either way."""
+    ``nvm_verdicts``; the trajectory is the same either way.
+    ``compress_grads`` / ``compress_shards`` as ``make_train_step``;
+    ``self.opt`` is the optimizer the state must be built with."""
 
     def __init__(self, model: Model, opt: AdamW, data_cfg: DataConfig, *,
                  steps_per_sync: int, microbatches: int = 1,
-                 compress_grads: bool = False, attn_impl: str = "kernel",
-                 record_traffic: bool = True):
+                 compress_grads: bool = False, compress_shards: int = 1,
+                 attn_impl: str = "kernel", record_traffic: bool = True):
         if steps_per_sync < 1:
             raise ValueError("steps_per_sync must be >= 1")
-        _refuse_compression(compress_grads)
-        if data_cfg.host_batch % microbatches:
+        _check_compression(compress_grads, compress_shards)
+        chunks = microbatches * compress_shards
+        if data_cfg.host_batch % chunks:
             raise ValueError(
                 f"host batch {data_cfg.host_batch} not divisible by "
-                f"microbatches = {microbatches}")
+                f"microbatches x compress_shards = {chunks}")
         self.model = model
-        self.opt = opt
+        self.opt = effective_optimizer(opt, compress_grads, compress_shards)
         self.data_cfg = data_cfg
         self.steps_per_sync = int(steps_per_sync)
         self.record_traffic = bool(record_traffic)
         self.windows_run = 0
         self._traffic = None      # OpStats of the first window
-        self._step_fn = make_train_step(model, opt,
-                                        microbatches=microbatches,
-                                        attn_impl=attn_impl)
+        self._step_fn = make_train_step(
+            model, opt, microbatches=microbatches,
+            compress_grads=compress_grads, compress_shards=compress_shards,
+            attn_impl=attn_impl)
 
     def __call__(self, state: TrainState
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

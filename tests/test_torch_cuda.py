@@ -1237,3 +1237,94 @@ def test_moe_traffic_count_on_card_equals_cpu(dev):
         recs[d.type] = eng.serve_records()
     assert stats["cuda"] == stats["cpu"]
     assert recs["cuda"] == recs["cpu"] and len(recs["cpu"]) >= 2
+
+
+def _bits(t):
+    """A float tensor's bits on the host (so that -0.0 != +0.0)."""
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.int8 else t.view(
+        {torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+@pytest.mark.parametrize("shards,shape", [(1, (4096, 4096)), (2, (1000, 37)),
+                                          (4, (128256, 64)), (3, (5,))])
+def test_compress_functions_on_card_equal_cpu_bitwise(dev, shards, shape):
+    """``quantize`` (f32 and bf16), ``apply_error_feedback``,
+    ``compressed_psum`` / ``compressed_psum_ef`` (sum and mean), a
+    ``CompressedOptimizer`` update's error buffers and the scales of 256
+    tensors whose maxima spread over 12 decades: the card's bits equal
+    the CPU's on the same inputs (a division by a Python scalar on the
+    card, a multiplication by its reciprocal, broke the mean at 3
+    shards)."""
+    from repro_torch.optim import (AdamW, apply_error_feedback,
+                                   compressed_psum, compressed_psum_ef,
+                                   constant, quantize, wrap_optimizer)
+    g = torch.Generator().manual_seed(shards)
+    x = torch.randn((shards,) + shape, generator=g) * 3
+    e = torch.randn(shape, generator=g) * 1e-2
+    # the scales of 256 tensors whose maxima spread over 12 decades
+    rows = torch.randn(256, 8, generator=g).mul_(
+        torch.logspace(-6, 6, 256)[:, None])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        res = []
+        for t in (x[0], x[0].to(torch.bfloat16)):
+            q, s = quantize(t.to(d))
+            res += [_bits(q), _bits(s.reshape(1))]
+        comp, err = apply_error_feedback({"w": x[0].to(d)}, {"w": e.to(d)})
+        res += [_bits(comp["w"]), _bits(err["w"])]
+        for mean in (False, True):
+            comb, errs = compressed_psum_ef({"w": x.to(d)}, mean=mean)
+            res += [_bits(comb["w"]), _bits(errs["w"]),
+                    _bits(compressed_psum({"w": x.to(d)}, mean=mean)["w"])]
+        opt = wrap_optimizer(AdamW(lr=constant(1e-2)), shards)
+        params = {"w": torch.zeros(shape, device=d)}
+        state = opt.init(params)
+        for _ in range(2):
+            opt.update({"w": (x if shards > 1 else x[0]).to(d)}, state,
+                       params)
+        res.append(_bits(state["err"]["w"]))
+        for t in rows:
+            res.append(_bits(quantize(t.to(d))[1].reshape(1)))
+        out[d.type] = res
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert torch.equal(a, b), i
+
+
+def test_launcher_compresses_gradients_on_the_card(dev, tmp_path, capsys):
+    """``launch.train --reduced --compress-grads --compress-shards 2
+    --steps 20 --steps-per-sync 10``: exit 0, 4 layers x 2 shards x 20
+    flash launches, falling window means and the verdict line."""
+    import math
+    import re
+    from repro_torch.launch import train as launch_train
+    ops.reset_launches()
+    args = ["--reduced", "--compress-grads", "--compress-shards", "2",
+            "--steps", "20", "--steps-per-sync", "10", "--ckpt-dir",
+            str(tmp_path)]
+    assert launch_train.main(args) == 0
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    print(out)
+    assert {k: v for k, v in ops.launches.items() if v} == \
+        {"flash_attention": 4 * 2 * 20}
+    means = [float(m) for m in re.findall(r"window mean (\S+)\)", out)]
+    assert len(means) == 2 and all(math.isfinite(m) for m in means)
+    assert means[-1] < means[0], means
+    assert "train_window_b8_s128_k10: energy vs SRAM STT" in out
+
+
+@pytest.mark.parametrize("tool", ["calibrate_cache", "calibrate_traffic"])
+def test_calibration_tool_on_card_follows_cpu(dev, tool):
+    """20 steps at lr 0.02 on the card and on the CPU: each iterate's loss
+    within rel 1e-5 (``chip_smoke.py``'s ``TOOL_REL``), the same best
+    step, the best loss at most the frozen constants'."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.tools.{tool}")
+    card = mod.calibrate(20, 0.02, dev, log=None)
+    cpu = mod.calibrate(20, 0.02, "cpu", log=None)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card[2], cpu[2]))
+    print(f"{tool}: card {card[2]}\ncpu {cpu[2]}\nmax rel {rel:.3g}")
+    assert len(card[2]) == 21 and rel <= 1e-5
+    assert card[2].index(card[1]) == cpu[2].index(cpu[1])
+    assert card[1] <= card[2][0]
