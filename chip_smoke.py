@@ -7,9 +7,7 @@
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
 ``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``,
-``train_families``), of this
-checkout
-or of the
+``train_families``, ``attention_paths``), of this checkout or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
 lists), to time two versions on one card in one call: parent, change,
 change, parent.  A phase that DIR's smoke lacks runs from this file on
@@ -20,7 +18,8 @@ slice F's and G's serving runs, with the traffic recorded and without;
 ``resilience`` runs phase 4c and its parity at slice B's model alone;
 ``moe`` runs phase 5g, slices M, N, V and MP, with M's and N's verdicts;
 ``train_families`` runs phase 5h, slices TS, TG, TM, TV and UR, with the
-verdicts of TS, TG and TM).
+verdicts of TS, TG and TM; ``attention_paths`` runs slices A, AP, SD and
+their parity at slice B's model).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -69,7 +68,17 @@ result line:
      relative error within 8e-3; ``FlashAttention``'s bf16 gradients
      (kernel o and lse, plain backward) within 5e-3 of f32 autograd of
      the plain version at three reduced shapes; timed at slice T's shape
-     in bf16 beside SDPA;
+     in bf16 beside SDPA; then the query offset, the valid-key length,
+     non-causal masks and ``p_bf16`` (llama3-8b's heads, model layout,
+     f32 and bf16): (a) the scalar-decode shape, q (8, 32, 1, 128) at
+     ``q_offset = kv_len - 1`` over a (8, 8, 1024, 128) cache, kv_len 1,
+     517 and 1024, windows 0 and 512, softcaps 0 and 50; (b) an offset
+     chunk, Sq 256 at q_offset 768, kv_len 1024 (also window 512, softcap
+     50); (c) non-causal with kv_len < Skv (global, and windowed at an
+     offset); (d) ``p_bf16`` on f32 inputs at (a)'s and (b)'s shapes; o
+     within 2e-5 / 2e-2 (``p_bf16`` 2e-2), lse within 1e-5; (a) at kv_len
+     1024 and (b) timed in bf16 beside SDPA with the explicit boolean mask
+     and the bound;
   3. the LRU cache-simulator kernels (``cache_sim_ladder``, ``cache_sim``)
      against their plain versions at shapes slice C does not reach: a
      whole-octave ladder plus 3 MB at 1:16 scale, 2 traces of 65,536
@@ -94,6 +103,18 @@ result line:
      ends DONE, logits stay finite and the kernel launch counts are what
      the run implies; then a ``torch.profiler`` trace of one decode window
      (device busy share, kernels by device time);
+  4a. slices AP and SD on slice A's model and weights: ``Model.prefill``
+     on 4 x 2048 tokens through naive attention and through the flash
+     kernel (32 launches a call; last-position logits of the two routes
+     within ``ROUTE_LOGITS_REL`` row by row; each route's median wall);
+     slice A's 16 requests through ``Engine(prefill_attn_impl="kernel")``
+     (every request DONE, no host sync inside a window, flash launches =
+     32 x prefill calls, decode and sampler launches equal to slice A's,
+     tokens/s and TTFT p50 beside slice A's); then 32 scalar-position
+     ``decode_step``s (B = 8, positions 512..543 after a 512-token
+     prefill) through the flash kernel (``q_offset = pos``, ``kv_len = pos
+     + 1``, 32 launches a step) and through naive attention, logits within
+     ``ROUTE_LOGITS_REL`` each step, each route's median step;
   4b. slice D: ``PagedEngine`` on the paged kernel at full width and depth
      on slice A's weights, 16 shared-prefix requests (4 templates of 508
      tokens): every request DONE, prefix hits and copy-on-write copies,
@@ -126,7 +147,10 @@ result line:
      queue, 5 mid-decode), with the matching reasons and counters;
   5. slice B: llama3-8b at full width, 4 layers, f32: the kernel ``Engine``
      against ``EngineReference`` (plain attention and sampling) on 8
-     requests, greedy outputs equal token for token;
+     requests, greedy outputs equal token for token, and so is
+     ``Engine(prefill_attn_impl="kernel")`` (AP's parity); token-by-token
+     scalar ``decode_step`` through the flash kernel reproduces the train
+     forward's logits within 2e-3 (SD's parity);
   5b. slice E: slice B's model, ``PagedEngine`` on the paged kernel
      against ``EngineReference``, greedy, token for token: the
      shared-prefix workload at max_len 256 in the default pool and in a
@@ -138,14 +162,17 @@ result line:
      unfaulted ``EngineReference`` run token for token; the pressure run
      at max_len 512: each DONE request equals that run and each one cut
      mid-decode is a prefix of it;
-  5c. slices F and G: mamba2-1.3b and recurrentgemma-2b at full width and
-     depth (bf16, weights from a seeded generator) serving slice A's 16
+  5c. slices F and G: mamba2-1.3b and recurrentgemma-2b at full width
+     (bf16, weights from a seeded generator; G at full depth, F's serving
+     cut to ``F_SERVE_LAYERS`` = 12 of 48 layers) serving slice A's 16
      requests through ``Engine`` (masked per-token prefill scan, guarded
      state banks): every request DONE, no host sync inside a window,
      exact ``fused_sample`` and ``rglru_scan`` launch counts, a traced
      decode window; then ``Model.prefill`` on 4 prompts of 2048 tokens,
      one ``ssd_scan`` (mamba2) or ``rglru_scan`` (the gated entry, each R
-     layer of recurrentgemma) launch per layer;
+     layer of recurrentgemma) launch per layer, at full depth (the
+     attention layers through the flash kernel, ``Model.prefill``'s
+     default);
   5d. slice H: both families at full width, 4 layers, f32: the kernel
      ``Engine`` at K=1 and K=4 equals ``EngineReference`` token for token
      with an eos exit, and ``Model.prefill`` over 1024 tokens matches the
@@ -259,13 +286,15 @@ result line:
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, and ``launches_by_slice`` with the kernels' launches on
-     slices A, D, M, N, V, MP, T, TC, TS, TG, TM and TV, F's
+     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM and TV, F's
      ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
      T for flash attention, C for the simulator; the two scans also with
      their ``autograd`` forward + backward), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
-     an LRU simulation or either scan: null; SDPA for flash attention).
+     an LRU simulation or either scan: null; SDPA for flash attention),
+     and for flash attention its ``shapes``: the scalar-decode and
+     offset-chunk timings with their own bounds and SDPA times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -308,6 +337,11 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX tests' bounds
 # autograd 2.5e-3; an lse off by d moves it by about d).
 FLASH_BF16_ROW_REL = 8e-3
 FLASH_BF16_GRAD_REL = 5e-3
+# The flash route against the naive route through a full-width bf16
+# llama3-8b (slices AP and SD): each row's relative L2 difference of the
+# f32 logits.  The routes round attention differently (bf16 P and output
+# against f32 softmax then bf16), 32 layers deep; the JAX tests' bf16 bound.
+ROUTE_LOGITS_REL = 2e-2
 # Gumbel-max rows may flip between two tokens whose scores differ by less
 # than this (logf in CUDA and torch.log may differ in the last ulp)
 SAMPLE_TIE_REL = 1e-5
@@ -1259,17 +1293,22 @@ def _rglru_autograd(gen, flush, B, S, R) -> dict:
             "design_bound_ms": t_design, "max_abs_err": err}
 
 
-def _flash_bound(B, H, K, Sq, Skv, hd, elt, causal, window):
-    """Least time for one flash forward: q, k, v read once, o and lse
-    written once; 4*hd flops per live (q row, key, head) pair at the bf16
-    tensor peak (the work is bf16 products)."""
-    q = torch.arange(Sq)
+def _flash_bound(B, H, K, Sq, Skv, hd, elt, causal, window, q_offset=0,
+                 kv_len=None):
+    """Least time for one flash forward: q and the live keys' k, v read
+    once (keys from the first any row's window reaches to ``kv_len``), o
+    and lse written once; 4*hd flops per live (q row, key, head) pair at
+    the bf16 tensor peak (the work is bf16 products)."""
+    kv_len = Skv if kv_len is None else kv_len
+    q = q_offset + torch.arange(Sq)
     lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
-    hi = torch.minimum(q, torch.tensor(Skv - 1)) if causal \
-        else torch.full_like(q, Skv - 1)
+    hi = torch.minimum(q, torch.tensor(kv_len - 1)) if causal \
+        else torch.full_like(q, kv_len - 1)
     pairs = int((hi - lo + 1).clamp(min=0).sum())
+    keys = kv_len - int(lo.min())
     flops = 4 * B * H * pairs * hd
-    nbytes = (2 * B * H * Sq * hd + 2 * B * K * Skv * hd) * elt + 4 * B * H * Sq
+    nbytes = (2 * B * H * Sq * hd + 2 * B * K * keys * hd) * elt \
+        + 4 * B * H * Sq
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
             flops)
@@ -1405,6 +1444,7 @@ def phase_flash_attention(flush) -> dict:
             if layout == "model" and dtype == torch.bfloat16:
                 main = dict(q=q, k=k, v=v, err=err)
     del want32, want, want_lse, got, lse
+    shapes = _flash_positions(gen, flush)
     _flash_grads(gen)
     q, k, v = main["q"], main["k"], main["v"]
     ms = median_ms(lambda: ops.flash_attention(q, k, v), flush=flush)
@@ -1423,7 +1463,104 @@ def phase_flash_attention(flush) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:25",
             "max_abs_err": main["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "shapes": shapes}
+
+
+def _sdpa_mask(Sq, Skv, causal, window, q_offset, kv_len):
+    """The boolean mask (True: attend) of the flash call's arguments."""
+    q = q_offset + torch.arange(Sq, device=DEVICE)[:, None]
+    kp = torch.arange(Skv, device=DEVICE)[None, :]
+    ok = kp < kv_len
+    if causal:
+        ok = ok & (kp <= q)
+    if window > 0:
+        ok = ok & (kp > q - window)
+    return ok
+
+
+def _flash_positions(gen, flush) -> dict:
+    """The flash kernel's query offset, valid-key length, non-causal mask
+    and bf16 probabilities against its plain version, in the model's
+    strided layout (llama3-8b's heads, H=32, K=8, hd=128): (a) the
+    scalar-decode shape, q (8, 32, 1, 128) at ``q_offset = kv_len - 1``
+    over a (8, 8, 1024, 128) cache, kv_len 1, 517 and 1024, windows 0 and
+    512, softcaps 0 and 50; (b) an offset chunk, Sq 256 at q_offset 768,
+    kv_len 1024; (c) non-causal with kv_len < Skv, global and windowed at
+    an offset; (d) ``p_bf16`` on f32 inputs at (a)'s and (b)'s shapes.  o
+    within 2e-5 (f32) / 2e-2 (bf16 and ``p_bf16``), lse within 1e-5, each
+    bf16 row's relative error within ``FLASH_BF16_ROW_REL``.  (a) at
+    kv_len 1024 and (b) timed in bf16 beside SDPA with the explicit
+    boolean mask (``enable_gqa``) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    B, H, K, hd, L = 8, 32, 8, 128, 1024
+    cases = [(f"decode kv_len={n} window={w} cap={c}", 1, L, True, w, c,
+              n - 1, n, False)
+             for n in (1, 517, L) for w in (0, 512) for c in (0.0, 50.0)]
+    cases += [("offset chunk", 256, L, True, 0, 0.0, 768, L, False),
+              ("offset chunk window=512 cap=50", 256, L, True, 512, 50.0,
+               768, L, False),
+              ("non-causal kv_len=700", 300, L, False, 0, 0.0, 0, 700,
+               False),
+              ("non-causal window=256 at offset 400", 300, L, False, 256,
+               30.0, 400, 900, False),
+              ("decode p_bf16", 1, L, True, 0, 0.0, 516, 517, True),
+              ("offset chunk p_bf16", 256, L, True, 0, 0.0, 768, L, True)]
+    timed = {}
+    for (label, Sq, Skv, causal, window, cap, q_off, kv_len,
+         p_bf16) in cases:
+        for dtype in ((torch.float32,) if p_bf16
+                      else (torch.float32, torch.bfloat16)):
+            def r(n, s):            # (B, S, n, hd) behind the view
+                return torch.randn(B, s, n, hd, generator=gen,
+                                   device=DEVICE).to(dtype).transpose(1, 2)
+
+            q, k, v = r(H, Sq), r(K, Skv), r(K, Skv)
+            kw = dict(causal=causal, window=window, logit_cap=cap,
+                      q_offset=q_off, kv_len=kv_len)
+            want32, want_lse = fa.flash_attention_plain(
+                q.float(), k.float(), v.float(), p_bf16=p_bf16, **kw)
+            got, lse = ops.flash_attention(q, k, v, p_bf16=p_bf16,
+                                           return_lse=True, **kw)
+            torch.cuda.synchronize()
+            name = (f"flash_attention {label} {dtype} B={B} H={H} K={K} "
+                    f"Sq={Sq} Skv={Skv} q_offset={q_off}")
+            tol = 2e-2 if p_bf16 else None
+            err = _close(got, want32.to(dtype), dtype, tol=tol, what=name)
+            e_lse = _close(lse, want_lse, tol=1e-5, what=name + " lse")
+            msg = f"{name}: max|err| o {err:.3g}, lse {e_lse:.3g}"
+            if dtype == torch.bfloat16:
+                row, floor = _row_rel(got, want32)
+                check(row <= FLASH_BF16_ROW_REL,
+                      f"{name}: a row's relative error {row:.3g} beyond "
+                      f"{FLASH_BF16_ROW_REL}")
+                msg += f", row rel {row:.3g} (bf16 rounding {floor:.3g})"
+            print(msg + " vs plain")
+            key = {"decode kv_len=1024 window=0 cap=0.0": "decode",
+                   "offset chunk": "offset_chunk"}.get(label)
+            if key and dtype == torch.bfloat16:
+                mask = _sdpa_mask(Sq, Skv, causal, window, q_off, kv_len)
+                ms = median_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                               flush=flush)
+                plain_ms = median_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, **kw), runs=5, flush=flush)
+                lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), flush=flush)
+                bound, by, flops = _flash_bound(B, H, K, Sq, Skv, hd, 2,
+                                                causal, window, q_off, kv_len)
+                print(f"flash_attention {label} bf16 (B={B} Sq={Sq} "
+                      f"q_offset={q_off} kv_len={kv_len}): kernel {ms:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms, SDPA (boolean mask) "
+                      f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+                timed[key] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bound,
+                              "bound_by": by, "max_abs_err": err,
+                              "shape": [B, H, K, Sq, Skv, hd, q_off,
+                                        kv_len]}
+    print(f"flash_attention positions: {len(cases)} cases in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return timed
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1720,7 +1857,205 @@ def phase_slice_a(records: dict):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     records["slice A"] = ("serve", eng.serve_records())
     trace_window(eng, cfg.vocab_size)
-    return launches, model, params, eng
+    return launches, model, params, eng, (reqs, wall)
+
+
+def _logits_rel(got, want) -> float:
+    """Max over rows of ||got - want|| / ||want|| (f32 logits (n, V))."""
+    g, w = got.float().reshape(-1, got.shape[-1]), \
+        want.float().reshape(-1, want.shape[-1])
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp(
+        min=1e-30)).max())
+
+
+def phase_slice_ap(model, params, launches_a: dict, a_run) -> dict:
+    """Slice AP: slice A's model and weights (llama3-8b, full width and
+    depth, bf16) with the dense prefill through the flash kernel.
+    ``Model.prefill`` on 4 x 2048 tokens under ``attn_impl="plain"``
+    (naive attention) and ``"kernel"`` (one flash launch a layer): the
+    last-position logits of the two routes within ``ROUTE_LOGITS_REL`` of
+    each other, row by row, and each route's median wall.  Then slice A's
+    16 requests through ``Engine(prefill_attn_impl="kernel")``: every
+    request DONE, no host sync inside a window, flash launches = layers x
+    prefill calls, the decode and sampler launches equal to slice A's run
+    (the schedule does not depend on the tokens); then the same through
+    the plain prefill right after it (no flash launch), and tokens/s and
+    TTFT p50 of both beside slice A's run.  Returns the flash-prefill
+    serving run's launches."""
+    from repro_torch.serve import latency_summary
+    cfg = model.cfg
+    L = cfg.num_layers
+    _, ms_plain, lg_plain = _prefill_4x2048(
+        "slice AP", model, params, "flash_attention", 0, attn_impl="plain")
+    torch.cuda.empty_cache()
+    _, ms_kern, lg_kern = _prefill_4x2048(
+        "slice AP", model, params, "flash_attention", L, attn_impl="kernel")
+    rel = _logits_rel(lg_kern, lg_plain)
+    err = float((lg_kern - lg_plain).abs().max())
+    check(rel <= ROUTE_LOGITS_REL, f"slice AP: prefill logits kernel vs "
+          f"plain route rel {rel:.3g} beyond {ROUTE_LOGITS_REL}")
+    print(f"slice AP: Model.prefill 4 x 2048 last-position logits, kernel "
+          f"vs plain route: max row rel {rel:.3g} (limit "
+          f"{ROUTE_LOGITS_REL}), max |err| {err:.3g}; wall kernel "
+          f"{ms_kern:.1f} ms, plain {ms_plain:.1f} ms")
+    del lg_plain, lg_kern
+    torch.cuda.empty_cache()
+    runs = {}
+    for impl in ("kernel", "plain"):
+        runs[impl] = _serve_prefill_route(model, params, impl)
+    launches, reqs, wall = runs["kernel"]
+    calls = launches["fused_sample"] - launches["decode_attention"] // L
+    check(launches["flash_attention"] == L * calls,
+          "slice AP: flash launches != layers x prefill calls")
+    check(runs["plain"][0]["flash_attention"] == 0,
+          "slice AP: the plain-prefill engine launched the flash kernel")
+    for name in ("decode_attention", "fused_sample"):
+        for impl, (got, _, _) in runs.items():
+            check(got[name] == launches_a[name],
+                  f"slice AP ({impl} prefill): {name} launches {got[name]} "
+                  f"!= slice A's {launches_a[name]}")
+    rows = [("AP, flash prefill", reqs, wall),
+            ("A, plain prefill, right after AP", *runs["plain"][1:]),
+            ("A, plain prefill, slice A's run", *a_run)]
+    for label, rs, w in rows:
+        ttft = latency_summary(rs)["wall"]["ttft_s"]["p50"] * 1e3
+        tps = sum(len(r.output) for r in rs) / w
+        print(f"slice AP vs A: {label}: {tps:.1f} tok/s, TTFT p50 "
+              f"{ttft:.1f} ms")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_prefill_route(model, params, impl: str):
+    """Slice A's 16 requests through ``Engine(prefill_attn_impl=impl)``
+    after the no-host-sync check: every request DONE, finite, in the
+    vocabulary.  Returns (launches, requests, wall)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DONE, Engine, mixed_requests,
+                                   run_staggered, staggered_groups)
+    cfg = model.cfg
+    label = f"slice AP ({impl} prefill)"
+    eng = Engine(model, params, slots=8, max_len=1024, ticks_per_sync=8,
+                 prefill_attn_impl=impl)
+    _no_sync_in_window(eng, label)
+    reqs = mixed_requests(16, seed=0, vocab=cfg.vocab_size,
+                          prompt_lens=(16, 300), max_new=(16, 64))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outputs = run_staggered(eng, staggered_groups(reqs, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    check(all(r.state == DONE for r in reqs),
+          f"{label}: a request did not end DONE")
+    check(eng.resilience_stats()["quarantined"] == 0,
+          f"{label}: non-finite logits")
+    check(all(0 <= tok < cfg.vocab_size for o in outputs.values()
+              for tok in o), f"{label}: token out of the vocabulary")
+    print(f"{label}: launches {launches}, decode ticks "
+          f"{eng.counts['decode_ticks']}, prefill calls "
+          f"{eng.counts['prefill_calls']}; 16/16 DONE, "
+          f"{_serve_stats(reqs, wall)}")
+    del eng
+    return launches, reqs, wall
+
+
+def phase_slice_sd(model, params) -> dict:
+    """Slice SD: scalar-position decode at slice A's model (llama3-8b,
+    full width and depth, bf16): a 512-token kernel prefill of 8 rows
+    copied into two caches of 1024, then 32 ``decode_step``s at scalar
+    positions 512.. through the flash kernel (``q_offset = pos``, ``kv_len
+    = pos + 1``: 32 launches a step) and through naive attention (none), on
+    the same tokens: each step's logits of the two routes within
+    ``ROUTE_LOGITS_REL`` row by row, finite; each route's median step
+    wall.  Returns the kernel steps' launches."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    L, B, P, T = cfg.num_layers, 8, 512, 32
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=gen,
+                         device=DEVICE)
+    _, kv = model.prefill(params, {"tokens": toks[:, :P]},
+                          logits_at=torch.full((B,), P - 1, device=DEVICE))
+    caches = {}
+    for impl in ("kernel", "plain"):
+        c = model.init_cache(B, 1024)
+        for n in ("k", "v"):
+            c[n][:, :, :P] = kv[n]
+        caches[impl] = c
+    del kv
+    walls = {"kernel": [], "plain": []}
+    total = dict.fromkeys(ops.launches, 0)
+    worst = 0.0
+    for t in range(T):
+        lg = {}
+        for impl in ("kernel", "plain"):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            lg[impl], _ = model.decode_step(
+                params, caches[impl], {"tokens": toks[:, P + t:P + t + 1]},
+                P + t, attn_impl=impl)
+            torch.cuda.synchronize()
+            walls[impl].append(time.perf_counter() - t0)
+            n = ops.launches["flash_attention"]
+            check(n == (L if impl == "kernel" else 0),
+                  f"slice SD step {t} {impl}: {n} flash launches")
+            if impl == "kernel":
+                for k_, v_ in ops.launches.items():
+                    total[k_] += v_
+        check(bool(torch.isfinite(lg["kernel"]).all()),
+              f"slice SD step {t}: logits not finite")
+        rel = _logits_rel(lg["kernel"], lg["plain"])
+        worst = max(worst, rel)
+        check(rel <= ROUTE_LOGITS_REL, f"slice SD step {t}: kernel vs plain "
+              f"logits rel {rel:.3g} beyond {ROUTE_LOGITS_REL}")
+    del caches
+    torch.cuda.empty_cache()
+    ms = {k: statistics.median(w) * 1e3 for k, w in walls.items()}
+    print(f"slice SD: {cfg.arch} {L} layers d_model {cfg.d_model} "
+          f"{cfg.dtype}, B={B}, {T} scalar decode steps at positions "
+          f"{P}..{P + T - 1}: {L} flash launches a "
+          f"kernel step, logits kernel vs plain max row rel {worst:.3g} "
+          f"(limit {ROUTE_LOGITS_REL}); median step {ms['kernel']:.2f} ms "
+          f"(flash route), {ms['plain']:.2f} ms (naive route)")
+    return total
+
+
+def phase_slice_sd_parity(model, params) -> None:
+    """Slice SD at slice B's model (llama3-8b width, 4 layers, f32):
+    token-by-token scalar ``decode_step`` through the flash kernel
+    reproduces the train forward's logits (naive attention) at rtol and
+    atol 2e-3, the bound of JAX's ``test_decode_matches_forward``; 4 flash
+    launches a step."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, T = 2, 32
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                         device=DEVICE)
+    with torch.no_grad():
+        full, _, _ = model.forward(params, {"tokens": toks}, mode="train",
+                                   attn_impl="plain")
+    cache = model.init_cache(B, T)
+    worst = 0.0
+    for t in range(T):
+        ops.reset_launches()
+        lg, cache = model.decode_step(params, cache,
+                                      {"tokens": toks[:, t:t + 1]}, t,
+                                      attn_impl="kernel")
+        check(ops.launches["flash_attention"] == cfg.num_layers,
+              f"slice SD parity step {t}: flash launches")
+        worst = max(worst, _close(lg[:, 0], full[:, t], tol=2e-3,
+                                  what=f"slice SD parity step {t}"))
+    print(f"slice SD parity: {cfg.num_layers} layers f32, {T} scalar "
+          f"decode steps through the flash kernel == the train forward's "
+          f"logits, max |err| {worst:.3g} (atol=rtol=2e-3), "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def trace_window(eng, vocab: int, prompt_lens=(150, 300),
@@ -2280,6 +2615,22 @@ def phase_slice_b():
     print(f"slice B: llama3-8b width, 4 layers, f32: kernel Engine == "
           f"EngineReference on 8 requests, {ntok} greedy tokens; launches "
           f"{launches}")
+    t_ap = time.perf_counter()
+    ops.reset_launches()
+    eng = Engine(model, params, slots=8, max_len=512, ticks_per_sync=8,
+                 prefill_attn_impl="kernel")
+    out_p = run_staggered(eng, staggered_groups(reqs(), 4))
+    check(ops.launches["flash_attention"]
+          == cfg.num_layers * eng.counts["prefill_calls"],
+          "slice AP parity: flash launches != layers x prefill calls")
+    for uid in out_r:
+        check(out_p[uid] == out_r[uid],
+              f"slice AP parity request {uid}: kernel-prefill Engine "
+              f"{out_p[uid]} != reference {out_r[uid]}")
+    print(f"slice AP parity: Engine(prefill_attn_impl='kernel') == "
+          f"EngineReference on the same 8 requests ({ntok} greedy tokens, "
+          f"{ops.launches['flash_attention']} flash launches), "
+          f"{time.perf_counter() - t_ap:.1f} s")
     return model, params
 
 
@@ -2403,12 +2754,13 @@ def _serve_recurrent(label: str, model, params, n_rec: int,
     return launches
 
 
-def _prefill_4x2048(label: str, model, params, kernel: str,
-                    per_call: int) -> int:
-    """``Model.prefill`` on 4 prompts of 2048 tokens: one launch of
-    ``kernel`` per layer that runs it, finite last-position logits and
-    state; the median wall of 3 calls.  Returns the launches of the
-    counted call."""
+def _prefill_4x2048(label: str, model, params, kernel: str, per_call: int,
+                    attn_impl: str = "kernel"):
+    """``Model.prefill`` (attention by ``attn_impl``) on 4 prompts of 2048
+    tokens: ``per_call`` launches of ``kernel`` a call, finite
+    last-position logits and state; the median wall of 3 calls.  Returns
+    (the launches of the counted call, the median wall in ms, its
+    last-position logits)."""
     from repro_torch.kernels import ops
     cfg = model.cfg
     gen = torch.Generator(device=DEVICE)
@@ -2416,10 +2768,11 @@ def _prefill_4x2048(label: str, model, params, kernel: str,
     toks = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
                          device=DEVICE)
     at = torch.full((4,), 2047, dtype=torch.int32, device=DEVICE)
-    model.prefill(params, {"tokens": toks}, logits_at=at)     # warm
+    kw = dict(logits_at=at, attn_impl=attn_impl)
+    model.prefill(params, {"tokens": toks}, **kw)     # warm
     torch.cuda.synchronize()
     ops.reset_launches()
-    lg, cache = model.prefill(params, {"tokens": toks}, logits_at=at)
+    lg, cache = model.prefill(params, {"tokens": toks}, **kw)
     torch.cuda.synchronize()
     n = ops.launches[kernel]
     check(n == per_call, f"{label}: {kernel} launches {n} != {per_call} "
@@ -2428,28 +2781,47 @@ def _prefill_4x2048(label: str, model, params, kernel: str,
           and bool(torch.isfinite(lg).all()), f"{label}: prefill logits")
     check(all(bool(torch.isfinite(c.float()).all()) for c in cache.values()),
           f"{label}: prefill state not finite")
+    del cache
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": toks}, logits_at=at)
+        model.prefill(params, {"tokens": toks}, **kw)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    del lg, cache
-    print(f"{label}: Model.prefill 4 x 2048 tokens: {n} {kernel} launches "
-          f"per call, {statistics.median(walls) * 1e3:.1f} ms median of "
+    print(f"{label}: Model.prefill 4 x 2048 tokens, attn_impl={attn_impl}: "
+          f"{n} {kernel} launches per call, "
+          f"{statistics.median(walls) * 1e3:.1f} ms median of "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} = "
           f"{4 * 2048 / statistics.median(walls):.0f} prompt tok/s")
-    return n
+    return n, statistics.median(walls) * 1e3, lg[:, 0]
+
+
+# Slice F serves at 12 of mamba2-1.3b's 48 layers (the smoke's time: its
+# per-token admission scan made the serving run the largest phase after
+# slice C); its Model.prefill keeps all 48 layers and 48 ssd_scan launches.
+F_SERVE_LAYERS = 12
+
+
+def _cut_depth(model, params, layers: int):
+    """``model`` cut to its first ``layers`` stacked layers, sharing
+    ``params``' tensors (views of the ``blocks/`` stacks)."""
+    from repro_torch.models import build_model
+    cut = build_model(dataclasses.replace(model.cfg, num_layers=layers),
+                      max_seq=model.max_seq)
+    return cut, {n: (w[:layers] if n.startswith("blocks/") else w)
+                 for n, w in params.items()}
 
 
 def phase_slice_f(records: dict) -> dict:
-    """mamba2-1.3b at full width and depth: serving (no kernel of this
-    slice in the tick: the decode step is the recurrent update) and the
-    sequence path, where ``ssd_scan`` runs once per layer."""
+    """mamba2-1.3b at full width: serving at ``F_SERVE_LAYERS`` layers (no
+    kernel of this slice in the tick: the decode step is the recurrent
+    update) and the sequence path at full depth, where ``ssd_scan`` runs
+    once per layer."""
     model, params = _recurrent_model("mamba2-1.3b")
-    launches = _serve_recurrent("slice F", model, params, 0, records)
-    launches["ssd_scan"] = _prefill_4x2048("slice F", model, params,
-                                           "ssd_scan", model.cfg.num_layers)
+    launches = _serve_recurrent(
+        "slice F", *_cut_depth(model, params, F_SERVE_LAYERS), 0, records)
+    launches["ssd_scan"] = _prefill_4x2048(
+        "slice F", model, params, "ssd_scan", model.cfg.num_layers)[0]
     return launches
 
 
@@ -2489,8 +2861,9 @@ def phase_recurrent_walls(flush) -> list:
 
 
 def phase_recurrent_serve(flush) -> list:
-    """Slices F's and G's serving runs alone, for ``--only serve`` beside
-    another tree: each engine serves one request first (a prefill and its
+    """Slices F's (at ``F_SERVE_LAYERS``) and G's serving runs alone, for
+    ``--only serve`` beside another tree: each engine serves one request
+    first (a prefill and its
     first decode windows: what the engine counts, where it counts traffic,
     outside the timed run, as ``_no_sync_in_window`` does in phases F and
     G), is reset, and is then timed on the 16 requests of phases F and G;
@@ -2503,6 +2876,8 @@ def phase_recurrent_serve(flush) -> list:
     for label, arch in (("slice F", "mamba2-1.3b"),
                         ("slice G", "recurrentgemma-2b")):
         model, params = _recurrent_model(arch)
+        if label == "slice F":
+            model, params = _cut_depth(model, params, F_SERVE_LAYERS)
         for record in ((True, False) if choice else (None,)):
             kw = {} if record is None else {"record_traffic": record}
             eng = Engine(model, params, slots=8, max_len=1024,
@@ -4106,6 +4481,25 @@ def phase_traffic_card_vs_cpu() -> None:
               f"kernel calls {train['cpu'][0].kernel_calls}")
 
 
+def phase_attention_paths_alone(flush) -> list:
+    """Slices A, AP and SD and the parity of both at slice B's model alone
+    (``--only attention_paths``): the dense prefill through the flash
+    kernel and scalar-position decode, each beside the plain route and
+    slice A's run in the same call.  No kernel row."""
+    launches, model, params, eng, a_run = phase_slice_a({})
+    del eng
+    torch.cuda.empty_cache()
+    phase_slice_ap(model, params, launches, a_run)
+    phase_slice_sd(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = phase_slice_b()
+    phase_slice_sd_parity(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    return []
+
+
 def phase_resilience_alone(flush) -> list:
     """Slice R alone (``--only resilience``): slice A's model and weights,
     then slice B's with slice E's shared-prefix reference, as the full
@@ -4144,6 +4538,7 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "recurrent": "phase_recurrent_walls",
                  "serve": "phase_recurrent_serve",
                  "resilience": "phase_resilience_alone",
+                 "attention_paths": "phase_attention_paths_alone",
                  "moe": "phase_moe_alone",
                  "train_families": "phase_train_families_alone"}
 
@@ -4214,12 +4609,16 @@ def main() -> None:
         phase_launchers(Path(tmp))
     stamp("launchers")
     records = {}
-    launches, model, params, dense = phase_slice_a(records)
+    launches, model, params, dense, a_run = phase_slice_a(records)
     torch.cuda.empty_cache()
     launches_d = phase_slice_d(model, params, dense, records)
     del dense
     torch.cuda.empty_cache()
     stamp("slices A, D")
+    launches_ap = phase_slice_ap(model, params, launches, a_run)
+    stamp("slice AP")
+    launches_sd = phase_slice_sd(model, params)
+    stamp("slice SD")
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice_r(model, params, Path(tmp))
     del model, params
@@ -4227,6 +4626,7 @@ def main() -> None:
     stamp("slice R")
     model, params = phase_slice_b()
     torch.cuda.empty_cache()
+    phase_slice_sd_parity(model, params)
     want_shared = phase_slice_e(model, params)
     phase_slice_r_parity(model, params, want_shared)
     del model, params
@@ -4283,7 +4683,8 @@ def main() -> None:
                 "flash_attention": launches_t}
     # the serve kernels' launches on each slice's run (the moe and vlm
     # slices beside A's and D's)
-    runs = {"A": [launches], "D": [launches_d],
+    runs = {"A": [launches], "D": [launches_d], "AP": [launches_ap],
+            "SD": [launches_sd],
             "M": [launches_m["dense"], launches_m["paged"]],
             "N": [launches_n], "V": [launches_v],
             "MP": list(launches_mp.values()), "T": [launches_t],
@@ -4297,7 +4698,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_slice")
-    print(json.dumps({"kernels": [{n: k[n] for n in keys + ("autograd",)
+    print(json.dumps({"kernels": [{n: k[n] for n in keys + ("autograd",
+                                                            "shapes")
                                    if n in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,23 +82,44 @@ def _ladder_sets(capacities_mb: Sequence[float], *, scale: int,
 
 def simulate_reference(trace: np.ndarray, cap_lines: int, *,
                        ways: int = 16, use_kernel: bool = True,
+                       sets_tile: Optional[int] = None,
                        device: DeviceLike = None) -> Tuple[int, int]:
     """(hits, misses) of one trace against one LRU cache size.
 
     Per-point path: set ids / tags computed on the host, one kernel launch
-    per capacity.  The parity baseline for ``simulate_ladder``.
+    per capacity (``sets_tile`` cut to the largest divisor of the set
+    count, as the JAX package does; None: ``ops.cache_sim``'s default).
+    The parity baseline for ``simulate_ladder``.
     """
     dev = resolve_device(device)
     num_sets = max(1, cap_lines // ways)
     set_ids = torch.from_numpy((trace % num_sets).astype(np.int32)).to(dev)
     tags = torch.from_numpy((trace // num_sets).astype(np.int32)).to(dev)
     if use_kernel:
-        counts = ops.cache_sim(set_ids, tags, num_sets=num_sets, ways=ways)
+        tile = (None if sets_tile is None
+                else largest_divisor_tile(num_sets, sets_tile))
+        counts = ops.cache_sim(set_ids, tags, num_sets=num_sets, ways=ways,
+                               sets_tile=tile)
     else:
         counts = cache_sim_plain(set_ids, tags, num_sets=num_sets,
                                  ways=ways)
     h, m = counts.tolist()
     return int(h), int(m)
+
+
+# seed-era name of the per-point API, as in the JAX package
+simulate_capacity_lines = simulate_reference
+
+
+def simulate_capacity(trace: np.ndarray, capacity_mb: float, *,
+                      scale: int = 1, ways: int = 16,
+                      use_kernel: bool = True, sets_tile: int = 64,
+                      device: DeviceLike = None) -> Tuple[int, int]:
+    """(hits, misses) of one trace against a cache of ``capacity_mb`` at
+    1:``scale`` (``simulate_reference`` at ``capacity_lines``)."""
+    return simulate_reference(trace, capacity_lines(capacity_mb, scale=scale),
+                              ways=ways, use_kernel=use_kernel,
+                              sets_tile=sets_tile, device=device)
 
 
 def simulate_ladder(traces: np.ndarray,

@@ -1,6 +1,13 @@
-// Flash attention forward for the train step: causal, windowed or
-// non-causal GQA attention with a logit softcap, writing the output and its
-// log-sum-exp (the saved statistic of the backward).
+// Flash attention forward for the train step, the dense prefill and the
+// scalar-position decode: causal, windowed or non-causal GQA attention with
+// a logit softcap, writing the output and its log-sum-exp (the saved
+// statistic of the backward).  Query row i sits at position q_offset + i
+// and only keys below kv_len are live: key j is read by row i when j <
+// kv_len, j <= q_offset + i (causal) and j > q_offset + i - window (window
+// > 0).  The TPU kernel has neither argument (it ran at q_offset 0 and
+// kv_len Skv); flash_attention_jnp took them under its custom VJP, and a
+// decode step (Sq = 1, q_offset = pos, kv_len = pos + 1) or a later chunk
+// of a prompt needs them.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_flash_kernel (the Pallas
 // TPU kernel behind flash_attention, the TPU-native form of the contract
@@ -19,7 +26,10 @@
 // scratch.  Hopper blocks run in no order, so one block owns one (b, h,
 // 128-row q tile) and loops over kv tiles itself, skipping tiles wholly
 // above the diagonal (causal) or wholly left of the window; the q tile is
-// the slowest grid axis, issued longest causal row range first.  A block
+// the slowest grid axis, issued longest causal row range first; the tile
+// range starts at the window's first key and stops at kv_len (and, causal,
+// at the tile's last row's position), so no tile past kv_len is loaded or
+// multiplied.  A block
 // is warp specialised: one producer warpgroup (one thread of it issues the
 // copies) and two consumer warpgroups of 64 q rows each, with setmaxnreg
 // moving registers from the producer to the consumers.  The producer loads
@@ -37,8 +47,9 @@
 // same swizzle.  A consumer warpgroup computes S = Q.K^T as one wgmma
 // m64nTKk16 a 16-column step, from shared memory into registers, then the
 // scale, softcap and masks (masks only on tiles that straddle the
-// diagonal, the window's edge or Skv) and the online softmax in registers:
-// in the accumulator's layout a thread holds rows 16w + lane/4 and +8, so
+// diagonal, the window's edge or kv_len) and the online softmax in
+// registers: in the accumulator's layout a thread holds rows 16w + lane/4
+// and +8, so
 // a row's max and sum need two shuffles in its quad.  P, rounded to bf16
 // in registers, is already in the layout of a wgmma A operand, so O += P.V
 // is one wgmma m64nHDk16 a 16-key step with P from registers and V from
@@ -53,14 +64,18 @@
 // the CUDA cores (TF32 cannot hold 2e-5): one block per (b, h, 64-row q
 // tile), K and V tiles staged in shared memory by all threads, warp w owning
 // q rows 16w..16w+15 (scores, softmax one row at a time, accumulator in
-// shared memory).
+// shared memory).  With p_bf16 it rounds each probability to bf16 before
+// P.V and sums l from the unrounded ones, the bf16 variant's arithmetic
+// (flash_attention_jnp's p_bf16).
 //
 // Arithmetic follows the Pallas kernel: scale hd^-0.5 in f32 (folded into
 // q for f32 inputs; applied to the exact bf16 products' f32 sums for bf16),
 // softcap cap*tanh(s/cap) before the mask, masked scores set to the finite
 // NEG_INF = -2e38 (a row whose first tile is wholly masked gets exp(0)
 // terms that the next live tile's corr = exp(m_prev - m_new) = 0 wipes
-// out, where -INFINITY would give NaN), the final division by max(l, 1e-37)
+// out, where -INFINITY would give NaN; the range never holds a tile wholly
+// past kv_len, and a query row with no live key at all is refused by the
+// wrapper), the final division by max(l, 1e-37)
 // and lse = m + log(max(l, 1e-37)).  For bf16 the softmax runs in base 2
 // (scores times log2 e, ex2.approx), the probabilities enter the P.V
 // product rounded to bf16 and l sums them in f32, as flash_attention_jnp
@@ -192,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int H, int K, int Sq, int Skv,
-                     Strides st, int causal, int window, float scale,
-                     float cap) {
+                     Strides st, int causal, int window, int q_off,
+                     int kv_len, int p_bf16, float scale, float cap) {
   using L = Layout<HD>;
   constexpr int TK = L::TK;
   constexpr int NC = TK / 32;
@@ -224,9 +239,10 @@ __global__ void __launch_bounds__(kThreads)
     m_s[threadIdx.x] = kNegInf;
     l_s[threadIdx.x] = 0.f;
   }
-  // live keys of the tile's rows: [k_lo, k_hi), rounded out to whole tiles
-  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(Skv, q0 + kTileQ) : Skv;
+  // live keys of the tile's rows (positions q_off + q0 ..): [k_lo, k_hi),
+  // k_lo rounded down to a whole tile
+  int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_hi = causal ? min(kv_len, q_off + q0 + kTileQ) : kv_len;
   k_lo = k_lo / TK * TK;
   __syncthreads();
 
@@ -248,9 +264,9 @@ __global__ void __launch_bounds__(kThreads)
         const int kj = k0 + c;
         float x = Ss[row * L::LDS + c];
         if (cap != 0.f) x = cap * tanhf(x / cap);
-        bool ok = kj < Skv;
-        if (causal) ok = ok && kj <= qi;
-        if (window > 0) ok = ok && kj > qi - window;
+        bool ok = kj < kv_len;
+        if (causal) ok = ok && kj <= q_off + qi;
+        if (window > 0) ok = ok && kj > q_off + qi - window;
         s[j] = ok ? x : kNegInf;
         mx = fmaxf(mx, s[j]);
       }
@@ -262,7 +278,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NC; ++j) {
         const float p = expf(s[j] - m_new);
         sum += p;
-        Ps[row * L::LDS + lane + 32 * j] = p;
+        Ps[row * L::LDS + lane + 32 * j] =
+            p_bf16 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -675,8 +692,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int H, int K, int Sq, int Skv, long long ob,
-    long long oh, long long os, int causal, int window, float scale,
-    float cap) {
+    long long oh, long long os, int causal, int window, int q_off, int kv_len,
+    float scale, float cap) {
   using Tl = Tiles<HD>;
   constexpr int TK = Tl::TK, PW = Tl::PW, W = Tl::W, NP = Tl::NP;
   extern __shared__ unsigned char smem_raw[];
@@ -692,9 +709,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileQ;  // longest first
   const int kh = h / (H / K);
-  // live keys of the tile's rows: [k_lo, k_hi), rounded out to whole tiles
-  const int k_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / TK * TK;
-  const int k_hi = causal ? min(Skv, q0 + kTileQ) : Skv;
+  // live keys of the tile's rows (positions q_off + q0 ..): [k_lo, k_hi),
+  // k_lo rounded down to a whole tile; the maps keep their Skv extents
+  const int k_lo =
+      (window > 0 ? max(0, q_off + q0 - window + 1) : 0) / TK * TK;
+  const int k_hi = causal ? min(kv_len, q_off + q0 + kTileQ) : kv_len;
   const int ntiles = (k_hi - k_lo + TK - 1) / TK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -786,11 +805,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
     };
     // scale, softcap and masks of the scores of the tile at k0, into base
     // 2 (masks only where a tile straddles the diagonal, the window's edge
-    // or Skv), then the online softmax: m, l, corr, and sc = exp2(s - m)
+    // or kv_len), then the online softmax: m, l, corr, and sc = exp2(s - m)
     auto softmax = [&](int k0) {
       fence_regs(sc);
-      const bool edge = k0 + TK > Skv || (causal && k0 + TK - 1 > rbase) ||
-                        (window > 0 && k0 <= rbase + 63 - window);
+      const bool edge = k0 + TK > kv_len ||
+                        (causal && k0 + TK - 1 > q_off + rbase) ||
+                        (window > 0 && k0 <= q_off + rbase + 63 - window);
       if (cap != 0.f) {
 #pragma unroll
         for (int i = 0; i < TK / 2; ++i)
@@ -804,9 +824,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
         for (int i = 0; i < TK / 2; ++i) {
           const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
           const int row = (i & 2) ? r1 : r0;
-          bool ok = key < Skv;
-          if (causal) ok = ok && key <= row;
-          if (window > 0) ok = ok && key > row - window;
+          bool ok = key < kv_len;
+          if (causal) ok = ok && key <= q_off + row;
+          if (window > 0) ok = ok && key > q_off + row - window;
           sc[i] = ok ? sc[i] : kNegInf;
         }
       }
@@ -977,8 +997,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int K, int Sq, int Skv, int hd,
-               const Strides& st, int causal, int window, float scale,
-               float cap, cudaStream_t stream) {
+               const Strides& st, int causal, int window, int q_off,
+               int kv_len, int p_bf16, float scale, float cap,
+               cudaStream_t stream) {
   return launch_for_head_dim(hd, [&](auto head_dim) {
     constexpr int HD = decltype(head_dim)::value;
     auto kern = f32::flash_f32_kernel<HD>;
@@ -991,15 +1012,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, f32::kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), H, K, Sq, Skv, st, causal, window, scale,
-        cap);
+        static_cast<float*>(lse), H, K, Sq, Skv, st, causal, window, q_off,
+        kv_len, p_bf16, scale, cap);
   });
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int H, int K, int Sq, int Skv, int hd,
-                const Strides& st, int causal, int window, float scale,
-                float cap, cudaStream_t stream) {
+                const Strides& st, int causal, int window, int q_off,
+                int kv_len, float scale, float cap, cudaStream_t stream) {
   bool mapped = true;
   const int err = launch_for_head_dim(hd, [&](auto head_dim) {
     constexpr int HD = decltype(head_dim)::value;
@@ -1021,7 +1042,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, bf16::kThreads, Tl::kSmem, stream>>>(
         qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o),
         static_cast<float*>(lse), H, K, Sq, Skv, st.ob, st.oh, st.os, causal,
-        window, scale, cap);
+        window, q_off, kv_len, scale, cap);
   });
   return mapped ? err : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1032,7 +1053,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q (B,H,Sq,hd), k/v (B,K,Skv,hd) and o (B,H,Sq,hd) are addressed through
 // their (batch, head, position) strides in elements (multiples of 16 bytes),
 // the last dimension contiguous, the starts 16-byte aligned; lse is a
-// contiguous (B,H,Sq) f32.  window <= 0 is global.  Returns
+// contiguous (B,H,Sq) f32.  window <= 0 is global; q_offset >= 0 is the
+// position of query row 0 and kv_len (1..Skv) the number of live keys;
+// p_bf16 rounds the probabilities to bf16 before P.V in the f32 variant
+// (the bf16 variant always does).  Every query row must have a live key
+// (the wrapper checks).  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue if a tensor
 // map is refused).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
@@ -1042,15 +1067,16 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                long long kb, long long kh, long long ks,
                                long long vb, long long vh, long long vs,
                                long long ob, long long oh, long long os,
-                               int causal, int window, float scale, float cap,
+                               int causal, int window, int q_offset,
+                               int kv_len, int p_bf16, float scale, float cap,
                                void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_f32(q, k, v, o, lse, B, H, K, Sq, Skv, hd, st, causal,
-                      window, scale, cap, s);
+                      window, q_offset, kv_len, p_bf16, scale, cap, s);
   if (dtype == 1)
     return launch_bf16(q, k, v, o, lse, B, H, K, Sq, Skv, hd, st, causal,
-                       window, scale, cap, s);
+                       window, q_offset, kv_len, scale, cap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

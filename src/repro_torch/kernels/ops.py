@@ -66,25 +66,34 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    logit_cap: float = 0.0, return_lse: bool = False):
+                    logit_cap: float = 0.0, q_offset: int = 0,
+                    kv_len: Optional[int] = None, p_bf16: bool = False,
+                    return_lse: bool = False):
     """Flash attention forward in the Pallas layout: q (B,H,Sq,hd); k/v
-    (B,K,Skv,hd); ``window`` <= 0 global -> o (B,H,Sq,hd), and with
-    ``return_lse`` also lse (B,H,Sq) f32.  Any strides with a contiguous
-    last dimension; the output takes q's."""
+    (B,K,Skv,hd); ``window`` <= 0 global; query row i at position
+    ``q_offset + i``; keys at or past ``kv_len`` (None: Skv) dead;
+    ``p_bf16`` rounds the probabilities to bf16 before P.V -> o
+    (B,H,Sq,hd), and with ``return_lse`` also lse (B,H,Sq) f32.  Any
+    strides with a contiguous last dimension; the output takes q's.
+    ``q_offset`` and ``kv_len`` are host ints; an argument the kernel does
+    not take raises ValueError on either device."""
     with _boundary("flash_attention", lambda: _fa.traffic(q, k, v)):
         if not _on_cuda(q, k, v):
-            o, lse = _fa.flash_attention_plain(q, k, v, causal=causal,
-                                               window=window,
-                                               logit_cap=logit_cap)
+            kv_len = _fa.check_positions(q.shape[2], k.shape[2], causal,
+                                         window, q_offset, kv_len, p_bf16)
+            o, lse = _fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+                q_offset=q_offset, kv_len=kv_len, p_bf16=p_bf16)
             # the kernel's layout: o takes q's strides, so that what
             # follows runs the same ops on the CPU as on the card
             o = torch.empty_like(q).copy_(o)
         else:
-            _fa.check_args(q, k, v, causal, window, logit_cap)
+            _fa.check_args(q, k, v, causal, window, logit_cap, q_offset,
+                           kv_len, p_bf16)
             fn = _build.function("flash_attention", "flash_attention",
                                  _fa.ARGTYPES)
             o, lse = _fa.launch_cuda(fn, q, k, v, causal, window,
-                                     logit_cap)
+                                     logit_cap, q_offset, kv_len, p_bf16)
             launches["flash_attention"] += 1
     return (o, lse) if return_lse else o
 

@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.common import (ParamDefs, Params, cross_entropy,
                                        materialize, torch_dtype)
 
@@ -145,7 +146,7 @@ class Model:
     # ---- forward --------------------------------------------------------
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 mode: str, cache: Optional[Params] = None,
-                cache_pos: Optional[torch.Tensor] = None,
+                cache_pos=None,
                 attn_impl: str = "plain",
                 page_table: Optional[torch.Tensor] = None,
                 kv_write_mask: Optional[torch.Tensor] = None,
@@ -189,28 +190,43 @@ class Model:
         return loss if aux is None else loss + aux
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], *,
-                logits_at: Optional[torch.Tensor] = None):
+                logits_at: Optional[torch.Tensor] = None,
+                attn_impl: str = "kernel"):
         """Full-prompt forward: (logits, fresh cache) — the stacked KV
         (dense), or the recurrent state and ring caches after the prompt
         (ssm, hybrid), whose sequence scans run through ``ops.ssd_scan``
-        and ``ops.rglru_scan`` (the CUDA kernels on CUDA tensors).  A vlm
-        batch may carry ``vision_embeds`` (B, Nv, D)."""
+        and ``ops.rglru_scan`` (the CUDA kernels on CUDA tensors) whatever
+        ``attn_impl`` says.  ``attn_impl`` selects the attention route only
+        (``attention.ATTN_IMPLS``): "kernel" (the default, as JAX's
+        "chunked") the flash kernel, "plain" naive attention (JAX's
+        "naive"), "kernel_bf16" the flash kernel with bf16 probabilities.
+        A vlm batch may carry ``vision_embeds`` (B, Nv, D)."""
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         logits, cache, _ = self.forward(params, batch, mode="prefill",
-                                        attn_impl="kernel",
+                                        attn_impl=attn_impl,
                                         logits_at=logits_at)
         return logits, cache
 
     def decode_step(self, params: Params, cache: Params,
-                    batch: Dict[str, torch.Tensor], pos: torch.Tensor, *,
+                    batch: Dict[str, torch.Tensor], pos, *,
                     attn_impl: str = "plain",
                     page_table: Optional[torch.Tensor] = None,
                     kv_write_mask: Optional[torch.Tensor] = None,
                     logits_at: Optional[torch.Tensor] = None):
-        """One decode step at per-row positions ``pos`` (B,) int32; returns
-        (logits (B,1,V), cache).  The dense cache is updated in place and
-        returned; the ssm/hybrid caches come back as new tensors, the cache
-        passed in keeping its bits.  ``attn_impl`` selects the tick's
-        kernels (attention; the RG-LRU scan of the hybrid family).
+        """One decode step at per-row positions ``pos`` (B,) int32 (the
+        serve tick: every slot at its own depth), or at one scalar
+        position ``pos`` (an int or a 0-d tensor, read once a step) for
+        the whole batch, the dry-run and test convention of JAX's
+        ``decode_step``; returns (logits (B,1,V), cache).  The dense cache
+        is updated in place and returned; the ssm/hybrid caches come back
+        as new tensors, the cache passed in keeping its bits.
+        ``attn_impl`` selects the tick's kernels (attention; the RG-LRU
+        scan of the hybrid family): at vector positions "plain" or
+        "kernel" (the fused decode kernel), at a scalar position on the
+        dense cache one of ``attention.ATTN_IMPLS`` ("kernel": the flash
+        kernel with ``q_offset = pos``, ``kv_len = pos + 1``); the hybrid
+        family's scalar ring attention is naive, as in JAX.
 
         With ``page_table`` (B, nb) the cache is the paged pool and ``pos``
         each row's first write position; S > 1 tokens per row is the paged

@@ -1,10 +1,13 @@
 """GQA attention (torch counterpart of the decoder parts of
-``repro/models/attention.py``): projections, RoPE, the O(S^2) prefill
-attention, the train path's flash attention with its blockwise backward
-(``FlashAttention``, ``chunked_attention``), the per-row-position decode
-tick, its paged branch (KV in a shared physical page pool addressed
-through page tables), the paged suffix prefill, the hybrid family's
-ring-buffer decode attention and the KV cache definitions.
+``repro/models/attention.py``): projections, RoPE, the O(S^2) attention
+(``naive_attention``), the flash attention with its blockwise backward
+(``FlashAttention``, ``chunked_attention``) that train, prefill and
+scalar-position decode run through, the per-row-position decode tick, its
+paged branch (KV in a shared physical page pool addressed through page
+tables), the paged suffix prefill, the hybrid family's ring-buffer decode
+attention and the KV cache definitions.  Both take a query offset, a
+valid-key length and explicit key positions as JAX's do, non-causal
+masks and a cross-attention source (``kv_source``).
 
 The decode tick has two implementations selected by ``impl``:
 ``"plain"`` scatters the new K/V row into the cache and runs the plain
@@ -28,6 +31,9 @@ from repro_torch.models.common import (ParamDef, ParamDefs, Params,
                                        apply_rope, softcap)
 
 DECODE_IMPLS = ("plain", "kernel")
+# train, prefill and scalar-position decode: naive (JAX "naive"), the flash
+# kernel (JAX "chunked"), the flash kernel with bf16 P (JAX "chunked_bf16")
+ATTN_IMPLS = ("plain", "kernel", "kernel_bf16")
 
 
 def attn_param_defs(cfg: ModelConfig) -> ParamDefs:
@@ -45,32 +51,43 @@ def attn_param_defs(cfg: ModelConfig) -> ParamDefs:
     return defs
 
 
-def _mask_bias(q_pos, k_pos, *, window: int,
-               causal: bool = True) -> torch.Tensor:
+def _mask_bias(q_pos, k_pos, *, window: int, causal: bool = True,
+               kv_len=None) -> torch.Tensor:
     """Additive mask bias (0 or NEG_INF). q_pos (Sq,), k_pos (Skv,);
-    ``window`` <= 0 means global."""
+    ``window`` <= 0 means global; keys at or past ``kv_len`` (None: none)
+    and keys at negative positions (empty ring slots) are masked."""
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                     device=q_pos.device)
     if causal:
         ok &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         ok &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        ok &= k_pos[None, :] < kv_len
+    ok &= k_pos[None, :] >= 0
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
-def naive_attention(q, k, v, *, window=0, logit_cap=0.0) -> torch.Tensor:
-    """O(S^2)-memory causal attention for prefill. q (B,Sq,H,hd); k/v
-    (B,Skv,K,hd).  Its products go to ``torch.einsum``, as the JAX package
-    leaves them to XLA."""
+def naive_attention(q, k, v, *, causal=True, window=0, logit_cap=0.0,
+                    q_offset=0, kv_len=None, k_positions=None) -> torch.Tensor:
+    """O(S^2)-memory attention (the oracle, and the hybrid family's
+    scalar ring decode, whose key slots carry explicit positions). q
+    (B,Sq,H,hd); k/v (B,Skv,K,hd); query row i at ``q_offset + i``; key t
+    at ``k_positions[t]`` (default t), dead at or past ``kv_len`` or below
+    0.  ``q_offset`` and ``kv_len`` may be ints or 0-d tensors.  Its
+    products go to ``torch.einsum``, as the JAX package leaves them to
+    XLA."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
     qr = q.reshape(B, Sq, K, G, hd).float() * hd ** -0.5
     logits = torch.einsum("bskgh,btkh->bskgt", qr, k.float())
     logits = softcap(logits, logit_cap)
-    bias = _mask_bias(torch.arange(Sq, device=q.device),
-                      torch.arange(Skv, device=q.device), window=window)
+    k_pos = (torch.arange(Skv, device=q.device) if k_positions is None
+             else k_positions.to(q.device))
+    bias = _mask_bias(q_offset + torch.arange(Sq, device=q.device), k_pos,
+                      window=window, causal=causal, kv_len=kv_len)
     logits = logits + bias[None, :, None, None, :]
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bskgt,btkh->bskgh", p, v.float())
@@ -83,34 +100,42 @@ class FlashAttention(torch.autograd.Function):
 
     Forward: ``ops.flash_attention`` on transposed views of the model's
     (B, S, H, hd) tensors (no copy): the CUDA kernel on the card, its plain
-    version on the CPU.  It saves (q, k, v, o, lse).  The saved o is the
-    output in its own dtype: JAX takes ``delta = sum(do * out)`` from the
-    f32 accumulator, which for f32 inputs is the same tensor; for bf16 the
-    difference is o's bf16 rounding (relative 2^-9), below the rounding of
-    the bf16 gradients the backward returns.
+    version on the CPU, with the query offset, the valid-key length and
+    ``p_bf16`` passed through (host ints).  It saves (q, k, v, o, lse).
+    The saved o is the output in its own dtype: JAX takes ``delta = sum(do
+    * out)`` from the f32 accumulator, which for f32 inputs is the same
+    tensor; for bf16 the difference is o's bf16 rounding (relative 2^-9),
+    below the rounding of the bf16 gradients the backward returns.
 
     Backward: ``_flash_bwd_rule`` in plain PyTorch on both devices,
     streaming ``kv_block`` keys at a time, recomputing the probabilities
     from lse and accumulating dq, dk, dv in f32 with the softcap
-    derivative.  The last block may be short; JAX pads it with masked keys
-    that contribute nothing."""
+    derivative; the same mask (query offset, valid-key length) makes a dead
+    key's p exactly 0, so its dk and dv rows are 0.  Under ``p_bf16`` p is
+    rounded to bf16 before it meets dp and do, as JAX's
+    ``_flash_bwd_rule``.  The last block may be short; JAX pads it with
+    masked keys that contribute nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, logit_cap: float,
-                kv_block: int):
+                kv_block: int, q_offset: int, kv_len: Optional[int],
+                p_bf16: bool):
         o, lse = kernel_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, logit_cap=logit_cap,
+            q_offset=q_offset, kv_len=kv_len, p_bf16=p_bf16,
             return_lse=True)
         o = o.transpose(1, 2)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (causal, window, logit_cap, kv_block)
+        ctx.cfg = (causal, window, logit_cap, kv_block, q_offset, kv_len,
+                   p_bf16)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, logit_cap, kv_block = ctx.cfg
+        causal, window, logit_cap, kv_block, q_offset, kv_len, p_bf16 = \
+            ctx.cfg
         B, Sq, H, hd = q.shape
         Skv, K = k.shape[1], k.shape[2]
         G = H // K
@@ -119,7 +144,7 @@ class FlashAttention(torch.autograd.Function):
         dor = do.reshape(B, Sq, K, G, hd).float()
         delta = torch.sum(dor * o.reshape(B, Sq, K, G, hd).float(), dim=-1)
         lse = lse.transpose(1, 2).reshape(B, Sq, K, G)
-        q_pos = torch.arange(Sq, device=q.device)
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
         dq = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32,
                          device=q.device)
         dk = torch.empty((B, Skv, K, hd), dtype=torch.float32,
@@ -131,8 +156,10 @@ class FlashAttention(torch.autograd.Function):
             s_raw = torch.einsum("bskgh,btkh->bskgt", qr * scale, kj)
             s = softcap(s_raw, logit_cap)
             bias = _mask_bias(q_pos, torch.arange(j0, j1, device=q.device),
-                              window=window, causal=causal)
+                              window=window, causal=causal, kv_len=kv_len)
             p = torch.exp(s + bias[None, :, None, None, :] - lse[..., None])
+            if p_bf16:
+                p = p.to(torch.bfloat16).float()
             dp = torch.einsum("bskgh,btkh->bskgt", dor, vj)
             ds = p * (dp - delta[..., None])
             if logit_cap:
@@ -142,17 +169,21 @@ class FlashAttention(torch.autograd.Function):
             dk[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", ds, qr) * scale
             dv[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", p, dor)
         return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None, None, None)
+                dv.to(v.dtype)) + (None,) * 7
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                      logit_cap: float = 0.0,
-                      kv_block: int = 512) -> torch.Tensor:
+                      logit_cap: float = 0.0, q_offset: int = 0,
+                      kv_len: Optional[int] = None, kv_block: int = 512,
+                      p_bf16: bool = False) -> torch.Tensor:
     """Flash attention in the model layout, q (B,S,H,hd), k/v
     (B,Skv,K,hd) -> (B,S,H,hd), differentiable (see ``FlashAttention``);
-    ``window`` <= 0 is global."""
+    ``window`` <= 0 is global; query row i at position ``q_offset + i``,
+    keys at or past ``kv_len`` (None: Skv) dead, both host ints (the
+    kernel's arguments: read a 0-d tensor once with ``int()``);
+    ``p_bf16`` rounds the probabilities to bf16 before P.V."""
     return FlashAttention.apply(q, k, v, causal, window, logit_cap,
-                                kv_block)
+                                kv_block, q_offset, kv_len, p_bf16)
 
 
 def decode_attention(q, k, v, *, pos, window=0, logit_cap=0.0):
@@ -262,15 +293,40 @@ def _paged_attention(cfg: ModelConfig, q, k, v, cache, cache_pos,
                                   logit_cap=cfg.attn_softcap)
 
 
+def per_row_positions(cache_pos) -> bool:
+    """Per-row decode positions (a (B,) tensor), not one scalar position
+    (an int or a 0-d tensor)."""
+    return isinstance(cache_pos, torch.Tensor) and cache_pos.ndim >= 1
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
+            impl: str, q_offset=0, kv_len=None) -> torch.Tensor:
+    """Train, prefill and scalar-decode attention by ``impl``: "plain" is
+    ``naive_attention``, "kernel" ``chunked_attention`` (the flash
+    kernel), "kernel_bf16" the same with ``p_bf16``."""
+    if impl == "plain":
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               logit_cap=cfg.attn_softcap,
+                               q_offset=q_offset, kv_len=kv_len)
+    if impl in ("kernel", "kernel_bf16"):
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 logit_cap=cfg.attn_softcap,
+                                 q_offset=q_offset, kv_len=kv_len,
+                                 p_bf16=impl == "kernel_bf16")
+    raise ValueError(f"attention impl {impl!r} not in {ATTN_IMPLS}")
+
+
 def attention_block(
     cfg: ModelConfig,
     p: Params,
     x: torch.Tensor,                    # (B, S, D)
     *,
     rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]],  # rope_tables
+    causal: bool = True,
     window: int = 0,
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: (B,L,K,hd)
-    cache_pos: Optional[torch.Tensor] = None,         # decode: (B,) int
+    cache_pos=None,                     # decode: (B,) int, or a scalar
+    kv_source: Optional[torch.Tensor] = None,   # cross source (B, Skv, D)
     return_kv: bool = False,
     impl: str = "plain",
     page_table: Optional[torch.Tensor] = None,     # paged: (B, nb) int32
@@ -279,41 +335,56 @@ def attention_block(
     """One attention op incl. projections, RoPE (``rope_cs`` = the
     positions' ``rope_tables``, None without RoPE) and cache handling.
 
-    Prefill (``cache is None``, ``return_kv``): causal O(S^2) attention
-    over the prompt; the computed k/v come back as the cache.  Train
-    (``cache is None``, no ``return_kv``): causal attention under autograd,
-    ``impl="kernel"`` through ``chunked_attention`` (the flash kernel
-    forward, its blockwise backward), ``impl="plain"`` through
-    ``naive_attention`` (the oracle, as JAX's ``"naive"``).  Decode
-    (``cache_pos`` a (B,) vector, S == 1): row b writes its k/v at its own
-    position ``cache_pos[b]`` — IN PLACE in ``cache`` (the JAX package
-    returned new buffers) — and attends its own prefix.  With
-    ``page_table`` the cache is the paged pool and ``cache_pos[b]`` is row
-    b's first write position: S == 1 is the paged decode tick, S > 1 the
-    paged suffix prefill (positions ``cache_pos[b] + s``, writes masked by
-    ``kv_write_mask``)."""
+    With ``kv_source`` k and v are projected from it (cross-attention), no
+    RoPE touches q or k, and the mask is not causal; ``causal=False``
+    alone drops the causal mask too.
+
+    Prefill (``cache is None``, ``return_kv``) and train (``cache is
+    None``): attention over the sequence by ``impl`` (``ATTN_IMPLS``:
+    "plain" = ``naive_attention``, as JAX's "naive"; "kernel" =
+    ``chunked_attention``, the flash kernel forward and its blockwise
+    backward, as JAX's "chunked"; "kernel_bf16" with ``p_bf16``, as
+    "chunked_bf16"); prefill returns the computed k/v as the cache.
+
+    Scalar decode (``cache_pos`` an int or a 0-d tensor, S == 1, a dense
+    cache): the step's k/v is written at ``cache_pos`` for every row, IN
+    PLACE in ``cache``, and attended by ``impl`` with ``q_offset =
+    cache_pos`` and ``kv_len = cache_pos + 1``; a 0-d tensor is read once
+    here (``decoder_forward`` reads it once a step and passes an int).
+
+    Vector decode (``cache_pos`` a (B,) vector, S == 1): row b writes its
+    k/v at its own position ``cache_pos[b]`` — IN PLACE in ``cache`` (the
+    JAX package returned new buffers) — and attends its own prefix,
+    ``impl`` in ``DECODE_IMPLS``.  With ``page_table`` the cache is the
+    paged pool and ``cache_pos[b]`` is row b's first write position: S ==
+    1 is the paged decode tick, S > 1 the paged suffix prefill (positions
+    ``cache_pos[b] + s``, writes masked by ``kv_write_mask``)."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
+    Skv = src.shape[1]
     q = (x @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].reshape(D, K * hd)).reshape(B, S, K, hd)
-    v = (x @ p["wv"].reshape(D, K * hd)).reshape(B, S, K, hd)
+    k = (src @ p["wk"].reshape(D, K * hd)).reshape(B, Skv, K, hd)
+    v = (src @ p["wv"].reshape(D, K * hd)).reshape(B, Skv, K, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if rope_cs is not None:
+    if rope_cs is not None and kv_source is None:
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
+    causal = causal and kv_source is None
+    vector = per_row_positions(cache_pos)
 
     if page_table is not None:
-        if cache is None or cache_pos is None or cache_pos.ndim != 1:
+        if cache is None or not vector or cache_pos.ndim != 1:
             raise ValueError("paged attention needs the pools and a (B,) "
                              "vector of first write positions")
         out = _paged_attention(cfg, q, k, v, cache, cache_pos, page_table,
                                kv_write_mask, window, impl)
         new_cache = cache
-    elif cache is not None:
-        if cache_pos is None or cache_pos.ndim != 1 or S != 1:
-            raise ValueError("decode takes one token per row and a (B,) "
-                             "vector of cache positions")
+    elif cache is not None and vector:
+        if cache_pos.ndim != 1 or S != 1:
+            raise ValueError("vector decode takes one token per row and a "
+                             "(B,) vector of cache positions")
         ck, cv = cache["k"], cache["v"]
         nk, nv = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
         if impl == "kernel":
@@ -329,16 +400,20 @@ def attention_block(
         else:
             raise ValueError(f"decode impl {impl!r} not in {DECODE_IMPLS}")
         new_cache = cache
-    elif return_kv or impl == "plain":
-        out = naive_attention(q, k, v, window=window,
-                              logit_cap=cfg.attn_softcap)
-        new_cache = {"k": k, "v": v} if return_kv else None
-    elif impl == "kernel":
-        out = chunked_attention(q, k, v, window=window,
-                                logit_cap=cfg.attn_softcap)
-        new_cache = None
+    elif cache is not None:
+        if cache_pos is None or S != 1 or kv_source is not None:
+            raise ValueError("decode takes one token per row at a scalar "
+                             "or (B,) cache position, and no kv_source")
+        cp = int(cache_pos)
+        ck, cv = cache["k"], cache["v"]
+        ck[:, cp] = k[:, 0].to(ck.dtype)
+        cv[:, cp] = v[:, 0].to(cv.dtype)
+        out = _attend(cfg, q, ck, cv, causal=causal, window=window,
+                      impl=impl, q_offset=cp, kv_len=cp + 1)
+        new_cache = cache
     else:
-        raise ValueError(f"train impl {impl!r} not in {DECODE_IMPLS}")
+        out = _attend(cfg, q, k, v, causal=causal, window=window, impl=impl)
+        new_cache = {"k": k, "v": v} if return_kv else None
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
 

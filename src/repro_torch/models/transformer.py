@@ -9,12 +9,13 @@ Modes:
   prefill — full-sequence forward, returns the per-layer KV cache (dense)
             or the recurrent state and ring caches (ssm, hybrid)
   decode  — one token per row against an existing cache, at per-row
-            positions (the serve tick).  The dense KV cache is updated in
-            place; the ssm and hybrid caches come back as new tensors and
-            the cache passed in keeps its bits, so a serve engine can
-            merge rows under a mask.  With a page table the dense cache is
-            the paged pool, and S > 1 tokens per row is the paged suffix
-            prefill.
+            positions (the serve tick) or at one scalar position for the
+            whole batch (the dry-run and test convention).  The dense KV
+            cache is updated in place; the ssm and hybrid caches come back
+            as new tensors and the cache passed in keeps its bits, so a
+            serve engine can merge rows under a mask.  With a page table
+            the dense cache is the paged pool, and S > 1 tokens per row is
+            the paged suffix prefill.
 
 The JAX package scans the stacked layers with ``jax.lax.scan``; here a
 Python loop walks views of the same stacked tensors (dense, ssm) or the
@@ -211,7 +212,7 @@ def decoder_forward(
     *,
     mode: str = "prefill",                # train | prefill | decode
     cache: Optional[Params] = None,       # {"k","v"}: (layers,B,L,K,hd)
-    cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
+    cache_pos=None,                       # decode: (B,) int32 or scalar
     attn_impl: str = "plain",
     logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
     page_table: Optional[torch.Tensor] = None,  # paged: (B, nb) int32
@@ -231,8 +232,12 @@ def decoder_forward(
     S > 1 the paged suffix prefill (positions ``cache_pos[b] + s``, writes
     masked by ``kv_write_mask``), which takes ``logits_at`` as prefill
     does.  ``attn_impl`` ("plain" | "kernel") selects the decode tick's
-    attention, and in train mode (logits (B, S, V) f32 and no cache) the
-    flash kernel or naive attention (see ``_train_forward``).  The ssm
+    attention; in train mode (logits (B, S, V) f32 and no cache), in
+    prefill and in scalar-position decode (``cache_pos`` an int or a 0-d
+    tensor: every row writes and attends at that position, one token a
+    row, as JAX's dry-run convention; the tensor is read once a step)
+    "plain" is naive attention and "kernel" ("kernel_bf16") the flash
+    kernel (with bf16 probabilities), see ``attention_block``.  The ssm
     family's cache is its recurrent state (see ``_ssm_forward``); it has
     no kernel in its decode tick.  Its train mode runs each layer's
     sequence path (conv, ``ssd_chunked`` under autograd, gated RMSNorm)
@@ -266,7 +271,7 @@ def decoder_forward(
         ks, vs = [], []
         for lp, w in zip(layers, windows):
             x, kv, _ = _decoder_layer(cfg, lp, x, rope_cs=rope_cs, window=w,
-                                      return_kv=True)
+                                      return_kv=True, impl=attn_impl)
             ks.append(kv["k"])
             vs.append(kv["v"])
         return (_unembed(cfg, params, _pick(x, logits_at)),
@@ -274,13 +279,22 @@ def decoder_forward(
     if mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
                          f"'decode')")
-    if cache is None or cache_pos is None or cache_pos.ndim != 1:
-        raise ValueError("decode needs a cache and (B,) cache positions")
+    if cache is None or cache_pos is None:
+        raise ValueError("decode needs a cache and cache positions")
     if S != 1 and page_table is None:
         raise ValueError("decode takes one token per row; S > 1 only on "
                          "the paged branch (suffix prefill)")
-    rope_cs = tables(cache_pos.to(torch.int32)[:, None] + torch.arange(
-        S, dtype=torch.int32, device=x.device)[None, :])
+    if attn_mod.per_row_positions(cache_pos):
+        if cache_pos.ndim != 1:
+            raise ValueError("decode positions must be (B,) or a scalar")
+        rope_cs = tables(cache_pos.to(torch.int32)[:, None] + torch.arange(
+            S, dtype=torch.int32, device=x.device)[None, :])
+    else:
+        if page_table is not None:
+            raise ValueError("paged decode needs (B,) first write positions")
+        cache_pos = int(cache_pos)          # one host read a step
+        rope_cs = tables(torch.full((1, 1), cache_pos, dtype=torch.int32,
+                                    device=x.device))
     for i, (lp, w) in enumerate(zip(layers, windows)):
         x, _, _ = _decoder_layer(
             cfg, lp, x, rope_cs=rope_cs, window=w,
@@ -331,11 +345,14 @@ def _pick(x: torch.Tensor, logits_at: Optional[torch.Tensor]):
 
 
 def _check_decode(mode: str, cache, cache_pos, S: int) -> None:
-    """The recurrent families decode one token per row at (B,) positions."""
+    """The recurrent families decode one token per row at (B,) positions
+    or at one scalar position."""
     if mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
-    if cache is None or cache_pos is None or cache_pos.ndim != 1:
-        raise ValueError("decode needs a cache and (B,) cache positions")
+    if cache is None or cache_pos is None or (
+            attn_mod.per_row_positions(cache_pos) and cache_pos.ndim != 1):
+        raise ValueError("decode needs a cache and (B,) or scalar cache "
+                         "positions")
     if S != 1:
         raise ValueError(f"decode takes one token per row, got S = {S}")
 
@@ -346,8 +363,8 @@ def _ssm_forward(cfg: ModelConfig, params: Params, x, *, mode, cache,
     scan (``ops.ssd_scan``) of every layer and returns the
     state ``{"conv": (layers,B,W-1,d_xbc), "ssm": (layers,B,H,P,N) f32}``;
     decode runs every layer's O(1) recurrent update and returns the
-    advanced state as new tensors (``cache_pos`` is not read: the state
-    is positionless)."""
+    advanced state as new tensors (``cache_pos``, a (B,) vector or a
+    scalar, is not read: the state is positionless)."""
     layers = _layers(cfg, params)
     if mode == "prefill":
         convs, ssms = [], []
@@ -374,8 +391,11 @@ def _ring_decode_layer(cfg: ModelConfig, p: Params, z, k_l, v_l, pos_l,
     """Local attention of one decode tick against a ring-buffer cache of
     size Wr: row b writes its k/v into its own slot ``cache_pos[b] % Wr``
     of COPIES of the ring (the cache passed in keeps its bits) and attends
-    through ``ring_decode_attention``'s per-row position mask.  Returns
-    (y, (k, v, pos) rings)."""
+    through ``ring_decode_attention``'s per-row position mask.  At a
+    scalar position (an int) every row writes slot ``cache_pos % Wr`` and
+    attends through ``naive_attention`` at ``q_offset = cache_pos`` over
+    row 0's slot positions, as JAX's scalar ring decode.  Returns (y, (k,
+    v, pos) rings)."""
     B, S, D = z.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (z @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
@@ -384,15 +404,25 @@ def _ring_decode_layer(cfg: ModelConfig, p: Params, z, k_l, v_l, pos_l,
     if rope_cs is not None:
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
-    rows = torch.arange(B, device=z.device)
-    slot = cache_pos.long() % k_l.shape[1]
     k_l, v_l, pos_l = k_l.clone(), v_l.clone(), pos_l.clone()
-    k_l[rows, slot] = k[:, 0].to(k_l.dtype)
-    v_l[rows, slot] = v[:, 0].to(v_l.dtype)
-    pos_l[rows, slot] = cache_pos.to(pos_l.dtype)
-    out = attn_mod.ring_decode_attention(
-        q, k_l, v_l, q_pos=cache_pos, k_positions=pos_l,
-        window=cfg.local_window, logit_cap=cfg.attn_softcap)
+    if not attn_mod.per_row_positions(cache_pos):
+        slot = cache_pos % k_l.shape[1]
+        k_l[:, slot] = k[:, 0].to(k_l.dtype)
+        v_l[:, slot] = v[:, 0].to(v_l.dtype)
+        pos_l[:, slot] = cache_pos
+        out = attn_mod.naive_attention(
+            q, k_l, v_l, causal=True, window=cfg.local_window,
+            logit_cap=cfg.attn_softcap, q_offset=cache_pos,
+            k_positions=pos_l[0])
+    else:
+        rows = torch.arange(B, device=z.device)
+        slot = cache_pos.long() % k_l.shape[1]
+        k_l[rows, slot] = k[:, 0].to(k_l.dtype)
+        v_l[rows, slot] = v[:, 0].to(v_l.dtype)
+        pos_l[rows, slot] = cache_pos.to(pos_l.dtype)
+        out = attn_mod.ring_decode_attention(
+            q, k_l, v_l, q_pos=cache_pos, k_positions=pos_l,
+            window=cfg.local_window, logit_cap=cfg.attn_softcap)
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, (k_l, v_l, pos_l)
 
@@ -427,7 +457,7 @@ def hybrid_forward(
     *,
     mode: str = "prefill",                # train | prefill | decode
     cache: Optional[Params] = None,
-    cache_pos: Optional[torch.Tensor] = None,   # decode: (B,) int32
+    cache_pos=None,                       # decode: (B,) int32 or scalar
     attn_impl: str = "plain",
     logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
 ) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -441,20 +471,28 @@ def hybrid_forward(
     (``FlashAttention``, window ``local_window``); ``"plain"`` through
     the plain scan and naive attention under autograd.
 
-    Prefill: every R layer's recurrence runs through ``attn_impl``'s scan
-    (``"kernel"``: ``ops.rglru_scan``), every A layer's windowed prefill
-    attention through ``attention_block``; the cache holds each R layer's
-    final ``rec/h`` and ``rec/conv`` and each A layer's last W =
-    ``local_window`` keys folded into the ring layout.  Decode (per-row
-    ``cache_pos`` (B,)): each R layer's recurrent step (the scan at S = 1)
-    and each A layer's ring write and ``ring_decode_attention``; the
-    advanced cache comes back as new tensors."""
+    Prefill: every R layer's recurrence runs through the kernel scan
+    (``ops.rglru_scan``, as the ssm prefill's SSD scan), every A layer's
+    windowed prefill attention through ``attention_block`` by
+    ``attn_impl`` ("plain" naive, "kernel" / "kernel_bf16" the flash
+    kernel); the cache holds each R layer's final ``rec/h`` and
+    ``rec/conv`` and each A layer's last W = ``local_window`` keys folded
+    into the ring layout.  Decode (per-row ``cache_pos`` (B,), or one
+    scalar position for every row): each R layer's recurrent step (the
+    scan at S = 1, by ``attn_impl``) and each A layer's ring write and
+    attention (``_ring_decode_layer``); the advanced cache comes back as
+    new tensors."""
     S = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     decode = mode == "decode"
     if decode:
         _check_decode(mode, cache, cache_pos, S)
-        positions = cache_pos.to(torch.int32)[:, None]
+        if attn_mod.per_row_positions(cache_pos):
+            positions = cache_pos.to(torch.int32)[:, None]
+        else:
+            cache_pos = int(cache_pos)          # one host read a step
+            positions = torch.full((1, 1), cache_pos, dtype=torch.int32,
+                                   device=x.device)
     elif mode in ("train", "prefill"):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     else:
@@ -476,8 +514,9 @@ def hybrid_forward(
             r_i = len(new["rec/h"])
             st = ({"h": cache["rec/h"][r_i], "conv": cache["rec/conv"][r_i]}
                   if decode else None)
-            h, st = rglru_mod.rglru_block(cfg, subtree(lp, "rec"), z,
-                                          state=st, impl=attn_impl)
+            h, st = rglru_mod.rglru_block(
+                cfg, subtree(lp, "rec"), z, state=st,
+                impl=attn_impl if decode else "kernel")
             new["rec/h"].append(st["h"])
             new["rec/conv"].append(st["conv"])
         else:
@@ -490,7 +529,7 @@ def hybrid_forward(
             else:
                 h, kv = attn_mod.attention_block(
                     cfg, subtree(lp, "attn"), z, rope_cs=rope_cs, window=W,
-                    return_kv=True)
+                    return_kv=True, impl=attn_impl)
                 rings = _ring_fold(kv["k"], kv["v"], W)
             for n, t in zip(("attn/k", "attn/v", "attn/pos"), rings):
                 new[n].append(t)

@@ -1,7 +1,7 @@
 from repro_torch.models.api import UnsupportedFamilyError
 from repro_torch.serve.chaos import Fault, FaultPlan, InjectedFault
 from repro_torch.serve.engine import (Engine, EngineReference, PagedEngine,
-                                      Request)
+                                      Request, engine_reference)
 from repro_torch.serve.paged import (PagePool, PagePoolExhausted, RadixTree,
                                      pages_for)
 from repro_torch.serve.resilience import (DONE, FAILED, PENDING, QUEUED,
@@ -18,7 +18,7 @@ from repro_torch.serve.workload import (lognormal_lengths, mixed_requests,
                                         staggered_groups)
 
 __all__ = ["Engine", "EngineReference", "PagedEngine", "Request",
-           "UnsupportedFamilyError",
+           "UnsupportedFamilyError", "engine_reference",
            "PagePool", "PagePoolExhausted", "RadixTree", "pages_for",
            "Fault", "FaultPlan", "InjectedFault",
            "DONE", "FAILED", "PENDING", "QUEUED", "RUNNING", "SHED",

@@ -313,6 +313,11 @@ class Engine:
     device work, which runs once and whose errors propagate out of
     ``step()``.  ``health_check=False`` lets non-finite or out-of-vocab
     rows decode on, as the JAX engine does with it off.
+    ``prefill_attn_impl`` is the dense admission prefill's attention
+    (``Model.prefill``'s ``attn_impl``): "plain" (the default, as the JAX
+    engine's "naive") or "kernel", the flash kernel (its "chunked"); the
+    recurrent families' per-token prefill scan and ``PagedEngine``'s
+    suffix prefill do not read it, as in JAX.
     """
 
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
@@ -323,10 +328,14 @@ class Engine:
                  charge_prefill_ticks: bool = False,
                  shed_policy: Optional[ShedPolicy] = None,
                  watchdog: Optional[WindowWatchdog] = None,
-                 fault_plan=None, health_check: bool = True):
+                 fault_plan=None, health_check: bool = True,
+                 prefill_attn_impl: str = "plain"):
         self.device = _check_model(model, device, "Engine")
         if attn_impl not in IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {IMPLS}")
+        if prefill_attn_impl not in IMPLS:
+            raise ValueError(f"prefill_attn_impl {prefill_attn_impl!r} not "
+                             f"in {IMPLS}")
         if sample_impl not in IMPLS:
             raise ValueError(f"sample_impl {sample_impl!r} not in {IMPLS}")
         if int(ticks_per_sync) < 1:
@@ -339,6 +348,7 @@ class Engine:
         self.seed = seed
         self.ticks_per_sync = int(ticks_per_sync)
         self.attn_impl = attn_impl
+        self.prefill_attn_impl = prefill_attn_impl
         self.sample_impl = sample_impl
         self.record_traffic = bool(record_traffic)
         self.charge_prefill_ticks = bool(charge_prefill_ticks)
@@ -545,7 +555,8 @@ class Engine:
         with self._prefill_call(P):
             logits, fresh = self.model.prefill(
                 self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
-                logits_at=(lens_t - 1).clamp(0, P - 1))
+                logits_at=(lens_t - 1).clamp(0, P - 1),
+                attn_impl=self.prefill_attn_impl)
             valid = (torch.arange(P, device=dev)[None, :] < lens_t[:, None])
             for name in self.cache:
                 self._scatter_bank(name, fresh[name], rows, valid)
@@ -1393,3 +1404,8 @@ class EngineReference:
 
     def run(self, max_ticks: int = 10_000) -> int:
         return _drain_until_done(self, max_ticks)
+
+
+# the per-tick oracle under the *_reference name of the sweep, cachesim and
+# traffic engines, as the JAX package exports it
+engine_reference = EngineReference

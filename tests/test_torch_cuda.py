@@ -810,6 +810,110 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, K, Sq, Skv,
         assert float(row.max()) <= FLASH_BF16_ROW_REL
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,K,Sq,Skv,hd,causal,window,cap,q_offset,kv_len,p_bf16", [
+        (4, 8, 2, 1, 300, 128, True, 0, 0.0, 0, 1, False),   # first key
+        (4, 8, 2, 1, 300, 128, True, 0, 0.0, 149, 150, False),  # mid tile
+        (4, 8, 2, 1, 300, 128, True, 0, 50.0, 299, 300, False),
+        (4, 8, 2, 1, 300, 128, True, 100, 0.0, 257, 258, False),
+        (2, 8, 8, 1, 500, 96, True, 64, 30.0, 400, 401, False),
+        (2, 4, 1, 1, 700, 256, True, 0, 0.0, 600, 601, False),
+        (2, 4, 2, 1, 200, 16, True, 0, 0.0, 130, 131, False),
+        (2, 8, 2, 100, 300, 128, True, 0, 0.0, 200, 300, False),  # chunk
+        (1, 8, 2, 129, 700, 128, True, 128, 0.0, 500, 650, False),
+        (2, 8, 2, 150, 300, 64, False, 0, 0.0, 0, 170, False),  # non-causal
+        (1, 4, 2, 200, 600, 128, False, 100, 30.0, 300, 580, False),
+        (2, 8, 2, 100, 300, 128, True, 0, 0.0, 200, 300, True),   # p_bf16
+        (4, 8, 2, 1, 300, 128, True, 0, 0.0, 149, 150, True),
+    ])
+def test_flash_attention_positions_match_plain(dev, dtype, B, H, K, Sq, Skv,
+                                               hd, causal, window, cap,
+                                               q_offset, kv_len, p_bf16):
+    """The flash kernel with a query offset, a valid-key length (inside a
+    kv tile too), non-causal masks and ``p_bf16`` (f32 inputs: P rounded
+    to bf16, as the bf16 variant always does) against its plain version
+    in the model's strided layout: o within ``TOL`` (``p_bf16``: bf16's),
+    lse within 1e-5; keys at and past ``kv_len`` hold NaN, which must not
+    reach the output (no tile past kv_len is read and a dead key's p is
+    0; a NaN key inside the last live tile is masked before the max)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(n, s):            # (B, S, n, hd) storage, (B, n, S, hd) view
+        return torch.randn(B, s, n, hd, generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v = r(H, Sq), r(K, Skv), r(K, Skv)
+    k[:, :, kv_len:] = float("nan")
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    want32, want_lse = fa.flash_attention_plain(q.float(), k.float(),
+                                                v.float(), p_bf16=p_bf16,
+                                                **kw)
+    before = ops.launches["flash_attention"]
+    got, lse = ops.flash_attention(q, k, v, p_bf16=p_bf16, return_lse=True,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    tol = 2e-2 if p_bf16 or dtype == torch.bfloat16 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want32.to(dtype).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, q_offset=torch.tensor(q_offset,
+                                                           device=dev))
+
+
+def test_scalar_decode_and_kernel_prefill_on_the_card(dev):
+    """Reduced llama3-8b and gemma2-27b (f32, window 8): ``Model.prefill``
+    through the flash kernel against the plain route (1e-4), scalar
+    ``decode_step`` through the flash kernel reproducing the train
+    forward's logits (2e-3, JAX's decode-vs-forward bound) with one launch
+    a layer and step, and ``Engine(prefill_attn_impl="kernel")`` equal to
+    ``EngineReference`` token for token."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import (Engine, EngineReference, mixed_requests,
+                                   run_staggered, staggered_groups)
+    for arch, over in (("llama3-8b", {}), ("gemma2-27b",
+                                           {"local_window": 8})):
+        cfg = reduced(get_config(arch), dtype="float32", **over)
+        model = build_model(cfg, max_seq=64, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (2, 20), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        ops.reset_launches()
+        lk, ck = model.prefill(params, {"tokens": toks})
+        assert ops.launches["flash_attention"] == cfg.num_layers
+        lp, cp = model.prefill(params, {"tokens": toks}, attn_impl="plain")
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        full, _, _ = model.forward(params, {"tokens": toks}, mode="train",
+                                   attn_impl="plain")
+        cache = model.init_cache(2, 20)
+        for t in range(20):
+            ops.reset_launches()
+            lg, cache = model.decode_step(params, cache,
+                                          {"tokens": toks[:, t:t + 1]},
+                                          torch.tensor(t, device=dev),
+                                          attn_impl="kernel")
+            assert ops.launches["flash_attention"] == cfg.num_layers
+            torch.testing.assert_close(lg[:, 0], full[:, t].detach(),
+                                       atol=2e-3, rtol=2e-3)
+
+        def reqs():
+            return mixed_requests(6, seed=3, vocab=cfg.vocab_size,
+                                  prompt_lens=(3, 40), max_new=(2, 8))
+
+        eng = Engine(model, params, slots=3, max_len=64,
+                     prefill_attn_impl="kernel", device=dev)
+        ref = EngineReference(model, params, slots=3, max_len=64,
+                              device=dev)
+        assert run_staggered(eng, staggered_groups(reqs(), 3)) == \
+            run_staggered(ref, staggered_groups(reqs(), 3))
+
+
 @pytest.mark.parametrize("B,S,H,K,hd,window,cap", [
     (2, 512, 8, 2, 128, 0, 0.0),
     (2, 300, 4, 2, 16, 64, 30.0),

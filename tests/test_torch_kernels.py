@@ -592,7 +592,8 @@ def test_flash_launcher_marshals_strides(monkeypatch):
     """``launch_cuda``'s strides and outputs on the model's transposed
     (B, S, H, hd) views: a stand-in for ``csrc/flash_attention.cu``
     rebuilds q, k, v and o from pointers and element strides, writes the
-    plain attention and lse, and the wrapper returns o with q's strides."""
+    plain attention and lse with the query offset, valid-key length and
+    ``p_bf16`` it was given, and the wrapper returns o with q's strides."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     B, H, K, S, hd = 2, 4, 2, 24, 16
     rng = np.random.default_rng(13)
@@ -607,8 +608,10 @@ def test_flash_launcher_marshals_strides(monkeypatch):
 
     def fake(dtype, q_p, k_p, v_p, o_p, lse_p, B_, H_, K_, Sq, Skv, hd_,
              *rest):
-        strides, (causal, window, scale, cap, stream) = rest[:12], rest[12:]
+        strides, (causal, window, q_off, kv_len, p_bf16, scale, cap,
+                  stream) = rest[:12], rest[12:]
         assert dtype == 0 and scale == pytest.approx(hd_ ** -0.5)
+        assert p_bf16 in (0, 1)
 
         def view(ptr, n, st):
             return _f32_at(ptr, B_ * S * n * hd_).as_strided(
@@ -617,13 +620,21 @@ def test_flash_launcher_marshals_strides(monkeypatch):
                           in enumerate(((q_p, H_), (k_p, K_), (v_p, K_),
                                         (o_p, H_))))
         o, lse = fa.flash_attention_plain(qq, kk, vv, causal=bool(causal),
-                                          window=window, logit_cap=cap)
+                                          window=window, logit_cap=cap,
+                                          q_offset=q_off, kv_len=kv_len,
+                                          p_bf16=bool(p_bf16))
         oo.copy_(o)
         _f32_at(lse_p, B_ * H_ * Sq).view(B_, H_, Sq).copy_(lse)
         return 0
 
     got, lse = fa.launch_cuda(fake, q, k, v, True, 7, 20.0)
     assert got.stride() == q.stride()
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+    want, want_lse = fa.flash_attention_plain(
+        q, k, v, causal=True, window=7, logit_cap=20.0, q_offset=3,
+        kv_len=22, p_bf16=True)
+    got, lse = fa.launch_cuda(fake, q, k, v, True, 7, 20.0, q_offset=3,
+                              kv_len=22, p_bf16=True)
     assert torch.equal(got, want) and torch.equal(lse, want_lse)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         fa.launch_cuda(lambda *a: 700, q, k, v, True, 0, 0.0)
