@@ -7,7 +7,8 @@
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
 ``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``,
-``train_families``, ``attention_paths``), of this checkout or of the
+``train_families``, ``attention_paths``, ``encdec``), of this checkout
+or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
 lists), to time two versions on one card in one call: parent, change,
 change, parent.  A phase that DIR's smoke lacks runs from this file on
@@ -19,7 +20,8 @@ slice F's and G's serving runs, with the traffic recorded and without;
 ``moe`` runs phase 5g, slices M, N, V and MP, with M's and N's verdicts;
 ``train_families`` runs phase 5h, slices TS, TG, TM, TV and UR, with the
 verdicts of TS, TG and TM; ``attention_paths`` runs slices A, AP, SD and
-their parity at slice B's model).
+their parity at slice B's model; ``encdec`` runs phase 5i, whisper's
+kernels and slices W, SW, WP and its launcher, with W's verdicts).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -242,6 +244,26 @@ result line:
      bit for bit under deterministic algorithms, which raise on an op
      without a deterministic implementation) for mamba2, recurrentgemma
      and granite at 4 layers, reduced width, f32;
+  5i. the encdec family (whisper-tiny: 4 + 4 layers, d_model 384, 6
+     heads of 64, vocab 51865): first its three kernels at its shapes
+     against their plain versions in f32 and bf16 (the flash kernel
+     non-causal at the encoder's (8, 6, 1536, 1536, 64) and the
+     cross-attention's (8, 6, 1, 1536, 64), G = 1; the decode kernel at
+     (8, 6, 6, 64) over 1536 rows; the sampler at (8, 51865)), each timed
+     in bf16 beside its plain version, SDPA (``torch.argmax``) and its
+     bound; slice W, bf16 at full width and depth through ``Engine`` (8
+     slots x 1536, K=8) on slice A's 16 requests (every request DONE, no
+     host sync inside a window, 4 decode, 4 flash and 1 sampler launches
+     a tick and 4 flash and 1 sampler launches an admission, a traced
+     window, one request's ``enc/out`` row bit for bit through ``Engine``
+     and ``EngineReference`` (determinism of the one encoder call), and
+     the ``enc/out`` rows of an 8-request wave against the naive encoder
+     on the same stub frames within ``ENCODER_ROUTE_REL``); slice SW, the dry-run decode cell (B 8,
+     ``enc_out`` of 1536 frames): 16 scalar-position steps through the
+     flash kernel and through naive attention, logits within
+     ``ROUTE_LOGITS_REL``; slice WP, f32: the kernel ``Engine`` ==
+     ``EngineReference`` token for token on 8 requests; ``launch.serve
+     --arch whisper-tiny --no-reduced --slots 8 --max-len 1536``;
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -268,7 +290,7 @@ result line:
      rel ``TOOL_REL``, the same best step, the best loss at most the
      frozen constants';
   7b. the NVM verdicts of the full-width slices' own traffic: slices A,
-     D, F, G, M (dense and paged), N, TS, TG and TM (each engine's first
+     D, F, G, M (dense and paged), N, TS, TG, TM and W (each engine's first
      decode window, counted under
      ``OpCounter`` inside the sync-error check of phase 4, and the first
      prefill of each padded length) and T (the first train window); each
@@ -286,15 +308,18 @@ result line:
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, and ``launches_by_slice`` with the kernels' launches on
-     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM and TV, F's
+     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM, TV, W, SW and
+     WP, F's
      ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
      T for flash attention, C for the simulator; the two scans also with
      their ``autograd`` forward + backward), error
      against its plain version, time, plain time, bound and the time of
      one PyTorch library call computing the same function (none exists for
      an LRU simulation or either scan: null; SDPA for flash attention),
-     and for flash attention its ``shapes``: the scalar-decode and
-     offset-chunk timings with their own bounds and SDPA times.
+     and for flash attention its ``shapes``: the scalar-decode,
+     offset-chunk and whisper encoder and cross-attention timings with
+     their own bounds and SDPA times (the decode kernel's and the
+     sampler's ``shapes`` hold their whisper timings).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -342,6 +367,11 @@ FLASH_BF16_GRAD_REL = 5e-3
 # f32 logits.  The routes round attention differently (bf16 P and output
 # against f32 softmax then bf16), 32 layers deep; the JAX tests' bf16 bound.
 ROUTE_LOGITS_REL = 2e-2
+# whisper-tiny's bf16 encoder (4 layers, 8 x 1536 stub frames) as the
+# engines run it, the flash route, against the naive route on the same
+# frames: each (row, frame)'s relative L2 difference over d_model (read:
+# 9.2e-3 on an 8-request wave; the routes' logits in slice SW: 1.0e-2).
+ENCODER_ROUTE_REL = 2e-2
 # Gumbel-max rows may flip between two tokens whose scores differ by less
 # than this (logf in CUDA and torch.log may differ in the last ulp)
 SAMPLE_TIE_REL = 1e-5
@@ -3961,6 +3991,394 @@ def phase_moe_alone(flush) -> list:
     return []
 
 
+# ---------------------------------------------------------------- phase 5i
+
+
+WHISPER = "whisper-tiny"
+W_LEN = 1536          # slice W's max_len and encoder frames (8 slots)
+
+
+def _encdec_kernels(flush) -> dict:
+    """The three kernels of whisper's serve path at its shapes against
+    their plain versions, f32 and bf16, before any engine runs them: the
+    flash kernel non-causal at the encoder's (8, 6, 1536, 1536, 64) and
+    the decode tick's cross-attention (8, 6, 1, 1536, 64), MHA (G = 1) in
+    the model's strided layout; the fused decode kernel at (8, 6, 6, 64)
+    over a 1536-row cache at ragged positions (write-back bitwise); the
+    sampler at (8, 51865) with a greedy tie across blocks.  Each timed in
+    bf16 beside its plain version, its library call (SDPA; torch.argmax
+    for the sampler) and its bound.  Returns the timings by kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sampling as sm
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(27)
+    B, H, hd = 8, 6, 64
+    timed = {"flash_attention": {}, "decode_attention": {},
+             "fused_sample": {}}
+    for tag, Sq in (("whisper_encoder", W_LEN), ("whisper_cross", 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            def r(s):               # (B, S, H, hd) behind the view
+                return torch.randn(B, s, H, hd, generator=gen,
+                                   device=DEVICE).to(dtype).transpose(1, 2)
+
+            q, k, v = r(Sq), r(W_LEN), r(W_LEN)
+            want32, want_lse = fa.flash_attention_plain(
+                q.float(), k.float(), v.float(), causal=False)
+            got, lse = ops.flash_attention(q, k, v, causal=False,
+                                           return_lse=True)
+            torch.cuda.synchronize()
+            name = (f"flash_attention {tag} {dtype} B={B} H={H} K={H} "
+                    f"Sq={Sq} Skv={W_LEN} hd={hd} non-causal")
+            check(got.stride() == q.stride(), f"{name}: output strides")
+            err = _close(got, want32.to(dtype), dtype, what=name)
+            e_lse = _close(lse, want_lse, tol=1e-5, what=name + " lse")
+            msg = f"{name}: max|err| o {err:.3g}, lse {e_lse:.3g}"
+            if dtype == torch.bfloat16:
+                row, floor = _row_rel(got, want32)
+                check(row <= FLASH_BF16_ROW_REL,
+                      f"{name}: a row's relative error {row:.3g} beyond "
+                      f"{FLASH_BF16_ROW_REL}")
+                msg += f", row rel {row:.3g} (bf16 rounding {floor:.3g})"
+            print(msg + " vs plain")
+        del want32, want_lse, got, lse
+        ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=False),
+                       flush=flush)
+        plain_ms = median_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=False), runs=5, flush=flush)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           flush=flush)
+        bound, by, flops = _flash_bound(B, H, H, Sq, W_LEN, hd, 2, False, 0)
+        print(f"flash_attention {tag} bf16 (B={B} H={H} Sq={Sq} "
+              f"Skv={W_LEN} hd={hd} non-causal): kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of the {flops / 1e9:.3f} "
+              f"GFLOP), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({by})")
+        timed["flash_attention"][tag] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "shape": [B, H, H, Sq, W_LEN, hd]}
+    shape = dict(B=B, H=H, K=H, hd=hd, L=W_LEN)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, nk, nv, pos = _decode_inputs(gen, dtype, **shape)
+        kp, vp, kk, vk = k.clone(), v.clone(), k.clone(), v.clone()
+        want = da.decode_attention_fused_plain(q, kp, vp, nk, nv, pos, 0)
+        got = ops.decode_attention_fused(q, kk, vk, nk, nv, pos, 0)
+        torch.cuda.synchronize()
+        label = f"decode_attention whisper {dtype} B={B} H={H} K={H} hd={hd}"
+        err = _close(got, want, dtype, what=label)
+        check(torch.equal(kk, kp) and torch.equal(vk, vp),
+              f"{label}: cache write-back differs from the plain scatter")
+        print(f"{label} L={W_LEN}: max|err| {err:.3g} vs plain, write-back "
+              f"bitwise")
+    ms, plain_ms, lib_ms, bound, by = _time_decode(q, kk, vk, nk, nv, pos,
+                                                   flush)
+    print(f"decode_attention whisper bf16 B={B} H={H} K={H} hd={hd} "
+          f"L={W_LEN}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+    timed["decode_attention"]["whisper"] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "shape": [B, H, H, hd, W_LEN]}
+    V = 51865
+    logits = torch.randn(B, V, generator=gen, device=DEVICE) * 3.0
+    logits[0, [V // 16, V - 1]] = 90.0             # first and last block
+    temps = torch.tensor([0.0, 0.0, 0.7, 0.0, 1.1, 0.0, 0.5, 0.9],
+                         device=DEVICE)
+    key = torch.tensor([0x2468ACE0, 0x13579BDF], dtype=torch.int64,
+                       device=DEVICE)
+    got, err = _check_sample(logits, temps, key, f"B={B} V={V}")
+    check(int(got[0]) == V // 16, f"V={V}: first-occurrence tie")
+    greedy = torch.zeros_like(temps)       # the serve path's rows
+    ms = median_ms(lambda: ops.fused_sample(logits, greedy, key),
+                   flush=flush)
+    plain_ms = median_ms(lambda: sm.fused_sample_plain(logits, greedy, key),
+                         flush=flush)
+    lib_ms = median_ms(lambda: torch.argmax(logits, dim=-1), flush=flush)
+    bound, by = _sample_bound(B, V, 0)
+    print(f"fused_sample whisper B={B} V={V} greedy: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.argmax {lib_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({by})")
+    timed["fused_sample"]["whisper"] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "shape": [B, V]}
+    print(f"encdec kernels at whisper's shapes: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return timed
+
+
+def _encdec_launches(label: str, launches: dict, cfg, ticks: int,
+                     calls: int) -> None:
+    """A decode tick launches the decode kernel and the cross-attention's
+    flash kernel once a decoder layer and the sampler once; an admission
+    launches the flash kernel once an encoder layer (the naive prefill
+    none) and the sampler once."""
+    want = {"decode_attention": cfg.dec_layers * ticks,
+            "flash_attention": cfg.dec_layers * ticks
+            + cfg.enc_layers * calls,
+            "fused_sample": ticks + calls}
+    got = {n: launches[n] for n in want}
+    check(got == want, f"{label}: launches {got}, want {want} ({ticks} "
+          f"ticks, {calls} admissions)")
+
+
+def phase_slice_w(records: dict):
+    """Slice W: whisper-tiny at full width and depth (4 + 4 layers,
+    d_model 384, 6 heads of 64, vocab 51865), bf16, weights from a seeded
+    generator: ``Engine`` (8 slots x 1536, K=8) on slice A's 16 requests,
+    each prompt also its stub audio frames; every request DONE, no host
+    sync inside a window, the launches ``_encdec_launches`` asks, a traced
+    decode window; then one request's ``enc/out`` row through ``Engine``
+    and through ``EngineReference`` on the card, bit for bit (the one
+    encoder call is deterministic), and ``_encoder_in_context``.  Returns
+    the launches, the model and its weights."""
+    from repro_torch.serve import Engine, EngineReference, Request
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = _full_width(WHISPER, max_seq=W_LEN)
+    cfg = model.cfg
+    eng = Engine(model, params, slots=8, max_len=W_LEN, ticks_per_sync=8)
+    _no_sync_in_window(eng, "slice W")
+    reqs = _mixed16(cfg.vocab_size)
+    launches = _served("slice W", eng, reqs, "decode_attention")
+    _encdec_launches("slice W", launches, cfg, eng.counts["decode_ticks"],
+                     eng.counts["prefill_calls"])
+    records["slice W"] = ("serve", eng.serve_records())
+    _tick_bytes("slice W", eng)
+    trace_window(eng, cfg.vocab_size)
+    eng.reset()
+    prompt = list(reqs[0].prompt)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=4))
+    eng._admit()
+    ref = EngineReference(model, params, slots=8, max_len=W_LEN)
+    ref._prefill(0, Request(uid=0, prompt=prompt, max_new_tokens=4))
+    row, ref_row = eng.cache["enc/out"][0], ref.cache["enc/out"][0]
+    check(bool(torch.isfinite(row).all()) and float(row.abs().max()) > 0,
+          "slice W: enc/out row empty or not finite")
+    check(torch.equal(row, ref_row), "slice W: enc/out rows of Engine and "
+          "EngineReference differ")
+    print(f"slice W: enc/out row of a {len(prompt)}-token prompt "
+          f"({W_LEN} x {cfg.d_model} {row.dtype}) bit for bit equal "
+          f"through Engine and EngineReference (one encoder call at one "
+          f"shape, deterministic)")
+    _encoder_in_context("slice W", eng, reqs[:8])
+    print(f"slice W: wall {time.perf_counter() - t_phase:.1f} s")
+    del eng, ref
+    return launches, model, params
+
+
+def _encoder_in_context(label: str, eng, reqs) -> None:
+    """One admission wave of ``reqs`` (one a slot) through ``eng``: the
+    ``enc/out`` bank the engine wrote (its fixed-shape flash encoder call)
+    against ``encoder_forward(..., "plain")`` (naive attention) on the
+    same stub frames, each (row, frame) within ``ENCODER_ROUTE_REL``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request
+    params, cfg = eng.params, eng.model.cfg
+    eng.reset()
+    prompts = [list(r.prompt) for r in reqs]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+    eng._admit()
+    check([eng.slot_req[s].uid for s in range(len(prompts))]
+          == list(range(len(prompts))), f"{label}: wave not seated in order")
+    tokens = torch.zeros(eng.slots, eng.max_len, dtype=torch.int32)
+    for s, p in enumerate(prompts):
+        tokens[s, :len(p)] = torch.tensor(p)
+    tokens = tokens.to(DEVICE)
+    lens = tokens.new_tensor([len(p) for p in prompts]
+                             + [0] * (eng.slots - len(prompts)))
+    emb = params["emb/tok"][tokens].to(eng.cache["enc/out"].dtype)
+    frames = emb * (torch.arange(eng.max_len, device=DEVICE)[None, :]
+                    < lens[:, None])[:, :, None].to(emb.dtype)
+    want = tf.encoder_forward(cfg, params, frames, "plain")[:len(prompts)]
+    got = eng.cache["enc/out"][:len(prompts)]
+    check(bool(torch.isfinite(got).all()), f"{label}: enc/out not finite")
+    rel = _logits_rel(got, want)
+    check(rel <= ENCODER_ROUTE_REL, f"{label}: the engine's encoder output "
+          f"vs the naive encoder: rel {rel:.3g} beyond {ENCODER_ROUTE_REL}")
+    print(f"{label}: enc/out of a {len(prompts)}-request wave (prompts "
+          f"{min(map(len, prompts))}..{max(map(len, prompts))} tokens, "
+          f"{tuple(got.shape)} {got.dtype}) against the naive encoder on "
+          f"the same stub frames: max (row, frame) rel {rel:.3g} (limit "
+          f"{ENCODER_ROUTE_REL})")
+    eng.reset()
+
+
+def phase_slice_sw(model, params) -> dict:
+    """Slice SW: whisper's dry-run decode cell at slice W's model: the
+    cell's operands (``make_inputs``: B = 8, ``enc_out`` of 1536 frames),
+    a 512-token naive prefill of 8 rows against that ``enc_out`` copied
+    into two caches of 1536, then 16 ``decode_step``s at scalar positions
+    512.. through the flash kernel (self-attention at ``q_offset = pos``,
+    ``kv_len = pos + 1``, and the non-causal cross-attention: 8 launches
+    a step) and through naive attention (none), on the same tokens: each
+    step's logits within ``ROUTE_LOGITS_REL`` row by row, finite; each
+    route's median step.  Returns the kernel steps' launches."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_inputs
+    cfg = model.cfg
+    B, P, T = 8, 512, 16
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    cell = dataclasses.replace(SHAPES["decode_32k"], seq_len=W_LEN,
+                               global_batch=B)
+    enc = make_inputs(cfg, cell, gen)["enc_out"]
+    toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=gen,
+                         device=DEVICE)
+    _, kv = model.prefill(params, {"tokens": toks[:, :P], "enc_out": enc},
+                          logits_at=torch.full((B,), P - 1, device=DEVICE),
+                          attn_impl="plain")
+    caches = {}
+    for impl in ("kernel", "plain"):
+        c = {n: t for n, t in model.init_cache(B, W_LEN).items()
+             if n != "enc/out"}
+        for n, t in kv.items():
+            c[n][:, :P] = t
+        caches[impl] = c
+    del kv
+    walls = {"kernel": [], "plain": []}
+    total = dict.fromkeys(ops.launches, 0)
+    worst = 0.0
+    for t in range(T):
+        lg = {}
+        for impl in ("kernel", "plain"):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            lg[impl], _ = model.decode_step(
+                params, caches[impl],
+                {"tokens": toks[:, P + t:P + t + 1], "enc_out": enc}, P + t,
+                attn_impl=impl)
+            torch.cuda.synchronize()
+            walls[impl].append(time.perf_counter() - t0)
+            n = ops.launches["flash_attention"]
+            check(n == (2 * cfg.dec_layers if impl == "kernel" else 0),
+                  f"slice SW step {t} {impl}: {n} flash launches")
+            if impl == "kernel":
+                for k_, v_ in ops.launches.items():
+                    total[k_] += v_
+        check(bool(torch.isfinite(lg["kernel"]).all()),
+              f"slice SW step {t}: logits not finite")
+        rel = _logits_rel(lg["kernel"], lg["plain"])
+        worst = max(worst, rel)
+        check(rel <= ROUTE_LOGITS_REL, f"slice SW step {t}: kernel vs plain "
+              f"logits rel {rel:.3g} beyond {ROUTE_LOGITS_REL}")
+    ms = {k: statistics.median(w) * 1e3 for k, w in walls.items()}
+    print(f"slice SW: {cfg.arch} {cfg.dec_layers} decoder layers "
+          f"{cfg.dtype}, B={B}, enc_out {tuple(enc.shape)}, {T} scalar "
+          f"decode steps at positions {P}..{P + T - 1}: "
+          f"{2 * cfg.dec_layers} flash launches a kernel step, logits "
+          f"kernel vs plain max row rel {worst:.3g} (limit "
+          f"{ROUTE_LOGITS_REL}); median step {ms['kernel']:.2f} ms (flash "
+          f"route), {ms['plain']:.2f} ms (naive route)")
+    return total
+
+
+def phase_slice_wp() -> dict:
+    """Slice WP: whisper-tiny at full width and depth in f32: the kernel
+    ``Engine`` (8 slots x 1536, K=4) against ``EngineReference`` (plain
+    attention and sampling, the same fixed-shape encoder call) on 8
+    requests in two staggered groups: greedy outputs equal token for
+    token; every request DONE; the launches ``_encdec_launches`` asks.
+    Returns the engine's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DONE, Engine, EngineReference,
+                                   mixed_requests, run_staggered,
+                                   staggered_groups)
+    t_phase = time.perf_counter()
+    model, params = _full_width(WHISPER, dtype="float32", max_seq=W_LEN)
+    cfg = model.cfg
+
+    def work():
+        return mixed_requests(8, seed=27, vocab=cfg.vocab_size,
+                              prompt_lens=(8, 64), max_new=(8, 24))
+
+    ref = EngineReference(model, params, slots=8, max_len=W_LEN)
+    want = run_staggered(ref, staggered_groups(work(), 4))
+    eng = Engine(model, params, slots=8, max_len=W_LEN, ticks_per_sync=4)
+    reqs = work()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = run_staggered(eng, staggered_groups(reqs, 4))
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    check(all(r.state == DONE for r in reqs), "slice WP: not all DONE")
+    check(got == want, "slice WP: the kernel Engine's greedy tokens differ "
+          "from EngineReference's")
+    _encdec_launches("slice WP", launches, cfg, eng.counts["decode_ticks"],
+                     eng.counts["prefill_calls"])
+    print(f"slice WP: {cfg.arch} f32, kernel Engine == EngineReference "
+          f"token for token on {len(reqs)} requests "
+          f"({sum(map(len, got.values()))} tokens); "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del eng, ref, model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _launch_whisper() -> None:
+    """``launch.serve --arch whisper-tiny --no-reduced --slots 8 --max-len
+    1536 --requests 16`` with the launch counts reset before and read
+    after: every request DONE, the decode, flash and sampler kernels
+    launched, a verdict line of the encdec decode record."""
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", WHISPER, "--no-reduced", "--slots",
+                           "8", "--max-len", str(W_LEN), "--requests",
+                           "16"])
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    out = out.getvalue()
+    print(out, end="")
+    check("terminal states: DONE=16" in out,
+          "launch.serve --arch whisper-tiny: not every request DONE")
+    check(f"serve_encdec_decode_b8_l{W_LEN}: energy vs SRAM" in out,
+          "launch.serve --arch whisper-tiny: no decode verdict line")
+    check(all(launches[n] > 0 for n in ("decode_attention",
+                                        "flash_attention", "fused_sample")),
+          f"launch.serve --arch whisper-tiny: a kernel not launched: "
+          f"{launches}")
+    print(f"launchers: launch.serve --arch {WHISPER} --no-reduced in "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+
+
+def phase_encdec(flush, records: dict):
+    """Phase 5i: whisper's three kernels at its shapes, then slices W, SW,
+    WP and the launcher.  Returns (launches by slice, the kernels'
+    timings at whisper's shapes)."""
+    t_phase = time.perf_counter()
+    timed = _encdec_kernels(flush)
+    launches = {}
+    launches["W"], model, params = phase_slice_w(records)
+    launches["SW"] = phase_slice_sw(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    launches["WP"] = phase_slice_wp()
+    _launch_whisper()
+    torch.cuda.empty_cache()
+    print(f"phase 5i (encdec): {time.perf_counter() - t_phase:.1f} s")
+    return launches, timed
+
+
+def phase_encdec_alone(flush) -> list:
+    """Phase 5i alone (``--only encdec``), with slice W's verdicts."""
+    records = {}
+    launches, _ = phase_encdec(flush, records)
+    phase_verdicts(records, labels=("slice W",))
+    print(f"encdec launches {json.dumps(launches)}")
+    return []
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -4345,7 +4763,7 @@ def phase_verdicts(records: dict, labels=("slice A", "slice D", "slice F",
                                           "slice G", "slice T", "slice M",
                                           "slice M paged", "slice N",
                                           "slice TS", "slice TG",
-                                          "slice TM")) -> None:
+                                          "slice TM", "slice W")) -> None:
     """The NVM verdicts of the full-width slices' own traffic (``labels``
     of ``records``): each engine's and the train window's records (counted from the first
     decode window and the first prefill of each padded length, or the
@@ -4540,7 +4958,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "resilience": "phase_resilience_alone",
                  "attention_paths": "phase_attention_paths_alone",
                  "moe": "phase_moe_alone",
-                 "train_families": "phase_train_families_alone"}
+                 "train_families": "phase_train_families_alone",
+                 "encdec": "phase_encdec_alone"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -4666,6 +5085,8 @@ def main() -> None:
     launches_mp = phase_slice_mp()
     stamp("slices V, MP")
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
+    launches_w, timed_w = phase_encdec(scratch.zero_, records)
+    stamp("phase 5i: whisper's kernels, slices W, SW, WP, launcher")
     launches_c, rows = phase_slice_c(ns_per_update, scratch.zero_)
     del scratch
     kernels += rows
@@ -4689,8 +5110,12 @@ def main() -> None:
             "N": [launches_n], "V": [launches_v],
             "MP": list(launches_mp.values()), "T": [launches_t],
             "TC": [launches_tc],
-            **{s: [n] for s, n in launches_train.items()}}
+            **{s: [n] for s, n in launches_train.items()},
+            **{s: [n] for s, n in launches_w.items()}}
     for k in kernels:
+        # the timings at whisper's shapes beside the kernel's others
+        if k["name"] in timed_w:
+            k.setdefault("shapes", {}).update(timed_w[k["name"]])
         k["launches"] = slice_of.get(k["name"], launches)[k["name"]]
         by = {s: sum(r.get(k["name"], 0) for r in rs)
               for s, rs in runs.items()}

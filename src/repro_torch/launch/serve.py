@@ -14,6 +14,8 @@
         --arch granite-moe-3b-a800m --no-reduced --slots 8 --max-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --paged --shared-prefix
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --no-reduced --slots 8 --max-len 1536
     PYTHONPATH=src python -m repro_torch.launch.serve --arrival-rate 0.5 \
         --burst-amp 0.6 --deadline-ticks 64 --max-queue-depth 4 \
         --trace-out /tmp/serve.json
@@ -41,10 +43,11 @@ page pool with radix-tree prefix sharing) and prints its page and prefix
 counters; ``--shared-prefix`` (paged only) serves the shared-prefix
 template workload and fails if no prompt token was served from the tree.
 The moe (granite, moonshot) and vlm (internvl2, on tokens alone) families
-serve through both engines, as the dense one does.  The ssm (mamba2) and
-hybrid (recurrentgemma) families serve through ``Engine`` only:
+serve through both engines, as the dense one does.  The ssm (mamba2),
+hybrid (recurrentgemma) and encdec (whisper-tiny: each request's prompt
+is also its stub audio frames) families serve through ``Engine`` only:
 ``--paged`` raises ``UnsupportedFamilyError`` for them before any weight
-is made, as every engine does for encdec.  ``--verdicts`` (the default) counts the
+is made.  The model's ``max_seq`` is ``--max-len``.  ``--verdicts`` (the default) counts the
 engine's traffic and prints its serve-mode NVM verdicts, the SRAM/STT/SOT
 tier energy and EDP ratios of each serve phase (times modeled at the TPU
 tier's constants, not measured); ``--no-verdicts`` counts nothing.
@@ -98,16 +101,14 @@ def _terminal_report(eng, reqs, strict: bool) -> None:
 def _list_configs() -> None:
     """Every config with its family and the engines that serve it
     (``Engine`` / ``EngineReference``: "dense", ``PagedEngine``:
-    "paged"); a family the port does not build yet says so."""
-    dense, paged = serve_families("dense"), serve_families("paged")
+    "paged")."""
+    paged = serve_families("paged")
     print(f"{'arch':<22} {'family':<8} engines")
     for arch, cfg in all_configs().items():
-        engines = ["Engine", "EngineReference"] if cfg.family in dense \
-            else []
+        engines = ["Engine", "EngineReference"]
         if cfg.family in paged:
             engines.append("PagedEngine")
-        print(f"{arch:<22} {cfg.family:<8} "
-              f"{', '.join(engines) or '(family not ported yet)'}")
+        print(f"{arch:<22} {cfg.family:<8} {', '.join(engines)}")
 
 
 def main(argv=None):

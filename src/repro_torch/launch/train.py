@@ -4,11 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 8 --steps-per-sync 4
 
-``--arch`` takes every family the port builds: dense, moe (granite,
+``--arch`` takes every family the port trains: dense, moe (granite,
 moonshot), vlm (internvl2, trained on tokens alone, as the JAX launcher
 trains it), ssm (mamba2) and hybrid (recurrentgemma); encdec
-(whisper-tiny) raises ``UnsupportedFamilyError`` naming it before any
-weight is made.  ``--reduced`` is the JAX launcher's smoke config (4
+(whisper-tiny, which the port serves but does not train yet) raises
+``UnsupportedFamilyError`` naming it before any weight is made.  ``--reduced`` is the JAX launcher's smoke config (4
 layers, d_model 128, d_ff 256, head_dim 16; for the ssm family also
 ssm_head_dim 64, so that the inner width 256 is 4 heads x 64, where the
 JAX launcher's would stop on it).  Without it the full config is built:

@@ -4,10 +4,11 @@ capability metadata (torch counterpart of ``repro/models/api.py``).
 
 The dense decoder, moe (granite, moonshot), vlm (internvl2), ssm
 (mamba2) and hybrid (recurrentgemma) families are ported for serving and
-training (``mode="train"``, ``loss``); ``build_model`` raises
-``UnsupportedFamilyError`` for any other (encdec).  ``input_specs`` /
+training (``mode="train"``, ``loss``); the encdec family (whisper) for
+serving (``check_trainable`` refuses it); ``build_model`` raises
+``UnsupportedFamilyError`` for any other family.  ``input_specs`` /
 ``make_inputs`` give each shape cell's operands (the vlm family's
-``vision_embeds`` too).
+``vision_embeds``, the encdec family's ``frames`` and ``enc_out`` too).
 """
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.common import (ParamDefs, Params, cross_entropy,
                                        materialize, torch_dtype)
+
+# encoder frames of the encdec family's decode cells (the encoder runs once
+# at prefill; decode attends its output)
+WHISPER_DECODE_ENC_LEN = 1536
 
 
 class UnsupportedFamilyError(ValueError):
@@ -39,7 +44,7 @@ class UnsupportedFamilyError(ValueError):
         super().__init__(msg)
 
 
-BANK_KINDS = ("kv", "recurrent", "ring")
+BANK_KINDS = ("kv", "recurrent", "ring", "enc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,10 @@ class StateBank:
     - ``"ring"``: ring-buffer KV (and its ``pos`` bank) wrapping modulo
       the window; treated like ``"recurrent"``, and reads honour the
       ``pos >= 0`` empty-slot guard.
+    - ``"enc"``: the encoder output of a slot's request (whisper's
+      cross-attention source), written whole at admission and passed
+      through decode unchanged; not guarded: the next admission into the
+      slot overwrites the row.
 
     Banks with a ``seq_axis`` have ``batch_axis < seq_axis``.
     """
@@ -82,18 +91,21 @@ class StateBank:
 
 # Which serve engines can host each family: "dense" = Engine /
 # EngineReference slot caches, "paged" = PagedEngine page pools (positioned
-# KV rows only, so not the recurrent families).  encdec comes in a later
-# slice.
+# KV rows only, so not the recurrent families nor the encoder bank).
 _FAMILY_SERVE_MODES: Dict[str, frozenset] = {
     "dense": frozenset({"dense", "paged"}),
     "moe": frozenset({"dense", "paged"}),
     "vlm": frozenset({"dense", "paged"}),
     "ssm": frozenset({"dense"}),
     "hybrid": frozenset({"dense"}),
+    "encdec": frozenset({"dense"}),
 }
 
 
-_TRAIN_FAMILIES = frozenset(_FAMILY_SERVE_MODES)
+# the families that no page table serves, and the state that keeps them out
+_UNPAGED_STATE = {"ssm": "recurrent state", "hybrid": "recurrent state",
+                  "encdec": "an encoder-output bank"}
+_TRAIN_FAMILIES = frozenset(_FAMILY_SERVE_MODES) - {"encdec"}
 
 
 def serve_families(mode: str):
@@ -108,7 +120,7 @@ def check_trainable(cfg: ModelConfig, component: str) -> None:
     if cfg.family not in _TRAIN_FAMILIES:
         raise UnsupportedFamilyError(
             cfg.family, _TRAIN_FAMILIES, component,
-            detail="the encdec family is not ported yet")
+            detail="training of the encdec family is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,17 +163,25 @@ class Model:
                 page_table: Optional[torch.Tensor] = None,
                 kv_write_mask: Optional[torch.Tensor] = None,
                 logits_at: Optional[torch.Tensor] = None):
-        """Dispatch per family: the hybrid stack, or the decoder (dense,
-        moe, vlm and ssm; ``batch["vision_embeds"]`` reaches the vlm
-        embedding).  Returns (logits, cache, aux): ``mode="train"`` gives
-        (B, S, V) f32 logits under autograd and no cache; ``aux`` is the
-        MoE load-balancing loss in train mode, else None."""
+        """Dispatch per family: the encoder-decoder (``batch["frames"]``
+        or ``batch["enc_out"]`` reach it), the hybrid stack, or the decoder
+        (dense, moe, vlm and ssm; ``batch["vision_embeds"]`` reaches the
+        vlm embedding).  Returns (logits, cache, aux): ``mode="train"``
+        gives (B, S, V) f32 logits under autograd and no cache; ``aux`` is
+        the MoE load-balancing loss in train mode, else None."""
         cfg = self.cfg
         if mode == "train":
             check_trainable(cfg, "repro_torch training")
-        if cfg.family in ("ssm", "hybrid") and page_table is not None:
+        if cfg.family in _UNPAGED_STATE and page_table is not None:
             raise ValueError("paged KV serving requires a dense decoder "
-                             f"({cfg.family} has recurrent state)")
+                             f"({cfg.family} has "
+                             f"{_UNPAGED_STATE[cfg.family]})")
+        if cfg.family == "encdec":
+            return tf.encdec_forward(
+                cfg, params, batch["tokens"], frames=batch.get("frames"),
+                enc_out=batch.get("enc_out"), mode=mode, cache=cache,
+                cache_pos=cache_pos, attn_impl=attn_impl,
+                logits_at=logits_at) + (None,)
         if cfg.family == "hybrid":
             return tf.hybrid_forward(cfg, params, batch["tokens"], mode=mode,
                                      cache=cache, cache_pos=cache_pos,
@@ -200,7 +220,10 @@ class Model:
         (``attention.ATTN_IMPLS``): "kernel" (the default, as JAX's
         "chunked") the flash kernel, "plain" naive attention (JAX's
         "naive"), "kernel_bf16" the flash kernel with bf16 probabilities.
-        A vlm batch may carry ``vision_embeds`` (B, Nv, D)."""
+        A vlm batch may carry ``vision_embeds`` (B, Nv, D); an encdec batch
+        carries ``frames`` (B, Se, D) (the encoder runs first, by the same
+        route) or ``enc_out`` (B, Se, D), and its cache holds no
+        ``enc/out`` (the engines write that bank)."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         logits, cache, _ = self.forward(params, batch, mode="prefill",
@@ -226,7 +249,10 @@ class Model:
         "kernel" (the fused decode kernel), at a scalar position on the
         dense cache one of ``attention.ATTN_IMPLS`` ("kernel": the flash
         kernel with ``q_offset = pos``, ``kv_len = pos + 1``); the hybrid
-        family's scalar ring attention is naive, as in JAX.
+        family's scalar ring attention is naive, as in JAX.  The encdec
+        family's cross-attention reads ``batch["enc_out"]`` when given,
+        else the cache's ``enc/out`` bank, and takes ``attn_impl`` too
+        ("kernel": the flash kernel).
 
         With ``page_table`` (B, nb) the cache is the paged pool and ``pos``
         each row's first write position; S > 1 tokens per row is the paged
@@ -256,8 +282,39 @@ class Model:
             for n in ("attn/k", "attn/v", "attn/pos"):
                 banks[n] = StateBank(n, "ring", batch_axis=1, seq_axis=2)
             return banks
+        if self.cfg.family == "encdec":
+            banks = {}
+            for i in range(self.cfg.dec_layers):
+                for n in (f"dec_{i}/k", f"dec_{i}/v"):
+                    banks[n] = StateBank(n, "kv", batch_axis=0, seq_axis=1)
+            banks["enc/out"] = StateBank("enc/out", "enc", batch_axis=0)
+            return banks
         return {n: StateBank(n, "kv", batch_axis=1, seq_axis=2)
                 for n in ("k", "v")}
+
+    def encode_prompt(self, params: Params, tokens: torch.Tensor,
+                      lens: torch.Tensor) -> torch.Tensor:
+        """The encoder over stub frames made from the prompt tokens
+        (whisper's conv frontend is a stub: frames are the token
+        embeddings, zeroed at and past ``lens[b]``).  tokens (B, Se)
+        right-padded, lens (B,) -> (B, Se, D) for the ``enc/out`` bank.
+        The encoder attends through the flash kernel, as JAX's fixed
+        encoder program uses "chunked".
+
+        The encoder is bidirectional with no padding mask, so its output
+        depends on the padded length Se, and a library matmul may pick
+        its algorithm by shape: the serve engines call it at one fixed
+        shape (slots, max_len), so that a row's output is the same bits
+        in every admission wave and in both engines."""
+        if self.cfg.family != "encdec":
+            raise ValueError(f"encode_prompt is encdec-only (family "
+                             f"{self.cfg.family!r})")
+        emb = params["emb/tok"][tokens].to(torch_dtype(self.cfg.dtype))
+        live = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+                < lens[:, None])
+        return tf.encoder_forward(self.cfg, params,
+                                  emb * live[:, :, None].to(emb.dtype),
+                                  "kernel")
 
 
 def build_model(cfg: ModelConfig, max_seq: int = 4096,
@@ -266,13 +323,12 @@ def build_model(cfg: ModelConfig, max_seq: int = 4096,
     passes ``device="cpu"``)."""
     if cfg.family not in _FAMILY_SERVE_MODES:
         raise UnsupportedFamilyError(
-            cfg.family, _FAMILY_SERVE_MODES, "repro_torch.build_model",
-            detail="the encdec family is not ported yet")
-    if not cfg.scan_layers and cfg.family != "hybrid":
+            cfg.family, _FAMILY_SERVE_MODES, "repro_torch.build_model")
+    if not cfg.scan_layers and cfg.family not in ("hybrid", "encdec"):
         raise ValueError("the port keeps dense, moe, vlm and ssm layers "
                          "stacked (scan_layers=True)")
     return Model(cfg=cfg, max_seq=max_seq,
-                 param_defs=tf.model_param_defs(cfg),
+                 param_defs=tf.model_param_defs(cfg, max_seq),
                  device=resolve_device(device))
 
 
@@ -284,21 +340,27 @@ def build_model(cfg: ModelConfig, max_seq: int = 4096,
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """``{name: (shape, dtype)}`` of one (arch x shape) cell's operands, as
-    ``repro.models.api.input_specs`` gives them for the families the port
-    builds: train -> tokens, labels; prefill -> tokens; decode -> tokens
-    (B, 1) (the cache comes from ``Model.cache_defs``); the vlm family's
-    train and prefill cells add ``vision_embeds`` (B, vision_tokens, D)
-    in the model dtype."""
+    ``repro.models.api.input_specs`` gives them: train -> tokens, labels;
+    prefill -> tokens; decode -> tokens (B, 1) (the cache comes from
+    ``Model.cache_defs``); the vlm family's train and prefill cells add
+    ``vision_embeds`` (B, vision_tokens, D), the encdec family's ``frames``
+    (B, S, D), and its decode cells ``enc_out`` (B,
+    ``WHISPER_DECODE_ENC_LEN``, D), all in the model dtype."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
+    dt = torch_dtype(cfg.dtype)
     if shape.kind == "decode":
-        return {"tokens": ((B, 1), i32)}
+        specs = {"tokens": ((B, 1), i32)}
+        if cfg.family == "encdec":
+            specs["enc_out"] = ((B, WHISPER_DECODE_ENC_LEN, cfg.d_model), dt)
+        return specs
     specs = {"tokens": ((B, S), i32)}
     if shape.kind == "train":
         specs["labels"] = ((B, S), i32)
+    if cfg.family == "encdec":
+        specs["frames"] = ((B, S, cfg.d_model), dt)
     if cfg.family == "vlm":
-        specs["vision_embeds"] = ((B, cfg.vision_tokens, cfg.d_model),
-                                  torch_dtype(cfg.dtype))
+        specs["vision_embeds"] = ((B, cfg.vision_tokens, cfg.d_model), dt)
     return specs
 
 

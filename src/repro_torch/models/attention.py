@@ -36,7 +36,10 @@ DECODE_IMPLS = ("plain", "kernel")
 ATTN_IMPLS = ("plain", "kernel", "kernel_bf16")
 
 
-def attn_param_defs(cfg: ModelConfig) -> ParamDefs:
+def attn_param_defs(cfg: ModelConfig, cross: bool = False) -> ParamDefs:
+    """The projections of one attention op; a cross-attention op
+    (``cross``, k and v projected from the encoder output) has the same
+    names and shapes."""
     D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs: ParamDefs = {
         "wq": ParamDef((D, H, hd), ("qkv_in", "heads", "head_dim")),

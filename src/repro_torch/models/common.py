@@ -7,6 +7,7 @@ package's layouts; layer stacks carry a leading "layers" dim.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -104,6 +105,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (x * (1.0 + gamma.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 scaled by ``gamma`` itself (it initialises to
+    ones, unlike ``rms_norm``'s ``1 + gamma``), shifted by ``beta``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * gamma.float() + beta.float()).to(dt)
+
+
 def rope_tables(positions: torch.Tensor, hd: int, theta: float):
     """f32 cos/sin tables (..., S, 1, hd/2) of the rotary angles
     ``positions * theta**(-i/half)``.  They depend on positions only, so a
@@ -141,6 +154,26 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` forms it
     (``logaddexp(x, 0)``)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoids(length: int, dim: int) -> np.ndarray:
+    pos = np.arange(length)[:, None]
+    div = np.exp(-np.log(10000.0) * np.arange(0, dim, 2) / dim)
+    out = np.zeros((length, dim), np.float32)
+    out[:, 0::2] = np.sin(pos * div)
+    out[:, 1::2] = np.cos(pos * div)
+    out.setflags(write=False)
+    return out
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """The (length, dim) f32 sinusoid table of the whisper encoder, formed
+    in numpy float64 and cast to f32 as the JAX package forms it (so the
+    two tables are equal bit for bit), on ``device``."""
+    return torch.tensor(_sinusoids(length, dim), device=device)
 
 
 def activation(name: str):

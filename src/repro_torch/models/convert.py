@@ -3,8 +3,9 @@ the port's parameters, and a JAX train state into the port's.
 
 Names and layouts are kept as they are (``wq (D,H,hd)``, ``wo (H,hd,D)``;
 dense and ssm layers stacked on axis 0 under ``blocks/``, the hybrid
-stack unrolled under ``layer_{i}/``), so a test can feed the same weights
-to both packages and compare like with like.
+stack unrolled under ``layer_{i}/``, whisper's under ``enc_{i}/`` and
+``dec_{i}/``), so a test can feed the same weights to both packages and
+compare like with like.
 """
 from __future__ import annotations
 
@@ -38,10 +39,17 @@ def params_from_numpy(cfg: ModelConfig, flat: Mapping[str, np.ndarray], *,
         for name, d in defs.items()}
 
 
+def _defs(cfg: ModelConfig, flat: Mapping[str, np.ndarray]):
+    """The model's param defs, the encdec family's ``pos/dec`` table as
+    long as ``flat``'s (the JAX model's ``max_seq``)."""
+    max_seq = np.shape(flat["pos/dec"])[-2] if "pos/dec" in flat else 0
+    return model_param_defs(cfg, max_seq)
+
+
 def _check_names(cfg: ModelConfig, flat: Mapping[str, np.ndarray]):
     """The model's param defs; raises unless ``flat`` has exactly their
     names and shapes."""
-    defs = model_param_defs(cfg)
+    defs = _defs(cfg, flat)
     missing = sorted(set(defs) - set(flat))
     extra = sorted(set(flat) - set(defs))
     if missing or extra:
@@ -100,7 +108,7 @@ def _err_tree(cfg: ModelConfig, tree: Mapping[str, np.ndarray],
               dev: torch.device) -> dict:
     """The compressed optimizer's error buffers: the parameters' names,
     each shaped like its parameter, or all with one leading shard axis."""
-    defs = model_param_defs(cfg)
+    defs = _defs(cfg, tree)
     if set(tree) != set(defs):
         raise ValueError(f"error buffer names differ: missing "
                          f"{sorted(set(defs) - set(tree))}, extra "

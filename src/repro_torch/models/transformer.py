@@ -1,5 +1,7 @@
-"""Decoder assembly (torch counterpart of the dense, moe, vlm, ssm and
-hybrid parts of ``repro/models/transformer.py``).
+"""Model assembly (torch counterpart of ``repro/models/transformer.py``):
+the decoder LMs (dense, moe, vlm, ssm, hybrid) and the whisper-style
+encoder-decoder (encdec, serve modes only: its train mode comes with its
+training).
 
 Modes:
   train   — full-sequence forward under autograd (every family), each
@@ -19,7 +21,8 @@ Modes:
 
 The JAX package scans the stacked layers with ``jax.lax.scan``; here a
 Python loop walks views of the same stacked tensors (dense, ssm) or the
-unrolled ``layer_{i}`` tensors (hybrid).
+unrolled ``layer_{i}`` tensors (hybrid), or the unrolled ``enc_{i}`` and
+``dec_{i}`` tensors (encdec).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, ParamDefs, Params,
-                                       apply_rope, rms_norm, rope_tables,
+                                       apply_rope, layer_norm, rms_norm,
+                                       rope_tables, sinusoidal_positions,
                                        softcap, stacked, subtree, torch_dtype)
 
 
@@ -77,10 +81,33 @@ def hybrid_pattern(cfg: ModelConfig) -> List[str]:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
-def model_param_defs(cfg: ModelConfig) -> ParamDefs:
-    """Parameter defs of the decoder, named as ``model.init`` names them in
+def _encdec_layer_defs(cfg: ModelConfig, cross: bool) -> ParamDefs:
+    """One whisper layer: LayerNorms (gamma and beta), self-attention, the
+    MLP and, in the decoder (``cross``), the cross-attention and its
+    LayerNorm."""
+    D = cfg.d_model
+    defs: ParamDefs = {
+        "ln1/g": ParamDef((D,), (None,), init="ones"),
+        "ln1/b": ParamDef((D,), (None,), init="zeros"),
+        "ln2/g": ParamDef((D,), (None,), init="ones"),
+        "ln2/b": ParamDef((D,), (None,), init="zeros"),
+    }
+    defs.update(_prefix("attn", attn_mod.attn_param_defs(cfg)))
+    defs.update(_prefix("mlp", mlp_mod.mlp_param_defs(cfg)))
+    if cross:
+        defs["lnx/g"] = ParamDef((D,), (None,), init="ones")
+        defs["lnx/b"] = ParamDef((D,), (None,), init="zeros")
+        defs.update(_prefix("xattn", attn_mod.attn_param_defs(cfg,
+                                                              cross=True)))
+    return defs
+
+
+def model_param_defs(cfg: ModelConfig, max_seq: int) -> ParamDefs:
+    """Parameter defs of the model, named as ``model.init`` names them in
     the JAX package: stacked layers under ``blocks/`` (dense, ssm), unrolled
-    ``layer_{i}/`` (hybrid)."""
+    ``layer_{i}/`` (hybrid), unrolled ``enc_{i}/`` and ``dec_{i}/`` with the
+    learned decoder positions ``pos/dec`` (max_seq, D) (encdec; no other
+    family reads ``max_seq``)."""
     D, V = cfg.d_model, cfg.vocab_size
     defs: ParamDefs = {
         "emb/tok": ParamDef((V, D), ("vocab", "embed"), scale=0.02),
@@ -89,6 +116,20 @@ def model_param_defs(cfg: ModelConfig) -> ParamDefs:
     if not cfg.tie_embeddings:
         defs["emb/out"] = ParamDef((D, V), ("embed", "vocab"),
                                    scale=D ** -0.5)
+    if cfg.family == "encdec":
+        # whisper's LayerNorm: gamma multiplies (initialised to ones)
+        for n in ("final_ln", "enc_ln"):
+            defs[f"{n}/g"] = ParamDef((D,), (None,), init="ones")
+            defs[f"{n}/b"] = ParamDef((D,), (None,), init="zeros")
+        defs["pos/dec"] = ParamDef((max_seq, D), ("seq", "embed"),
+                                   scale=0.02)
+        enc = _encdec_layer_defs(cfg, cross=False)
+        dec = _encdec_layer_defs(cfg, cross=True)
+        for i in range(cfg.enc_layers):
+            defs.update(_prefix(f"enc_{i}", enc))
+        for i in range(cfg.dec_layers):
+            defs.update(_prefix(f"dec_{i}", dec))
+        return defs
     if cfg.family == "hybrid":
         for i, kind in enumerate(hybrid_pattern(cfg)):
             defs.update(_prefix(f"layer_{i}", _hybrid_layer_defs(cfg, kind)))
@@ -125,15 +166,31 @@ def cache_param_defs(cfg: ModelConfig, batch: int, max_len: int) -> ParamDefs:
                                     ("stack", "batch", "kv_seq"),
                                     init="const", const=-1, dtype="int32")
         return defs
+    if cfg.family == "encdec":
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+        defs = {}
+        for i in range(cfg.dec_layers):
+            for n in ("k", "v"):
+                defs[f"dec_{i}/{n}"] = ParamDef((batch, max_len, K, hd),
+                                                axes, init="zeros")
+        # the per-row encoder-output bank (kind "enc"): row b holds slot
+        # b's encoder output, written at admission and read by every
+        # decode tick's cross-attention
+        defs["enc/out"] = ParamDef((batch, max_len, cfg.d_model),
+                                   ("batch", "kv_seq", "embed"),
+                                   init="zeros")
+        return defs
     return attn_mod.cache_defs(cfg, batch, max_len, cfg.num_layers)
 
 
 def paged_cache_param_defs(cfg: ModelConfig, num_pages: int,
                            page_size: int) -> ParamDefs:
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         raise ValueError(
             f"paged KV serving not supported for family '{cfg.family}' "
-            "(recurrent state / ring buffers are not paged)")
+            "(recurrent state / ring buffers / encoder banks are not "
+            "paged)")
     return attn_mod.paged_cache_defs(cfg, num_pages, page_size,
                                      cfg.num_layers)
 
@@ -555,3 +612,119 @@ def _hybrid_train_layer(cfg: ModelConfig, lp: Params, x, kind: str, rope_cs,
     x = x + h
     return x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
                                  rms_norm(x, lp["ln2/g"]))
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def _encdec_layer(cfg: ModelConfig, p: Params, x, *, causal: bool,
+                  impl: str, enc_out=None, cache=None, cache_pos=None,
+                  return_kv: bool = False):
+    """One pre-LayerNorm whisper layer: self-attention (no RoPE; causal in
+    the decoder, over ``cache`` in decode), cross-attention over
+    ``enc_out`` when given (the decoder), the MLP.  Returns (x, kv)."""
+    h, kv = attn_mod.attention_block(
+        cfg, subtree(p, "attn"), layer_norm(x, p["ln1/g"], p["ln1/b"]),
+        rope_cs=None, causal=causal, window=0, cache=cache,
+        cache_pos=cache_pos, return_kv=return_kv, impl=impl)
+    x = x + h
+    if enc_out is not None:
+        h, _ = attn_mod.attention_block(
+            cfg, subtree(p, "xattn"), layer_norm(x, p["lnx/g"], p["lnx/b"]),
+            rope_cs=None, kv_source=enc_out, impl=impl)
+        x = x + h
+    return x + mlp_mod.mlp_block(cfg, subtree(p, "mlp"),
+                                 layer_norm(x, p["ln2/g"], p["ln2/b"])), kv
+
+
+def encoder_forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+                    attn_impl: str = "kernel") -> torch.Tensor:
+    """The whisper encoder over frames (B, Se, D) (the conv frontend is a
+    stub: the frames are given), with sinusoidal positions and
+    bidirectional self-attention by ``attn_impl`` (``ATTN_IMPLS``: "kernel"
+    the flash kernel, non-causal, as JAX's "chunked" default); returns the
+    final-LayerNormed (B, Se, D) output in the model dtype."""
+    B, Se, D = frames.shape
+    dt = torch_dtype(cfg.dtype)
+    x = frames.to(dt) + sinusoidal_positions(Se, D, frames.device).to(
+        dt)[None]
+    for i in range(cfg.enc_layers):
+        x, _ = _encdec_layer(cfg, subtree(params, f"enc_{i}"), x,
+                             causal=False, impl=attn_impl)
+    return layer_norm(x, params["enc_ln/g"], params["enc_ln/b"])
+
+
+def encdec_forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,                 # (B, S) int
+    *,
+    frames: Optional[torch.Tensor] = None,    # (B, Se, D)
+    enc_out: Optional[torch.Tensor] = None,   # (B, Se, D)
+    mode: str = "prefill",                # prefill | decode
+    cache: Optional[Params] = None,       # dec_{i}/k|v, enc/out
+    cache_pos=None,                       # decode: (B,) int32 or scalar
+    attn_impl: str = "plain",
+    logits_at: Optional[torch.Tensor] = None,   # (B,) token indices
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The whisper decoder, after the encoder when ``frames`` are given.
+    Returns (f32 logits, cache).
+
+    The cross-attention source is ``enc_out``, else the encoder's output
+    over ``frames`` (by ``attn_impl``), else the cache's per-row
+    ``enc/out`` bank: in the serve tick each slot decodes against its own
+    encoder output.  Its K/V are projected from the source on every call.
+
+    Prefill: learned positions ``pos/dec[:S]``, causal self-attention and
+    non-causal cross-attention by ``attn_impl`` (``ATTN_IMPLS``); returns
+    (B, S, V) logits, or (B, 1, V) at ``logits_at[b]``, and the fresh
+    ``dec_{i}/k|v`` (B, S, K, hd).  Decode: one token a row at per-row
+    positions ``cache_pos`` (B,) (row b takes ``pos/dec[cache_pos[b]]`` and
+    writes its K/V at its own position, ``attn_impl`` in ``DECODE_IMPLS``)
+    or at one scalar position (the dry-run convention, read once a step);
+    the cache is updated in place and returned, ``enc/out`` unchanged.
+    The cross-attention takes ``attn_impl`` in both modes ("kernel": the
+    flash kernel, non-causal, Sq 1 in decode).  The final LayerNorm, then
+    the unembedding through the tied embedding in the model dtype, then
+    the f32 cast, as JAX's."""
+    if enc_out is None and frames is not None:
+        enc_out = encoder_forward(cfg, params, frames, attn_impl)
+    if enc_out is None and cache is not None and "enc/out" in cache:
+        enc_out = cache["enc/out"]
+    if enc_out is None:
+        raise ValueError("encdec needs frames, enc_out or a cache holding "
+                         "enc/out")
+    S = tokens.shape[1]
+    pos_dec = params["pos/dec"]
+    if mode == "prefill":
+        pos_emb = pos_dec[:S][None]
+    elif mode == "decode":
+        _check_decode(mode, cache, cache_pos, S)
+        if attn_mod.per_row_positions(cache_pos):
+            pos_emb = pos_dec[cache_pos.long()][:, None]
+        else:
+            cache_pos = int(cache_pos)          # one host read a step
+            pos_emb = pos_dec[cache_pos:cache_pos + 1][None]
+    else:
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode'): "
+                         f"the encdec family does not train yet")
+    x = params["emb/tok"][tokens].to(torch_dtype(cfg.dtype)) + pos_emb
+    fresh: Params = {}
+    for i in range(cfg.dec_layers):
+        c_i = (None if mode == "prefill" else
+               {"k": cache[f"dec_{i}/k"], "v": cache[f"dec_{i}/v"]})
+        x, kv = _encdec_layer(
+            cfg, subtree(params, f"dec_{i}"), x, causal=True, impl=attn_impl,
+            enc_out=enc_out, cache=c_i, cache_pos=cache_pos,
+            return_kv=mode == "prefill")
+        if mode == "prefill":
+            fresh[f"dec_{i}/k"], fresh[f"dec_{i}/v"] = kv["k"], kv["v"]
+    x = layer_norm(_pick(x, logits_at), params["final_ln/g"],
+                   params["final_ln/b"])
+    if cfg.tie_embeddings:
+        logits = x @ params["emb/tok"].T
+    else:
+        logits = x @ params["emb/out"]
+    return logits.float(), (fresh if mode == "prefill" else cache)

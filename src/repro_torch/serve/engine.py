@@ -1,6 +1,6 @@
 """Device-resident continuous-batching serve engine (torch counterpart of
-``Engine`` / ``EngineReference`` of ``repro/serve/engine.py`` for the
-dense, ssm and hybrid families).
+``Engine`` / ``EngineReference`` / ``PagedEngine`` of
+``repro/serve/engine.py``).
 
 Per-slot decode state — last token, write position, active flag,
 remaining budget, temperature — lives in (slots,) device tensors.  The
@@ -13,6 +13,10 @@ state machine:
          admitted row's first token is sampled from its last prompt
          position's logits.  The recurrent families (ssm, hybrid) prefill
          with a masked per-token decode scan instead (``_prefill_scan``).
+         The encdec family first encodes every admitted ``prompt +
+         output`` in one encoder call at the fixed shape (slots, max_len),
+         writes the admitted rows of the ``enc/out`` bank, and prefills
+         against those rows (``_encode_rows``).
   decode (device, K ticks): a Python loop of ``ticks_per_sync`` ticks with
          no host sync inside; each tick decodes every slot at its own
          position (inactive slots too, at ``clip(pos, 0, max_len-1)``),
@@ -59,7 +63,8 @@ into per-tick and per-call roofline terms, and ``nvm_verdicts()`` scores
 them with ``core/crosslayer.py``'s SRAM/STT/SOT tier model.
 
 State banks (``Model.state_banks``): KV banks need no reset, since reads
-are position-guarded.  The GUARDED banks (``"recurrent"``, ``"ring"``)
+are position-guarded; the ``enc`` bank neither, since an admission
+overwrites its row whole.  The GUARDED banks (``"recurrent"``, ``"ring"``)
 carry state no position masks: every decode tick merges them under the
 pre-update active mask (frozen rows keep their bits), every site that
 frees a slot resets its rows, and an admitted row starts from the reset
@@ -283,7 +288,8 @@ def _new_rstats() -> Dict[str, int]:
             "window_fallbacks": 0}
 
 
-def _check_model(model: Model, device: DeviceLike, name: str):
+def _check_model(model: Model, device: DeviceLike, name: str,
+                 max_len: int):
     if "dense" not in model.serve_modes:
         raise UnsupportedFamilyError(model.cfg.family,
                                      serve_families("dense"), name)
@@ -291,7 +297,34 @@ def _check_model(model: Model, device: DeviceLike, name: str):
     if dev.type != model.device.type:
         raise ValueError(f"{name} on {dev} but the model is on "
                          f"{model.device}")
+    if model.cfg.family == "encdec" and max_len > model.max_seq:
+        # the learned decoder positions end at max_seq
+        raise ValueError(f"{name}: max_len {max_len} > the model's max_seq "
+                         f"{model.max_seq} (its pos/dec rows)")
     return model.device
+
+
+def _encode_rows(engine, slots: List[int], effs: List[List[int]]
+                 ) -> torch.Tensor:
+    """Encode the effective prompts ``effs`` of ``slots`` in ONE encoder
+    call at the fixed shape (engine.slots, engine.max_len), the other rows
+    zero, and write those slots' rows of the ``enc/out`` bank (every other
+    row keeps its bits).  Both engines encode through here, so a row's
+    output is the same bits in either (``Model.encode_prompt``).  Returns
+    the written rows (len(slots), max_len, D), in ``slots`` order."""
+    tokens = np.zeros((engine.slots, engine.max_len), np.int32)
+    lens = np.zeros(engine.slots, np.int32)
+    for s, e in zip(slots, effs):
+        tokens[s, :len(e)] = e
+        lens[s] = len(e)
+    dev = engine.device
+    enc = engine.model.encode_prompt(engine.params,
+                                     torch.from_numpy(tokens).to(dev),
+                                     torch.from_numpy(lens).to(dev))
+    rows = torch.tensor(slots, device=dev)
+    bank = engine.cache["enc/out"]
+    bank[rows] = enc[rows].to(bank.dtype)
+    return bank[rows]
 
 
 class Engine:
@@ -330,7 +363,7 @@ class Engine:
                  watchdog: Optional[WindowWatchdog] = None,
                  fault_plan=None, health_check: bool = True,
                  prefill_attn_impl: str = "plain"):
-        self.device = _check_model(model, device, "Engine")
+        self.device = _check_model(model, device, "Engine", max_len)
         if attn_impl not in IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {IMPLS}")
         if prefill_attn_impl not in IMPLS:
@@ -530,8 +563,11 @@ class Engine:
         """Admit queued requests into free slots with one batched prefill
         (the masked per-token scan for the guarded families).  A requeued
         request resumes from ``prompt + output``: its emitted tokens are
-        prefilled again and its budget is cut by them, so a greedy
-        continuation equals an uninterrupted run."""
+        prefilled again (and, encdec, encoded again) and its budget is cut
+        by them, so a greedy continuation equals an uninterrupted run.
+        The encdec encoder call runs before the prefill and outside its
+        counted traffic, as the JAX engine's encoder program is outside
+        its analysed prefill."""
         self._last_admitted = 0
         _drop_expired(self)
         free = [i for i in range(self.slots) if self.slot_req[i] is None]
@@ -552,14 +588,17 @@ class Engine:
         rows = torch.tensor([s for s, _ in pairs], device=dev)
         lens_t = torch.from_numpy(lens).to(dev)
         t_launch = time.perf_counter()
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if self.model.cfg.family == "encdec":
+            batch["enc_out"] = _encode_rows(self, [s for s, _ in pairs],
+                                            eff)
         with self._prefill_call(P):
             logits, fresh = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(tokens).to(dev)},
-                logits_at=(lens_t - 1).clamp(0, P - 1),
+                self.params, batch, logits_at=(lens_t - 1).clamp(0, P - 1),
                 attn_impl=self.prefill_attn_impl)
             valid = (torch.arange(P, device=dev)[None, :] < lens_t[:, None])
-            for name in self.cache:
-                self._scatter_bank(name, fresh[name], rows, valid)
+            for name, t in fresh.items():
+                self._scatter_bank(name, t, rows, valid)
             del fresh
             first = self._start_rows(pairs, rows, logits[:, 0], lens_t)
         host = first.cpu()
@@ -1273,7 +1312,9 @@ class EngineReference:
     ``Engine``: prompts prefill one token at a time through
     ``decode_step`` (on the admitted slot's row only), every decode tick
     brings the logits to the host, and sampling and termination run in
-    Python.  Attention and sampling are always the plain versions.  It
+    Python.  Attention and sampling are always the plain versions; the
+    encdec encoder alone is ``Engine``'s call (``_encode_rows``), so that
+    both engines' ``enc/out`` rows are the same bits.  It
     takes the same ``shed_policy`` (backpressure, queued deadlines) and
     resumes a resubmitted request from ``prompt + output``."""
 
@@ -1283,7 +1324,8 @@ class EngineReference:
                  eos_id: Optional[int] = None, seed: int = 0,
                  device: DeviceLike = None,
                  shed_policy: Optional[ShedPolicy] = None):
-        self.device = _check_model(model, device, "EngineReference")
+        self.device = _check_model(model, device, "EngineReference",
+                                   max_len)
         self.model = model
         self.params = params
         self.slots = slots
@@ -1347,11 +1389,15 @@ class EngineReference:
     def _prefill(self, slot: int, req: Request) -> None:
         """Per-token prefill of one slot's effective prompt ``prompt +
         output``, on that slot's cache row alone; the guarded banks' row
-        is reset first (it still holds the previous occupant's state)."""
+        is reset first (it still holds the previous occupant's state), and
+        the encdec ``enc/out`` row is written by ``Engine``'s fixed-shape
+        encoder call."""
         self.slot_req[slot] = req
         eff = list(req.prompt) + list(req.output)
         if self._guarded:
             _reset_rows(self.cache, slot, self._banks, self._bank_reset)
+        if self.model.cfg.family == "encdec":
+            _encode_rows(self, [slot], [eff])
         row = {n: c.narrow(self._banks[n].batch_axis, slot, 1)
                for n, c in self.cache.items()}
         lg = None

@@ -4,8 +4,9 @@ against the plain path and one of every family on its kernels, the paged
 engine and the recurrent families' engine on their kernels against
 ``EngineReference``, the moe family's engines on their kernels against
 their plain twins, the dense engine's faults and retries on its
-kernels, and the traffic count of an engine and a train window
-against the CPU's, on the card.
+kernels, the traffic count of an engine and a train window against the
+CPU's, and the encdec family's kernels at whisper's shapes and its
+engine on its kernels against its plain twin, on the card.
 
 Marked ``cuda``; each test skips with a reason where no CUDA device is
 present (the fixture decides, at run time).  On the card:
@@ -31,6 +32,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # relative Frobenius error of the ``FlashAttention`` gradients against f32
 # autograd of the plain version.  Its lse is held to f32's 1e-5.
 FLASH_BF16_ROW_REL = 8e-3
+# The engine's flash encoder against the naive encoder on the same stub
+# frames, bf16: each (row, frame)'s relative L2 difference over d_model
+# (``chip_smoke.py``'s limit, read there at 9.2e-3 at full width).
+ENCODER_ROUTE_REL = 2e-2
 FLASH_BF16_GRAD_REL = 5e-3
 
 
@@ -55,6 +60,7 @@ def dev():
     (8, 24, 8, 1024, 64, 0, 0.0),      # granite-moe-3b-a800m's heads
     (8, 16, 16, 1024, 128, 0, 0.0),    # moonshot-v1-16b-a3b's
     (8, 48, 8, 1024, 128, 0, 0.0),     # internvl2-26b's
+    (8, 6, 6, 1536, 64, 0, 0.0),       # whisper-tiny's, 1536 rows
 ])
 def test_decode_attention_kernel_matches_plain(dev, dtype, B, H, K, L, hd,
                                                window, cap):
@@ -1432,3 +1438,130 @@ def test_calibration_tool_on_card_follows_cpu(dev, tool):
     assert len(card[2]) == 21 and rel <= 1e-5
     assert card[2].index(card[1]) == cpu[2].index(cpu[1])
     assert card[1] <= card[2][0]
+
+
+# --- the encdec family (whisper-tiny) -----------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1536, 1], ids=["encoder", "cross"])
+def test_flash_attention_at_whisper_shapes_matches_plain(dev, dtype, Sq):
+    """The flash kernel non-causal at whisper-tiny's encoder shape (8, 6,
+    1536, 1536, 64) and its decode tick's cross-attention (8, 6, 1, 1536,
+    64): MHA (G = 1) in the model's strided layout, o within ``TOL`` (bf16
+    rows within ``FLASH_BF16_ROW_REL``), lse within 1e-5."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def r(s):               # (B, S, H, hd) storage, (B, H, S, hd) view
+        return torch.randn(8, s, 6, 64, generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    q, k, v = r(Sq), r(1536), r(1536)
+    want32, want_lse = fa.flash_attention_plain(q.float(), k.float(),
+                                                v.float(), causal=False)
+    before = ops.launches["flash_attention"]
+    got, lse = ops.flash_attention(q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    assert got.stride() == q.stride()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want32.to(dtype).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    if dtype == torch.bfloat16:
+        n = want32.norm(dim=-1).clamp(min=1e-30)
+        row = (got.float() - want32).norm(dim=-1) / n
+        assert float(row.max()) <= FLASH_BF16_ROW_REL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_engine_encoder_matches_the_naive_encoder(dev, dtype):
+    """Reduced whisper-tiny: the ``enc/out`` rows that ``Engine`` writes at
+    an admission of 3 requests (its fixed-shape flash encoder call)
+    against ``encoder_forward(..., "plain")`` on the same stub frames:
+    within ``TOL`` in f32, each (row, frame) within ``ENCODER_ROUTE_REL``
+    in bf16."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine, Request
+    cfg = reduced(get_config("whisper-tiny"), dtype=dtype)
+    model = build_model(cfg, max_seq=64, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, slots=3, max_len=64, device=dev)
+    prompts = [[5, 7, 11, 13], list(range(1, 41)), [3] * 17]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+    before = ops.launches["flash_attention"]
+    eng._admit()
+    assert ops.launches["flash_attention"] == before + cfg.enc_layers
+    assert [eng.slot_req[s].uid for s in range(3)] == [0, 1, 2]
+    tokens = torch.zeros(3, 64, dtype=torch.int32)
+    for s, p in enumerate(prompts):
+        tokens[s, :len(p)] = torch.tensor(p)
+    live = (torch.arange(64)[None, :]
+            < torch.tensor([len(p) for p in prompts])[:, None])
+    emb = params["emb/tok"][tokens.to(dev)].to(eng.cache["enc/out"].dtype)
+    want = tf.encoder_forward(cfg, params,
+                              emb * live.to(dev)[:, :, None].to(emb.dtype),
+                              "plain")
+    got = eng.cache["enc/out"]
+    assert bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32])
+    else:
+        rel = ((got.float() - want.float()).norm(dim=-1)
+               / want.float().norm(dim=-1).clamp(min=1e-30))
+        assert float(rel.max()) <= ENCODER_ROUTE_REL
+
+
+def test_encdec_engine_kernels_match_their_plain_twin(dev):
+    """Reduced whisper-tiny at float32: the kernel ``Engine`` against the
+    same engine on the plain attention and sampler and against
+    ``EngineReference``, greedy, token for token; a decode tick launches
+    the decode and flash kernels once a decoder layer and the sampler
+    once, an admission the flash kernel once an encoder layer; the
+    ``enc/out`` rows of ``Engine`` and ``EngineReference`` are the same
+    bits; the decode window never waits on the card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import (Engine, EngineReference, Request,
+                                   mixed_requests, run_staggered,
+                                   staggered_groups)
+    cfg = reduced(get_config("whisper-tiny"), dtype="float32")
+    model = build_model(cfg, max_seq=64, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def reqs():
+        return mixed_requests(6, seed=5, vocab=cfg.vocab_size,
+                              prompt_lens=(2, 20), max_new=(2, 8))
+
+    ref = EngineReference(model, params, slots=3, max_len=64, device=dev)
+    want = run_staggered(ref, staggered_groups(reqs(), 3))
+    plain = Engine(model, params, slots=3, max_len=64, ticks_per_sync=4,
+                   attn_impl="plain", sample_impl="plain", device=dev)
+    assert run_staggered(plain, staggered_groups(reqs(), 3)) == want
+    ops.reset_launches()
+    eng = Engine(model, params, slots=3, max_len=64, ticks_per_sync=4,
+                 device=dev)
+    assert run_staggered(eng, staggered_groups(reqs(), 3)) == want
+    ticks, calls = eng.counts["decode_ticks"], eng.counts["prefill_calls"]
+    assert ops.launches["decode_attention"] == cfg.dec_layers * ticks
+    assert ops.launches["flash_attention"] == \
+        cfg.dec_layers * ticks + cfg.enc_layers * calls
+    assert ops.launches["fused_sample"] == ticks + calls
+    eng.reset()
+    ref.reset()
+    eng.submit(Request(uid=0, prompt=[5, 7, 11, 13], max_new_tokens=9))
+    eng._admit()
+    ref._prefill(0, Request(uid=0, prompt=[5, 7, 11, 13], max_new_tokens=9))
+    assert torch.equal(eng.cache["enc/out"][0], ref.cache["enc/out"][0])
+    eng._pre_window()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng._window()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool((out[0, :, 0] >= 0).all())

@@ -6,6 +6,7 @@ Prefill logits and per-row-position decode logits agree within atol/rtol
 1e-4, the bound ``tests/test_serve_engine.py`` holds the JAX decode path
 to.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -207,10 +208,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 
 
 def test_other_families_raise_unsupported():
-    with pytest.raises(UnsupportedFamilyError, match="'encdec'") as ei:
-        build_model(reduced(get_config("whisper-tiny")), device="cpu")
-    assert ei.value.family == "encdec"
-    assert ei.value.supported == ("dense", "hybrid", "moe", "ssm", "vlm")
+    """Every family of the configs builds; any other family is refused,
+    naming it and all six."""
+    cfg = dataclasses.replace(reduced(get_config("whisper-tiny")),
+                              family="conformer")
+    with pytest.raises(UnsupportedFamilyError, match="'conformer'") as ei:
+        build_model(cfg, device="cpu")
+    assert ei.value.family == "conformer"
+    assert ei.value.supported == ("dense", "encdec", "hybrid", "moe", "ssm",
+                                  "vlm")
     assert isinstance(ei.value, ValueError)
 
 

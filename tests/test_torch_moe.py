@@ -47,7 +47,7 @@ from repro.serve import staggered_groups as jstaggered_groups
 from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.launch import graph_analysis as ga
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import UnsupportedFamilyError, build_model, moe
+from repro_torch.models import build_model, moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import check_trainable, input_specs, make_inputs
 from repro_torch.models.convert import params_from_numpy
@@ -474,16 +474,16 @@ def test_serve_records_name_the_family():
 
 def test_build_model_takes_moe_and_vlm_and_training_refuses_them(capsys):
     """Both families build, serve on both engines and pass
-    ``check_trainable``: training now refuses only the encdec family
-    (``tests/test_torch_train_moe.py::test_encdec_training_is_still_refused``),
-    which does not build either."""
+    ``check_trainable`` (training refuses only the encdec family:
+    ``tests/test_torch_train_moe.py::test_encdec_training_is_still_refused``);
+    whisper-tiny builds too, and serves on the dense engines alone."""
     for arch in (GRANITE, MOONSHOT, INTERNVL):
         cfg = get_config(arch)
         model = build_model(reduced(cfg), device="cpu")
         assert model.serve_modes == frozenset({"dense", "paged"})
         check_trainable(cfg, "launch.train")
-    with pytest.raises(UnsupportedFamilyError, match="'encdec'"):
-        build_model(reduced(get_config("whisper-tiny")), device="cpu")
+    whisper = build_model(reduced(get_config("whisper-tiny")), device="cpu")
+    assert whisper.serve_modes == frozenset({"dense"})
     launch_serve.main(["--list-configs"])
     listing = capsys.readouterr().out
     for arch, fam in ((GRANITE, "moe"), (MOONSHOT, "moe"),
