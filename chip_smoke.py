@@ -21,7 +21,8 @@ slice F's and G's serving runs, with the traffic recorded and without;
 ``train_families`` runs phase 5h, slices TS, TG, TM, TV and UR, with the
 verdicts of TS, TG and TM; ``attention_paths`` runs slices A, AP, SD and
 their parity at slice B's model; ``encdec`` runs phase 5i, whisper's
-kernels and slices W, SW, WP and its launcher, with W's verdicts).
+kernels, slices W, SW, WP, TW and UW and its two launchers, with W's
+and TW's verdicts).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -69,7 +70,9 @@ result line:
      o within 2e-5 / 2e-2, lse within 1e-5 in both dtypes, each bf16 row's
      relative error within 8e-3; ``FlashAttention``'s bf16 gradients
      (kernel o and lse, plain backward) within 5e-3 of f32 autograd of
-     the plain version at three reduced shapes; timed at slice T's shape
+     the plain version at three causal reduced shapes and at slice TW's
+     non-causal encoder (1500 frames) and cross-attention (2048 queries
+     over 1500 frames), hd 64, G = 1; timed at slice T's shape
      in bf16 beside SDPA; then the query offset, the valid-key length,
      non-causal masks and ``p_bf16`` (llama3-8b's heads, model layout,
      f32 and bf16): (a) the scalar-decode shape, q (8, 32, 1, 128) at
@@ -238,7 +241,8 @@ result line:
      ``moe_dispatch`` range's share); slice TV, internvl2-26b at full
      width cut to 2 of 48 layers (4 steps of ``make_train_step`` on
      batches with 256 seeded vision embeddings a row, then one window on
-     tokens); slice UR, slice U's contracts (kernel path within rel 1e-4
+     tokens, per-step times on tokens alone and with the embeddings in
+     turn, an uncounted window's step time); slice UR, slice U's contracts (kernel path within rel 1e-4
      of the plain path over 4 steps, gradients within rtol 3e-4 / atol
      3e-5, window == per-step loop, 2 windows == 1, checkpoint resume,
      bit for bit under deterministic algorithms, which raise on an op
@@ -248,7 +252,10 @@ result line:
      heads of 64, vocab 51865): first its three kernels at its shapes
      against their plain versions in f32 and bf16 (the flash kernel
      non-causal at the encoder's (8, 6, 1536, 1536, 64) and the
-     cross-attention's (8, 6, 1, 1536, 64), G = 1; the decode kernel at
+     cross-attention's (8, 6, 1, 1536, 64), G = 1, and at slice TW's
+     microbatch: the encoder's non-causal (2, 6, 1500, 1500, 64), the
+     decoder's causal (2, 6, 2048, 2048, 64) and the cross-attention's
+     non-causal (2, 6, 2048, 1500, 64); the decode kernel at
      (8, 6, 6, 64) over 1536 rows; the sampler at (8, 51865)), each timed
      in bf16 beside its plain version, SDPA (``torch.argmax``) and its
      bound; slice W, bf16 at full width and depth through ``Engine`` (8
@@ -263,7 +270,21 @@ result line:
      flash kernel and through naive attention, logits within
      ``ROUTE_LOGITS_REL``; slice WP, f32: the kernel ``Engine`` ==
      ``EngineReference`` token for token on 8 requests; ``launch.serve
-     --arch whisper-tiny --no-reduced --slots 8 --max-len 1536``;
+     --arch whisper-tiny --no-reduced --slots 8 --max-len 1536``; slice
+     TW, whisper-tiny trained at full width and depth (bf16, remat full,
+     AdamW at ``_family_lr``): every gradient present and finite on a
+     batch with frames, and on tokens alone the weights the decoder does
+     not reach (``xattn/*``, ``lnx/*``, the encoder's) exactly 0; 4 steps
+     of ``make_train_step`` (4 x 2048 tokens in 2 microbatches) with seeded
+     bf16 frames (4, 1500, 384), finite losses and 192 flash launches (the
+     encoder's non-causal, the decoder's causal and the cross-attention's
+     call over 1500 frames, forward and remat, a layer and microbatch);
+     then slice T's window of 4 steps on tokens alone (64 launches, the
+     sync-error mode, counted), a traced step, per-step times on tokens
+     alone and with frames in turn, an uncounted window's step time; slice
+     UW, slice U's parity contracts for reduced whisper with frames (4,
+     200, D) beside 256 tokens; and ``launch.train --arch whisper-tiny
+     --steps 8 --verdicts`` (64 flash launches, a verdict line);
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -290,10 +311,10 @@ result line:
      rel ``TOOL_REL``, the same best step, the best loss at most the
      frozen constants';
   7b. the NVM verdicts of the full-width slices' own traffic: slices A,
-     D, F, G, M (dense and paged), N, TS, TG, TM and W (each engine's first
-     decode window, counted under
-     ``OpCounter`` inside the sync-error check of phase 4, and the first
-     prefill of each padded length) and T (the first train window); each
+     D, F, G, M (dense and paged), N, TS, TG, TM, W and TW (each engine's
+     first decode window, counted under ``OpCounter`` inside the
+     sync-error check of phase 4, and the first prefill of each padded
+     length) and T (the first train window); each
      record's flops and bytes, its dominant term and its STT/SOT energy
      and EDP ratios against SRAM at the modeled TPU tier, all finite and
      positive; the counted window's wall beside an uncounted one is
@@ -308,8 +329,8 @@ result line:
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, and ``launches_by_slice`` with the kernels' launches on
-     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM, TV, W, SW and
-     WP, F's
+     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM, TV, W, SW, WP
+     and TW, F's
      ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
      T for flash attention, C for the simulator; the two scans also with
      their ``autograd`` forward + backward), error
@@ -362,6 +383,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX tests' bounds
 # autograd 2.5e-3; an lse off by d moves it by about d).
 FLASH_BF16_ROW_REL = 8e-3
 FLASH_BF16_GRAD_REL = 5e-3
+WHISPER = "whisper-tiny"
+W_LEN = 1536          # slice W's max_len and encoder frames (8 slots)
+TW_FRAMES = 1500      # whisper's published encoder length, slice TW's frames
 # The flash route against the naive route through a full-width bf16
 # llama3-8b (slices AP and SD): each row's relative L2 difference of the
 # f32 logits.  The routes round attention differently (bf16 P and output
@@ -1356,25 +1380,31 @@ def _row_rel(got, want32):
 def _flash_grads(gen) -> None:
     """``FlashAttention`` in bf16 (the kernel's o and lse forward, the
     plain blockwise backward recomputing p = exp(s - lse)) against f32
-    autograd of the plain version on the same inputs, at reduced shapes:
-    the relative Frobenius error of dq, dk, dv, beside plain bf16 autograd's
-    and the floor of rounding the f32 gradients to bf16."""
+    autograd of the plain version on the same inputs: three causal cases
+    at reduced shapes, and slice TW's non-causal encoder (1500 frames)
+    and cross-attention (2048 queries over 1500 frames) at its shapes.
+    The relative Frobenius error of dq, dk, dv, beside plain bf16
+    autograd's and the floor of rounding the f32 gradients to bf16."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import chunked_attention
     bf16 = torch.bfloat16
-    for B, S, H, K, hd, window, cap in ((2, 512, 8, 2, 128, 0, 0.0),
-                                        (2, 300, 4, 2, 16, 64, 30.0),
-                                        (1, 400, 6, 2, 96, 0, 50.0)):
-        def r(n):
-            return torch.randn(B, S, n, hd, generator=gen,
+    for B, Sq, Skv, H, K, hd, causal, window, cap in (
+            (2, 512, 512, 8, 2, 128, True, 0, 0.0),
+            (2, 300, 300, 4, 2, 16, True, 64, 30.0),
+            (1, 400, 400, 6, 2, 96, True, 0, 50.0),
+            (2, TW_FRAMES, TW_FRAMES, 6, 6, 64, False, 0, 0.0),
+            (2, 2048, TW_FRAMES, 6, 6, 64, False, 0, 0.0)):
+        def r(s, n):
+            return torch.randn(B, s, n, hd, generator=gen,
                                device=DEVICE).to(bf16)
 
-        q, k, v, do = r(H), r(K), r(K), r(H)
+        q, k, v, do = r(Sq, H), r(Skv, K), r(Skv, K), r(Sq, H)
 
         def plain(q, k, v):
             return fa.flash_attention_plain(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                window=window, logit_cap=cap)[0].transpose(1, 2)
+                causal=causal, window=window,
+                logit_cap=cap)[0].transpose(1, 2)
 
         def grads(f, dtype):
             leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
@@ -1384,10 +1414,12 @@ def _flash_grads(gen) -> None:
 
         want = grads(plain, torch.float32)
         got = grads(lambda q, k, v: chunked_attention(
-            q, k, v, window=window, logit_cap=cap, kv_block=128), bf16)
+            q, k, v, causal=causal, window=window, logit_cap=cap,
+            kv_block=128), bf16)
         ref = grads(plain, bf16)
-        name = (f"flash_attention bf16 gradients B={B} S={S} H={H} K={K} "
-                f"hd={hd} window={window} cap={cap}")
+        name = (f"flash_attention bf16 gradients B={B} Sq={Sq} Skv={Skv} "
+                f"H={H} K={K} hd={hd} causal={causal} window={window} "
+                f"cap={cap}")
         msg = []
         for g, p_, w, n in zip(got, ref, want, ("dq", "dk", "dv")):
             def rel(x):
@@ -3043,11 +3075,15 @@ def phase_slice_tc(records: dict, stats: dict):
     return launches
 
 
-def _train_launches(cfg, micro: int, steps: int) -> dict:
+def _train_launches(cfg, micro: int, steps: int,
+                    frames: bool = False) -> dict:
     """The kernel launches ``steps`` train steps of ``cfg`` (remat full,
     ``micro`` microbatches) make: per layer and microbatch a forward and a
     remat recompute of the layer's kernel (``ssd_scan``, flash), and for
-    an R layer also the RG-LRU backward's two ungated launches."""
+    an R layer also the RG-LRU backward's two ungated launches; the encdec
+    family's flash calls are its decoder's self-attention and, on a batch
+    with ``frames``, each encoder layer's and each decoder layer's
+    cross-attention too."""
     from repro_torch.models.transformer import hybrid_pattern
     n, L = micro * steps, cfg.num_layers
     if cfg.family == "ssm":
@@ -3055,6 +3091,10 @@ def _train_launches(cfg, micro: int, steps: int) -> dict:
     if cfg.family == "hybrid":
         rec = hybrid_pattern(cfg).count("R")
         return {"rglru_scan": 4 * rec * n, "flash_attention": 2 * (L - rec) * n}
+    if cfg.family == "encdec":
+        calls = (cfg.enc_layers + 2 * cfg.dec_layers if frames
+                 else cfg.dec_layers)
+        return {"flash_attention": 2 * calls * n}
     return {"flash_attention": 2 * L * n}
 
 
@@ -3063,17 +3103,31 @@ def _launched() -> dict:
     return {k: v for k, v in ops.launches.items() if v}
 
 
-def _grads_present(label: str, model, params, batch) -> None:
+def _grads_present(label: str, model, params, batch, zero=None) -> None:
     """One loss and backward from ``params``: every parameter's gradient
-    present and finite (a scan whose output left the graph gives None)."""
+    present and finite (a scan whose output left the graph gives None).
+    With ``zero``, a predicate on names: the gradients it names are 0
+    instead (absent, as the loss does not reach them: the trainer hands
+    AdamW zeros), and it names at least one."""
     leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
-    grads = torch.autograd.grad(model.loss(leaves, batch),
-                                list(leaves.values()), allow_unused=True)
-    bad = [n for n, g in zip(leaves, grads)
-           if g is None or not bool(torch.isfinite(g).all())]
+    grads = dict(zip(leaves, torch.autograd.grad(
+        model.loss(leaves, batch), list(leaves.values()),
+        allow_unused=True)))
+    named = [n for n in grads if zero is not None and zero(n)]
+    check(zero is None or named, f"{label}: no parameter named zero")
+    nonzero = [n for n in named
+               if grads[n] is not None and bool((grads[n] != 0).any())]
+    bad = [n for n, g in grads.items() if n not in named
+           and (g is None or not bool(torch.isfinite(g).all()))]
     check(not bad, f"{label}: gradient missing or not finite: {bad[:6]}")
-    print(f"{label}: all {len(grads)} parameters have a finite gradient "
-          f"after one step")
+    check(not nonzero, f"{label}: nonzero gradient of {nonzero[:6]}")
+    if named:
+        print(f"{label}: on tokens alone the {len(named)} parameters the "
+              f"loss does not reach have gradient 0, the other "
+              f"{len(grads) - len(named)} a finite one")
+    else:
+        print(f"{label}: all {len(grads)} parameters have a finite "
+              f"gradient after one step")
 
 
 def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
@@ -3116,7 +3170,9 @@ def _train_full_width(label: str, cfg, records: dict, *, scopes=(),
         torch.cuda.synchronize()
     n = sum(p.numel() for p in state["params"].values())
     sbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
-    print(f"{label}: {cfg.arch} full width, {cfg.num_layers} layers, "
+    depth = (f"{cfg.enc_layers} + {cfg.dec_layers}"
+             if cfg.family == "encdec" else cfg.num_layers)
+    print(f"{label}: {cfg.arch} full width, {depth} layers, "
           f"{cfg.dtype}, remat {cfg.remat}: {n / 1e9:.3f} B parameters, "
           f"train state {sbytes / 1e9:.2f} GB; peak lr {peak_lr:.3g}")
     if not steps_done:
@@ -3336,13 +3392,16 @@ def _reduced_train(arch: str):
 
 
 def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
-                  label: str = "slice U") -> None:
+                  label: str = "slice U", frames: int = 0) -> None:
     """Training parity: ``arch`` cut to 4 layers, reduced width, hd 16,
     f32, remat full, seq 256, 4 rows in 2 microbatches.  The kernel path's
     loss and grad_norm over 4 steps within rel 1e-4 of the plain path's
     (naive attention and the plain scans under autograd); one step's
     gradients within the JAX attention test's bounds (rtol 3e-4, atol
-    3e-5).  Under deterministic algorithms: the window equals the
+    3e-5).  With ``frames``, those steps' batches carry seeded f32 frames
+    (4, ``frames``, d_model) (the encdec family: encoder and
+    cross-attention over a source of another length than the tokens).
+    Under deterministic algorithms, on tokens: the window equals the
     per-step loop on host batches bit for bit, two windows equal one
     twice as long, and a checkpoint saved at step 4 and restored resumes
     to the same step-8 state; an op without a deterministic
@@ -3353,23 +3412,29 @@ def phase_slice_u(tmp: Path, arch: str = "llama3-8b",
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     state0 = init_state(model, opt, gen)
+    fed = batches
+    if frames:
+        src = torch.randn((4, frames, cfg.d_model), generator=gen,
+                          device=DEVICE)
+        fed = [dict(b, frames=src) for b in batches]
 
     ops.reset_launches()
-    kern, _ = _per_step(model, opt, state0, batches, 4, microbatches=2)
-    check(_launched() == _train_launches(cfg, 2, 4),
+    kern, _ = _per_step(model, opt, state0, fed, 4, microbatches=2)
+    check(_launched() == _train_launches(cfg, 2, 4, frames=bool(frames)),
           f"{label}: launches of the kernel path {_launched()}")
-    plain, _ = _per_step(model, opt, state0, batches, 4, "plain",
+    plain, _ = _per_step(model, opt, state0, fed, 4, "plain",
                          microbatches=2)
     rel = float(((kern - plain).abs() / plain.abs()).max())
-    print(f"{label}: {arch} 4 steps, kernel path {kern[:, 0].tolist()} vs "
-          f"plain {plain[:, 0].tolist()}: max rel diff of loss and "
-          f"grad_norm {rel:.3g} (tol 1e-4)")
+    with_src = f" with {frames} frames a row" if frames else ""
+    print(f"{label}: {arch} 4 steps{with_src}, kernel path "
+          f"{kern[:, 0].tolist()} vs plain {plain[:, 0].tolist()}: max rel "
+          f"diff of loss and grad_norm {rel:.3g} (tol 1e-4)")
     check(rel <= 1e-4, f"{label}: kernel vs plain loss/grad_norm rel {rel}")
     grads = {}
     for impl in ("kernel", "plain"):
         leaves = {n: p.detach().requires_grad_()
                   for n, p in state0["params"].items()}
-        loss = model.loss(leaves, batches[0], attn_impl=impl)
+        loss = model.loss(leaves, fed[0], attn_impl=impl)
         grads[impl] = torch.autograd.grad(loss, list(leaves.values()))
     err = 0.0
     for a, b, name in zip(grads["kernel"], grads["plain"], state0["params"]):
@@ -3537,55 +3602,103 @@ def phase_slice_tm(records: dict) -> dict:
     return launches
 
 
-def phase_slice_tv(records: dict) -> dict:
-    """Slice TV: internvl2-26b at full width cut to 2 of 48 layers (48
-    would hold 318 GB of train state).  4 steps of ``make_train_step``
-    (slice T's batch, optimizer and microbatches) on batches whose rows
-    carry 256 seeded vision embeddings through ``Model.loss``, the
-    gradients checked on one of them; then one ``TrainWindow`` of 4
-    steps on tokens (the pipeline has no vision rows, as JAX's has none),
-    under the sync-error mode, and one traced step."""
-    from repro_torch.configs import get_config
+def _train_with_extra(label: str, cfg, key: str, rows: int,
+                      records: dict, zero=None) -> dict:
+    """Slices TV's and TW's recipe on ``cfg`` (bf16, ``max_seq`` 2048,
+    weights from ``torch.Generator(seed=0)``, AdamW at ``_family_lr``):
+    every gradient present and finite on 2 rows carrying seeded bf16
+    ``key`` (4, ``rows``, d_model) from the same generator, and with
+    ``zero`` (see ``_grads_present``) the gradients it names 0 on 2 rows
+    of tokens alone; 4 steps of ``make_train_step`` (slice T's 4 x 2048
+    tokens in 2 microbatches) with ``key``: exact launches, finite
+    losses, the median step (its host sync included), tok/s and peak
+    memory.  Then ``_train_full_width``'s window of 4 on tokens (the
+    pipeline has no ``key``, as JAX's has none) and its traced step.  Last
+    the step times to compare: on the same per-step path, 3 steps on
+    tokens alone and 3 with ``key`` in turn, and an uncounted window of 4
+    on tokens.  Returns the counted steps' and window's launches."""
     from repro_torch.data import DataConfig, device_batch_at
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, warmup_cosine
-    from repro_torch.train.trainer import init_state, make_train_step
-    cfg = dataclasses.replace(get_config(MOE_ARCHS["V"]), num_layers=2)
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           make_train_window)
     t0 = time.perf_counter()
     model = build_model(cfg, max_seq=2048, device=DEVICE)
     opt = AdamW(lr=warmup_cosine(_family_lr(cfg), 10, 8))
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     state = init_state(model, opt, gen)
-    vision = torch.randn((4, cfg.vision_tokens, cfg.d_model), generator=gen,
-                         device=DEVICE).to(torch.bfloat16)
+    extra = torch.randn((4, rows, cfg.d_model), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
     dcfg = DataConfig(cfg.vocab_size, 2048, 4)
     first = {k: v[:2] for k, v in device_batch_at(dcfg, 0, DEVICE).items()}
-    _grads_present("slice TV", model, state["params"],
-                   dict(first, vision_embeds=vision[:2]))
+    _grads_present(label, model, state["params"], dict(first,
+                                                       **{key: extra[:2]}))
+    if zero is not None:
+        _grads_present(label, model, state["params"], first, zero)
     torch.cuda.empty_cache()
     step = make_train_step(model, opt, microbatches=2)
-    from repro_torch.kernels import ops
+    tokens = 4 * 2048
+
+    def timed_step(with_extra: bool):
+        """One step (the state updates in place): (loss, seconds)."""
+        t1 = time.perf_counter()
+        batch = device_batch_at(dcfg, state["step"])
+        if with_extra:
+            batch[key] = extra
+        loss = float(step(state, batch)[1]["loss"])  # the step's host sync
+        return loss, time.perf_counter() - t1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    losses = []
-    for _ in range(4):
-        batch = dict(device_batch_at(dcfg, state["step"]),
-                     vision_embeds=vision)
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
+    losses, walls = zip(*(timed_step(True) for _ in range(4)))
     launched = _launched()
-    want = _train_launches(cfg, 2, 4)
+    want = _train_launches(cfg, 2, 4, frames=key == "frames")
     check(launched == want and all(np.isfinite(losses)),
-          f"slice TV: vision steps: launches {launched} (want {want}), "
+          f"{label}: steps with {key}: launches {launched} (want {want}), "
           f"losses {losses}")
-    print(f"slice TV: 4 steps with 256 vision embeddings a row: losses "
-          f"{[round(x, 4) for x in losses]}, launches {launched}, "
+    ms = statistics.median(walls) * 1e3
+    print(f"{label}: 4 steps with {key} (4, {rows}, {cfg.d_model}): losses "
+          f"{[round(x, 4) for x in losses]}, launches {launched}; median "
+          f"step {ms:.1f} ms, {tokens / ms * 1e3:.0f} tok/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"{time.perf_counter() - t0:.1f} s")
-    more = _train_full_width("slice TV", cfg, records, steps_done=4,
+    more = _train_full_width(label, cfg, records, steps_done=4,
                              state=state, model=model, first_loss=losses[0],
                              peak_lr=_family_lr(cfg))
+    pair = {False: [], True: []}
+    for _ in range(3):
+        for with_extra in (False, True):
+            loss, wall = timed_step(with_extra)
+            check(np.isfinite(loss), f"{label}: timed step loss {loss}")
+            pair[with_extra].append(wall)
+    tok_ms, ext_ms = (statistics.median(pair[b]) * 1e3 for b in (False, True))
+    win = make_train_window(model, opt, steps_per_sync=4, data_cfg=dcfg,
+                            microbatches=2, record_traffic=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    win_losses = win(state)[1]["loss"].tolist()
+    win_ms = (time.perf_counter() - t1) / 4 * 1e3
+    check(all(np.isfinite(win_losses)),
+          f"{label}: uncounted window's losses {win_losses}")
+    print(f"{label}: make_train_step, median of 3 each in turn: tokens "
+          f"alone {tok_ms:.1f} ms, with {key} {ext_ms:.1f} ms "
+          f"({ext_ms / tok_ms:.3f}x); an uncounted window of 4 on tokens "
+          f"alone: {win_ms:.1f} ms/step, {tokens / win_ms * 1e3:.0f} tok/s")
     return {k: launched.get(k, 0) + more.get(k, 0)
             for k in set(launched) | set(more)}
+
+
+def phase_slice_tv(records: dict) -> dict:
+    """Slice TV: internvl2-26b at full width cut to 2 of 48 layers (48
+    would hold 318 GB of train state), through ``_train_with_extra`` with
+    256 seeded vision embeddings a row."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCHS["V"]), num_layers=2)
+    return _train_with_extra("slice TV", cfg, "vision_embeds",
+                             cfg.vision_tokens, records)
 
 
 def phase_slice_ur(tmp: Path) -> None:
@@ -3994,16 +4107,18 @@ def phase_moe_alone(flush) -> list:
 # ---------------------------------------------------------------- phase 5i
 
 
-WHISPER = "whisper-tiny"
-W_LEN = 1536          # slice W's max_len and encoder frames (8 slots)
 
 
 def _encdec_kernels(flush) -> dict:
-    """The three kernels of whisper's serve path at its shapes against
-    their plain versions, f32 and bf16, before any engine runs them: the
-    flash kernel non-causal at the encoder's (8, 6, 1536, 1536, 64) and
-    the decode tick's cross-attention (8, 6, 1, 1536, 64), MHA (G = 1) in
-    the model's strided layout; the fused decode kernel at (8, 6, 6, 64)
+    """The three kernels of whisper's serve and train paths at their
+    shapes against their plain versions, f32 and bf16, before any engine
+    or trainer runs them: the flash kernel, MHA (G = 1) in the model's
+    strided layout, non-causal at the serve encoder's (8, 6, 1536, 1536,
+    64) and the decode tick's cross-attention (8, 6, 1, 1536, 64), and at
+    slice TW's microbatch: the encoder's non-causal (2, 6, 1500, 1500,
+    64), the decoder's causal (2, 6, 2048, 2048, 64) and the
+    cross-attention's non-causal (2, 6, 2048, 1500, 64); the fused decode
+    kernel at (8, 6, 6, 64)
     over a 1536-row cache at ragged positions (write-back bitwise); the
     sampler at (8, 51865) with a greedy tie across blocks.  Each timed in
     bf16 beside its plain version, its library call (SDPA; torch.argmax
@@ -4018,20 +4133,26 @@ def _encdec_kernels(flush) -> dict:
     B, H, hd = 8, 6, 64
     timed = {"flash_attention": {}, "decode_attention": {},
              "fused_sample": {}}
-    for tag, Sq in (("whisper_encoder", W_LEN), ("whisper_cross", 1)):
+    for tag, Bf, Sq, Skv, causal in (
+            ("whisper_encoder", B, W_LEN, W_LEN, False),
+            ("whisper_cross", B, 1, W_LEN, False),
+            ("whisper_train_encoder", 2, TW_FRAMES, TW_FRAMES, False),
+            ("whisper_train_decoder", 2, 2048, 2048, True),
+            ("whisper_train_cross", 2, 2048, TW_FRAMES, False)):
+        mask = "causal" if causal else "non-causal"
         for dtype in (torch.float32, torch.bfloat16):
             def r(s):               # (B, S, H, hd) behind the view
-                return torch.randn(B, s, H, hd, generator=gen,
+                return torch.randn(Bf, s, H, hd, generator=gen,
                                    device=DEVICE).to(dtype).transpose(1, 2)
 
-            q, k, v = r(Sq), r(W_LEN), r(W_LEN)
+            q, k, v = r(Sq), r(Skv), r(Skv)
             want32, want_lse = fa.flash_attention_plain(
-                q.float(), k.float(), v.float(), causal=False)
-            got, lse = ops.flash_attention(q, k, v, causal=False,
+                q.float(), k.float(), v.float(), causal=causal)
+            got, lse = ops.flash_attention(q, k, v, causal=causal,
                                            return_lse=True)
             torch.cuda.synchronize()
-            name = (f"flash_attention {tag} {dtype} B={B} H={H} K={H} "
-                    f"Sq={Sq} Skv={W_LEN} hd={hd} non-causal")
+            name = (f"flash_attention {tag} {dtype} B={Bf} H={H} K={H} "
+                    f"Sq={Sq} Skv={Skv} hd={hd} {mask}")
             check(got.stride() == q.stride(), f"{name}: output strides")
             err = _close(got, want32.to(dtype), dtype, what=name)
             e_lse = _close(lse, want_lse, tol=1e-5, what=name + " lse")
@@ -4044,22 +4165,22 @@ def _encdec_kernels(flush) -> dict:
                 msg += f", row rel {row:.3g} (bf16 rounding {floor:.3g})"
             print(msg + " vs plain")
         del want32, want_lse, got, lse
-        ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=False),
+        ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                        flush=flush)
         plain_ms = median_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=False), runs=5, flush=flush)
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                           flush=flush)
-        bound, by, flops = _flash_bound(B, H, H, Sq, W_LEN, hd, 2, False, 0)
-        print(f"flash_attention {tag} bf16 (B={B} H={H} Sq={Sq} "
-              f"Skv={W_LEN} hd={hd} non-causal): kernel {ms:.4f} ms "
+            q, k, v, causal=causal), runs=5, flush=flush)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), flush=flush)
+        bound, by, flops = _flash_bound(Bf, H, H, Sq, Skv, hd, 2, causal, 0)
+        print(f"flash_attention {tag} bf16 (B={Bf} H={H} Sq={Sq} "
+              f"Skv={Skv} hd={hd} {mask}): kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s of the {flops / 1e9:.3f} "
               f"GFLOP), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({by})")
         timed["flash_attention"][tag] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-            "shape": [B, H, H, Sq, W_LEN, hd]}
+            "shape": [Bf, H, H, Sq, Skv, hd], "causal": causal}
     shape = dict(B=B, H=H, K=H, hd=hd, L=W_LEN)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, nk, nv, pos = _decode_inputs(gen, dtype, **shape)
@@ -4352,10 +4473,70 @@ def _launch_whisper() -> None:
           f"{time.perf_counter() - t0:.1f} s, launches {launches}")
 
 
+def _unreached_by_tokens(name: str) -> bool:
+    """whisper's parameters a batch without frames does not reach: the
+    encoder's, each decoder layer's cross-attention and its norm."""
+    return (name.startswith("enc_") or "/xattn/" in name
+            or "/lnx/" in name)
+
+
+def phase_slice_tw(records: dict) -> dict:
+    """Slice TW: whisper-tiny at full width and depth (4 + 4 layers,
+    d_model 384, 6 heads of 64, d_ff 1536, vocab 51865) through
+    ``_train_with_extra`` with seeded frames (4, 1500, 384), whisper's
+    published encoder length beside 2048 tokens: the flash kernel at the
+    encoder's non-causal (Sq = Skv = 1500), the decoder's causal and the
+    cross-attention's (Sq 2048 over Skv 1500) geometry, forward and remat
+    recompute, 2 x (4 + 2 x 4) = 24 launches a microbatch; on tokens alone
+    the gradients ``_unreached_by_tokens`` names are 0."""
+    from repro_torch.configs import get_config
+    return _train_with_extra("slice TW", get_config(WHISPER), "frames",
+                             TW_FRAMES, records, zero=_unreached_by_tokens)
+
+
+def _launch_train_whisper(tmp: Path) -> None:
+    """``launch.train --arch whisper-tiny --steps 8 --steps-per-sync 4
+    --lr 1e-4 --verdicts`` (full width and depth, tokens alone) with the
+    launch counts reset before and read after: 2 flash launches a decoder
+    layer and step, finite losses, the train verdict line."""
+    import io
+    import re
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    cfg = get_config(WHISPER)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", WHISPER, "--steps", "8",
+                                "--steps-per-sync", "4", "--lr", "1e-4",
+                                "--verdicts", "--ckpt-dir",
+                                str(tmp / "whisper_ckpt")])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches.items() if v}
+    out = out.getvalue()
+    print(out, end="")
+    check(rc == 0 and "done @8" in out,
+          f"launch.train --arch {WHISPER}: rc {rc}, no 'done @8'")
+    want = _train_launches(cfg, 1, 8)
+    check(launches == want, f"launch.train --arch {WHISPER}: launches "
+          f"{launches}, want {want}")
+    means = [float(x) for x in re.findall(r"window mean (\S+)\)", out)]
+    check(len(means) == 2 and all(np.isfinite(means)),
+          f"launch.train --arch {WHISPER}: window means {means}")
+    check("train_window_b8_s128_k4: energy vs SRAM" in out,
+          f"launch.train --arch {WHISPER}: no train verdict line")
+    print(f"launchers: launch.train --arch {WHISPER} in "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+
+
 def phase_encdec(flush, records: dict):
     """Phase 5i: whisper's three kernels at its shapes, then slices W, SW,
-    WP and the launcher.  Returns (launches by slice, the kernels'
-    timings at whisper's shapes)."""
+    WP, the serve launcher, slice TW, slice UW (slice U's parity contracts
+    for whisper, the frames batch 200 frames a row beside 256 tokens) and
+    the train launcher.  Returns (launches by slice, the kernels' timings
+    at whisper's shapes)."""
     t_phase = time.perf_counter()
     timed = _encdec_kernels(flush)
     launches = {}
@@ -4366,15 +4547,27 @@ def phase_encdec(flush, records: dict):
     launches["WP"] = phase_slice_wp()
     _launch_whisper()
     torch.cuda.empty_cache()
+    t_tw = time.perf_counter()
+    launches["TW"] = phase_slice_tw(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice_u(Path(tmp), WHISPER, "slice UW", frames=200)
+        torch.cuda.empty_cache()
+        _launch_train_whisper(Path(tmp))
+    torch.cuda.empty_cache()
+    print(f"slices TW, UW and the whisper train launcher: "
+          f"{time.perf_counter() - t_tw:.1f} s")
     print(f"phase 5i (encdec): {time.perf_counter() - t_phase:.1f} s")
     return launches, timed
 
 
 def phase_encdec_alone(flush) -> list:
-    """Phase 5i alone (``--only encdec``), with slice W's verdicts."""
+    """Phase 5i alone (``--only encdec``), with slice W's and TW's
+    verdicts."""
     records = {}
     launches, _ = phase_encdec(flush, records)
-    phase_verdicts(records, labels=("slice W",))
+    phase_verdicts(records, labels=("slice W", "slice TW"))
     print(f"encdec launches {json.dumps(launches)}")
     return []
 
@@ -4763,7 +4956,8 @@ def phase_verdicts(records: dict, labels=("slice A", "slice D", "slice F",
                                           "slice G", "slice T", "slice M",
                                           "slice M paged", "slice N",
                                           "slice TS", "slice TG",
-                                          "slice TM", "slice W")) -> None:
+                                          "slice TM", "slice W",
+                                          "slice TW")) -> None:
     """The NVM verdicts of the full-width slices' own traffic (``labels``
     of ``records``): each engine's and the train window's records (counted from the first
     decode window and the first prefill of each padded length, or the

@@ -13,7 +13,9 @@ loop (host pipeline batches, one host sync per step).
 Runs on the CUDA device unless ``--device cpu`` is given.  The reduced
 config (4 layers, d_model 128, d_ff 256; for the ssm family also
 ssm_head_dim 64, as ``launch/train.py``) unless ``--full``; weights drawn
-from a ``torch.Generator`` seeded with 0.
+from a ``torch.Generator`` seeded with 0.  Every ``--arch`` trains on the
+token stream alone, as the JAX example does (whisper-tiny's decoder then
+has no cross-attention).
 """
 import argparse
 import time
@@ -25,7 +27,6 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.api import check_trainable
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import StragglerMonitor
@@ -54,7 +55,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    check_trainable(cfg, "examples.train_lm")
     if not args.full:
         ssm = {"ssm_head_dim": 64} if cfg.family == "ssm" else {}
         cfg = reduced(cfg, num_layers=4, d_model=128, d_ff=256, **ssm)

@@ -4,17 +4,20 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --reduced --steps 8 --steps-per-sync 4
 
-``--arch`` takes every family the port trains: dense, moe (granite,
-moonshot), vlm (internvl2, trained on tokens alone, as the JAX launcher
-trains it), ssm (mamba2) and hybrid (recurrentgemma); encdec
-(whisper-tiny, which the port serves but does not train yet) raises
-``UnsupportedFamilyError`` naming it before any weight is made.  ``--reduced`` is the JAX launcher's smoke config (4
-layers, d_model 128, d_ff 256, head_dim 16; for the ssm family also
+``--arch`` takes every family: dense, moe (granite, moonshot), vlm
+(internvl2) and encdec (whisper-tiny), each trained on tokens alone, as
+the JAX launcher trains them (whisper's decoder then has no
+cross-attention), ssm (mamba2) and hybrid (recurrentgemma).  ``--reduced``
+is the JAX launcher's smoke config (4 layers, d_model 128, d_ff 256,
+head_dim 16; whisper's stacks 2 + 2 layers; for the ssm family also
 ssm_head_dim 64, so that the inner width 256 is 4 heads x 64, where the
 JAX launcher's would stop on it).  Without it the full config is built:
 ``--layers N`` cuts its depth (llama3-8b's 32 layers, 8 B parameters at
-16 bytes of train state each, do not fit one 80 GB card; mamba2-1.3b and
-recurrentgemma-2b fit at full depth).
+16 bytes of train state each, do not fit one 80 GB card; mamba2-1.3b,
+recurrentgemma-2b and whisper-tiny fit at full depth).  whisper's stacks
+are ``enc_layers`` and ``dec_layers``, which ``--layers`` does not set:
+it raises ``ValueError`` for the encdec family before any weight is
+made.
 Runs on the CUDA device unless ``--device cpu`` is given (it never falls
 back to the CPU).  Weights are random, drawn from a ``torch.Generator``
 seeded with 0; the data are the counter-hash token stream (seed 0).  It
@@ -56,7 +59,6 @@ from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.api import check_trainable
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import StragglerMonitor
@@ -104,7 +106,11 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    check_trainable(cfg, "launch.train")
+    if args.layers is not None and cfg.family == "encdec":
+        raise ValueError(
+            f"--layers sets num_layers, which the encdec family's stacks "
+            f"(enc_layers {cfg.enc_layers}, dec_layers {cfg.dec_layers}) "
+            f"do not read; {cfg.arch} trains at full depth")
     if args.reduced:
         ssm = {"ssm_head_dim": 64} if cfg.family == "ssm" else {}
         cfg = reduce_cfg(cfg, num_layers=4, d_model=128, d_ff=256, **ssm)

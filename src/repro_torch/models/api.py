@@ -3,9 +3,10 @@ init/loss/prefill/decode_step, the ``StateBank`` contract, and serve
 capability metadata (torch counterpart of ``repro/models/api.py``).
 
 The dense decoder, moe (granite, moonshot), vlm (internvl2), ssm
-(mamba2) and hybrid (recurrentgemma) families are ported for serving and
-training (``mode="train"``, ``loss``); the encdec family (whisper) for
-serving (``check_trainable`` refuses it); ``build_model`` raises
+(mamba2), hybrid (recurrentgemma) and encdec (whisper) families are
+ported for serving and training (``mode="train"``, ``loss``; an encdec
+batch may carry ``frames``, and without them its decoder trains with no
+cross-attention, as JAX's); ``build_model`` raises
 ``UnsupportedFamilyError`` for any other family.  ``input_specs`` /
 ``make_inputs`` give each shape cell's operands (the vlm family's
 ``vision_embeds``, the encdec family's ``frames`` and ``enc_out`` too).
@@ -105,22 +106,12 @@ _FAMILY_SERVE_MODES: Dict[str, frozenset] = {
 # the families that no page table serves, and the state that keeps them out
 _UNPAGED_STATE = {"ssm": "recurrent state", "hybrid": "recurrent state",
                   "encdec": "an encoder-output bank"}
-_TRAIN_FAMILIES = frozenset(_FAMILY_SERVE_MODES) - {"encdec"}
 
 
 def serve_families(mode: str):
     """Families servable under engine ``mode`` ("dense" | "paged")."""
     return tuple(sorted(f for f, m in _FAMILY_SERVE_MODES.items()
                         if mode in m))
-
-
-def check_trainable(cfg: ModelConfig, component: str) -> None:
-    """Raise ``UnsupportedFamilyError`` unless the port trains ``cfg``'s
-    family."""
-    if cfg.family not in _TRAIN_FAMILIES:
-        raise UnsupportedFamilyError(
-            cfg.family, _TRAIN_FAMILIES, component,
-            detail="training of the encdec family is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,14 +155,13 @@ class Model:
                 kv_write_mask: Optional[torch.Tensor] = None,
                 logits_at: Optional[torch.Tensor] = None):
         """Dispatch per family: the encoder-decoder (``batch["frames"]``
-        or ``batch["enc_out"]`` reach it), the hybrid stack, or the decoder
+        or ``batch["enc_out"]`` reach it, in every mode), the hybrid
+        stack, or the decoder
         (dense, moe, vlm and ssm; ``batch["vision_embeds"]`` reaches the
         vlm embedding).  Returns (logits, cache, aux): ``mode="train"``
         gives (B, S, V) f32 logits under autograd and no cache; ``aux`` is
         the MoE load-balancing loss in train mode, else None."""
         cfg = self.cfg
-        if mode == "train":
-            check_trainable(cfg, "repro_torch training")
         if cfg.family in _UNPAGED_STATE and page_table is not None:
             raise ValueError("paged KV serving requires a dense decoder "
                              f"({cfg.family} has "
@@ -199,7 +189,10 @@ class Model:
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (both (B, S) int), plus the MoE aux loss (moe
         family), differentiable, as ``repro.models.api.Model.loss``.  A vlm
-        batch may carry ``vision_embeds`` (B, Nv, D).
+        batch may carry ``vision_embeds`` (B, Nv, D), an encdec batch
+        ``frames`` (B, Se, D) (the encoder runs under autograd; without
+        them the decoder has no cross-attention, and the ``xattn/*`` and
+        ``lnx/*`` weights get no gradient).
         ``attn_impl="kernel"`` attends through the flash kernel and scans
         through the SSD and RG-LRU kernels under autograd (their plain
         versions on CPU tensors), ``"plain"`` through naive attention and

@@ -1,13 +1,12 @@
 """Model assembly (torch counterpart of ``repro/models/transformer.py``):
 the decoder LMs (dense, moe, vlm, ssm, hybrid) and the whisper-style
-encoder-decoder (encdec, serve modes only: its train mode comes with its
-training).
+encoder-decoder (encdec).
 
 Modes:
   train   — full-sequence forward under autograd (every family), each
-            layer under ``torch.utils.checkpoint`` when ``cfg.remat`` asks
-            for rematerialisation; returns logits (and the MoE aux loss)
-            and no cache
+            layer (the encoder's too) under ``torch.utils.checkpoint``
+            when ``cfg.remat`` asks for rematerialisation; returns logits
+            (and the MoE aux loss) and no cache
   prefill — full-sequence forward, returns the per-layer KV cache (dense)
             or the recurrent state and ring caches (ssm, hybrid)
   decode  — one token per row against an existing cache, at per-row
@@ -639,20 +638,36 @@ def _encdec_layer(cfg: ModelConfig, p: Params, x, *, causal: bool,
                                  layer_norm(x, p["ln2/g"], p["ln2/b"])), kv
 
 
+def _encdec_train_layer(cfg: ModelConfig, p: Params, x, enc_out,
+                        causal: bool, impl: str):
+    """``_encdec_layer`` in train mode: no cache, no K/V out; ``enc_out``
+    is an argument, so that under ``_remat`` its gradient flows back to
+    the encoder."""
+    return _encdec_layer(cfg, p, x, causal=causal, impl=impl,
+                         enc_out=enc_out)[0]
+
+
 def encoder_forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
-                    attn_impl: str = "kernel") -> torch.Tensor:
+                    attn_impl: str = "kernel",
+                    train: bool = False) -> torch.Tensor:
     """The whisper encoder over frames (B, Se, D) (the conv frontend is a
     stub: the frames are given), with sinusoidal positions and
     bidirectional self-attention by ``attn_impl`` (``ATTN_IMPLS``: "kernel"
     the flash kernel, non-causal, as JAX's "chunked" default); returns the
-    final-LayerNormed (B, Se, D) output in the model dtype."""
+    final-LayerNormed (B, Se, D) output in the model dtype.  With
+    ``train`` each layer runs under ``_remat``, as JAX's under
+    ``_maybe_remat(..., "train")``."""
     B, Se, D = frames.shape
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt) + sinusoidal_positions(Se, D, frames.device).to(
         dt)[None]
     for i in range(cfg.enc_layers):
-        x, _ = _encdec_layer(cfg, subtree(params, f"enc_{i}"), x,
-                             causal=False, impl=attn_impl)
+        lp = subtree(params, f"enc_{i}")
+        if train:
+            x = _remat(cfg, _encdec_train_layer, cfg, lp, x, None, False,
+                       attn_impl)
+        else:
+            x, _ = _encdec_layer(cfg, lp, x, causal=False, impl=attn_impl)
     return layer_norm(x, params["enc_ln/g"], params["enc_ln/b"])
 
 
@@ -663,7 +678,7 @@ def encdec_forward(
     *,
     frames: Optional[torch.Tensor] = None,    # (B, Se, D)
     enc_out: Optional[torch.Tensor] = None,   # (B, Se, D)
-    mode: str = "prefill",                # prefill | decode
+    mode: str = "prefill",                # train | prefill | decode
     cache: Optional[Params] = None,       # dec_{i}/k|v, enc/out
     cache_pos=None,                       # decode: (B,) int32 or scalar
     attn_impl: str = "plain",
@@ -677,6 +692,14 @@ def encdec_forward(
     ``enc/out`` bank: in the serve tick each slot decodes against its own
     encoder output.  Its K/V are projected from the source on every call.
 
+    Train: as prefill under autograd, with no cache in or out: learned
+    positions ``pos/dec[:S]``, causal self-attention, the cross-attention
+    over the source, each layer (the encoder's too, when it runs on
+    ``frames``) under ``_remat`` with the source passed in; (B, S, V)
+    logits.  With no source the layers have no cross-attention, as JAX's
+    ``_encdec_layer`` skips it for ``enc_out=None``: the JAX launcher
+    trains whisper on tokens alone.
+
     Prefill: learned positions ``pos/dec[:S]``, causal self-attention and
     non-causal cross-attention by ``attn_impl`` (``ATTN_IMPLS``); returns
     (B, S, V) logits, or (B, 1, V) at ``logits_at[b]``, and the fresh
@@ -685,20 +708,21 @@ def encdec_forward(
     writes its K/V at its own position, ``attn_impl`` in ``DECODE_IMPLS``)
     or at one scalar position (the dry-run convention, read once a step);
     the cache is updated in place and returned, ``enc/out`` unchanged.
-    The cross-attention takes ``attn_impl`` in both modes ("kernel": the
-    flash kernel, non-causal, Sq 1 in decode).  The final LayerNorm, then
-    the unembedding through the tied embedding in the model dtype, then
-    the f32 cast, as JAX's."""
+    The cross-attention takes ``attn_impl`` in every mode ("kernel": the
+    flash kernel, non-causal, Sq 1 in decode); the logits come from
+    ``_encdec_unembed``."""
+    train = mode == "train"
     if enc_out is None and frames is not None:
-        enc_out = encoder_forward(cfg, params, frames, attn_impl)
+        enc_out = encoder_forward(cfg, params, frames, attn_impl,
+                                  train=train)
     if enc_out is None and cache is not None and "enc/out" in cache:
         enc_out = cache["enc/out"]
-    if enc_out is None:
+    if enc_out is None and not train:
         raise ValueError("encdec needs frames, enc_out or a cache holding "
                          "enc/out")
     S = tokens.shape[1]
     pos_dec = params["pos/dec"]
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         pos_emb = pos_dec[:S][None]
     elif mode == "decode":
         _check_decode(mode, cache, cache_pos, S)
@@ -708,9 +732,15 @@ def encdec_forward(
             cache_pos = int(cache_pos)          # one host read a step
             pos_emb = pos_dec[cache_pos:cache_pos + 1][None]
     else:
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode'): "
-                         f"the encdec family does not train yet")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
+                         f"'decode')")
     x = params["emb/tok"][tokens].to(torch_dtype(cfg.dtype)) + pos_emb
+    if train:
+        for i in range(cfg.dec_layers):
+            x = _remat(cfg, _encdec_train_layer, cfg,
+                       subtree(params, f"dec_{i}"), x, enc_out, True,
+                       attn_impl)
+        return _encdec_unembed(cfg, params, x), None
     fresh: Params = {}
     for i in range(cfg.dec_layers):
         c_i = (None if mode == "prefill" else
@@ -721,10 +751,16 @@ def encdec_forward(
             return_kv=mode == "prefill")
         if mode == "prefill":
             fresh[f"dec_{i}/k"], fresh[f"dec_{i}/v"] = kv["k"], kv["v"]
-    x = layer_norm(_pick(x, logits_at), params["final_ln/g"],
-                   params["final_ln/b"])
+    return (_encdec_unembed(cfg, params, _pick(x, logits_at)),
+            fresh if mode == "prefill" else cache)
+
+
+def _encdec_unembed(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
+    """The final LayerNorm, then the unembedding (through the tied
+    embedding) in the model dtype, then the f32 cast, as JAX's."""
+    x = layer_norm(x, params["final_ln/g"], params["final_ln/b"])
     if cfg.tie_embeddings:
         logits = x @ params["emb/tok"].T
     else:
         logits = x @ params["emb/out"]
-    return logits.float(), (fresh if mode == "prefill" else cache)
+    return logits.float()

@@ -120,9 +120,14 @@ def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
     names = sorted(model.param_defs)
 
     def value_and_grad(params: Params, batch):
+        """A parameter the loss does not reach (whisper's cross-attention
+        on a batch without frames) gets a zero gradient, as under
+        ``jax.grad``: AdamW then decays it, as JAX's does."""
         leaves = {n: params[n].detach().requires_grad_() for n in names}
         loss = model.loss(leaves, batch, attn_impl=attn_impl)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                    allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), dict(zip(names, grads))
 
     def local_grads(params: Params, batch):

@@ -844,16 +844,21 @@ def test_train_records_match_jax(walker_texts):
 
 @pytest.mark.parametrize("arch,kernel", [("mamba2-1.3b", "ssd_scan"),
                                          ("granite-moe-3b-a800m",
+                                          "flash_attention"),
+                                         ("whisper-tiny",
                                           "flash_attention")])
 def test_train_records_of_the_ssm_and_moe_families_match_jax(
         arch, kernel, walker_texts):
     """The train window's record on reduced mamba2 (the SSD scan under
-    autograd: kernel forward, plain backward) and granite (the
-    router's dispatch and its backward) against the JAX window's, remat
-    full: flops within 5%, bytes in their band, one kernel call per layer
-    and step for the forward and one for the recompute, and the verdicts
-    within 1e-4 of JAX's ``analyze_train`` (``TRAIN_READ_FRACTION`` for
-    every family, as there)."""
+    autograd: kernel forward, plain backward), granite (the router's
+    dispatch and its backward) and whisper (on tokens alone, as both
+    windows train it: the decoder with no cross-attention, and zero
+    gradients for the weights it does not reach) against the JAX
+    window's, remat full: flops within 5%, bytes in their band, one
+    kernel call per (decoder) layer and step for the forward and one for
+    the recompute, and the verdicts within 1e-4 of JAX's
+    ``analyze_train`` (``TRAIN_READ_FRACTION`` for every family, as
+    there)."""
     over = dict(dtype="float32", remat="full")
     jcfg = jreduced(jget_config(arch), **over)
     jmodel = jbuild_model(jcfg, max_seq=SEQ)
@@ -870,12 +875,17 @@ def test_train_records_of_the_ssm_and_moe_families_match_jax(
     win(init_state(model, opt, torch.Generator().manual_seed(0)))
     (rec,), (j,) = win.train_records(), jwin.train_records()
     assert rec["shape"] == j["shape"] and rec["steps"] == 2
-    assert win._traffic.kernel_calls == {kernel: 2 * cfg.num_layers * 2}
+    # whisper on tokens alone trains a dense decoder stack (LayerNorm,
+    # learned positions, no cross-attention): the dense band holds it
+    family, layers = cfg.family, cfg.num_layers
+    if family == "encdec":
+        family, layers = "dense", cfg.dec_layers
+    assert win._traffic.kernel_calls == {kernel: 2 * layers * 2}
     r, jr = rec["roofline"], j["roofline"]
     assert r["flops_per_device"] == pytest.approx(jr["flops_per_device"],
                                                   rel=0.05)
     moves = _walker_moves(walker_texts[id(jwin._traffic)]) / 2
-    lo, hi = BYTE_BANDS[(cfg.family, "train")]
+    lo, hi = BYTE_BANDS[(family, "train")]
     assert lo <= _byte_ratio(j["shape"], r["bytes_per_device"],
                              jr["bytes_per_device"], moves) <= hi
     assert r["memory_s"] > r["compute_s"] and jr["memory_s"] > jr["compute_s"]

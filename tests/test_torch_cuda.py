@@ -920,27 +920,32 @@ def test_scalar_decode_and_kernel_prefill_on_the_card(dev):
             run_staggered(ref, staggered_groups(reqs(), 3))
 
 
-@pytest.mark.parametrize("B,S,H,K,hd,window,cap", [
-    (2, 512, 8, 2, 128, 0, 0.0),
-    (2, 300, 4, 2, 16, 64, 30.0),
-    (1, 400, 6, 2, 96, 0, 50.0),
+@pytest.mark.parametrize("B,S,H,K,hd,window,cap,causal,Skv", [
+    (2, 512, 8, 2, 128, 0, 0.0, True, None),
+    (2, 300, 4, 2, 16, 64, 30.0, True, None),
+    (1, 400, 6, 2, 96, 0, 50.0, True, None),
+    (2, 1500, 6, 6, 64, 0, 0.0, False, None),   # whisper's encoder
+    (2, 448, 6, 6, 64, 0, 0.0, False, 1500),    # its cross-attention
 ])
 def test_flash_attention_bf16_gradients_match_plain_autograd(
-        dev, B, S, H, K, hd, window, cap):
+        dev, B, S, H, K, hd, window, cap, causal, Skv):
     """``FlashAttention`` in bf16 (the kernel's o and lse forward, the plain
     backward recomputing p = exp(s - lse)) against f32 autograd of the
     plain version: dq, dk, dv within ``FLASH_BF16_GRAD_REL`` in relative
-    Frobenius norm, so a wrong bf16 lse shows in the gradients."""
+    Frobenius norm, so a wrong bf16 lse shows in the gradients; causal,
+    and non-causal at whisper's encoder shape and at its cross-attention's
+    (S queries over ``Skv`` keys of another source)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import chunked_attention
     g = torch.Generator(device=dev).manual_seed(4)
-    q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev).to(
-        torch.bfloat16) for n in (H, K, K, H))
+    Skv = S if Skv is None else Skv
+    q, k, v, do = (torch.randn(B, s, n, hd, generator=g, device=dev).to(
+        torch.bfloat16) for s, n in ((S, H), (Skv, K), (Skv, K), (S, H)))
 
     def plain(q, k, v):
         return fa.flash_attention_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            window=window, logit_cap=cap)[0].transpose(1, 2)
+            causal=causal, window=window, logit_cap=cap)[0].transpose(1, 2)
 
     def grads(f, dtype):
         leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
@@ -950,8 +955,8 @@ def test_flash_attention_bf16_gradients_match_plain_autograd(
     want = grads(plain, torch.float32)
     before = ops.launches["flash_attention"]
     got = grads(lambda q, k, v: chunked_attention(
-        q, k, v, window=window, logit_cap=cap, kv_block=128),
-        torch.bfloat16)
+        q, k, v, causal=causal, window=window, logit_cap=cap,
+        kv_block=128), torch.bfloat16)
     assert ops.launches["flash_attention"] == before + 1
     for x, w in zip(got, want):
         assert x.dtype == torch.bfloat16 and bool(torch.isfinite(x).all())
@@ -1090,14 +1095,18 @@ def test_rglru_gated_scan_autograd_matches_plain_autograd(dev, dtype, B, S,
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
                                   "granite-moe-3b-a800m",
-                                  "moonshot-v1-16b-a3b", "internvl2-26b"])
+                                  "moonshot-v1-16b-a3b", "internvl2-26b",
+                                  "whisper-tiny"])
 def test_train_step_of_every_family_on_the_kernels(dev, arch):
     """One reduced train step (f32, remat full) of each family through its
     kernels: every parameter's gradient present and finite, the loss
     within rel 1e-4 of the plain path's (naive attention, plain scans),
     and the kernel launches the step implies: per layer a forward and a
     remat recompute (``ssd_scan``, flash), and for an R layer also the
-    RG-LRU backward's two ungated launches."""
+    RG-LRU backward's two ungated launches; whisper's batch carries 192
+    frames a row beside its 256 tokens (per encoder layer the non-causal
+    flash call, per decoder layer the causal one and the cross-attention
+    at Sq 256, Skv 192)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import DataConfig, device_batch_at
     from repro_torch.models import build_model
@@ -1109,6 +1118,10 @@ def test_train_step_of_every_family_on_the_kernels(dev, arch):
     if cfg.family == "vlm":
         batch["vision_embeds"] = torch.randn(
             (4, cfg.vision_tokens, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (4, 192, cfg.d_model), device=dev,
             generator=torch.Generator(device=dev).manual_seed(1))
     losses = {}
     for impl in ("plain", "kernel"):
@@ -1126,6 +1139,9 @@ def test_train_step_of_every_family_on_the_kernels(dev, arch):
     elif cfg.family == "hybrid":
         n_rec = hybrid_pattern(cfg).count("R")
         want = {"rglru_scan": 4 * n_rec, "flash_attention": 2 * (L - n_rec)}
+    elif cfg.family == "encdec":
+        want = {"flash_attention": 2 * (cfg.enc_layers
+                                        + 2 * cfg.dec_layers)}
     else:
         want = {"flash_attention": 2 * L}
     assert {k: v for k, v in ops.launches.items() if v} == want
@@ -1134,13 +1150,13 @@ def test_train_step_of_every_family_on_the_kernels(dev, arch):
 
 
 # The train launcher on the card, one family a case: full width at the
-# depth given (mamba2-1.3b at its full 48 layers; the others cut so that
-# the state and its closing checkpoint stay small), peak lr 1e-4 x min(1,
+# depth given (mamba2-1.3b and whisper-tiny at full depth; the others cut
+# so that the state and its closing checkpoint stay small), peak lr 1e-4 x min(1,
 # 2048 / d_model) as the smoke's full-width train slices run (mamba2
 # diverges at the launcher's default 1e-3, PERF.md)
 LAUNCHED_FAMILIES = [("mamba2-1.3b", None), ("recurrentgemma-2b", 3),
                      ("granite-moe-3b-a800m", 4), ("moonshot-v1-16b-a3b", 1),
-                     ("internvl2-26b", 1)]
+                     ("internvl2-26b", 1), ("whisper-tiny", None)]
 
 
 @pytest.mark.parametrize("arch,layers", LAUNCHED_FAMILIES)
@@ -1188,6 +1204,8 @@ def test_launcher_trains_every_family_on_the_card(dev, arch, layers,
         rec = hybrid_pattern(cfg).count("R")
         want = {"rglru_scan": (per + 2) * rec * n,
                 "flash_attention": per * (L - rec) * n}
+    elif cfg.family == "encdec":     # tokens alone: the decoder's calls
+        want = {"flash_attention": per * cfg.dec_layers * n}
     else:
         want = {"flash_attention": per * L * n}
     assert {k: v for k, v in ops.launches.items() if v} == want

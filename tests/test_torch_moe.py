@@ -49,7 +49,7 @@ from repro_torch.launch import graph_analysis as ga
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model, moe
 from repro_torch.models import transformer as tf
-from repro_torch.models.api import check_trainable, input_specs, make_inputs
+from repro_torch.models.api import input_specs, make_inputs
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import (DONE, Engine, EngineReference, PagedEngine,
                                mixed_requests, run_staggered,
@@ -473,15 +473,14 @@ def test_serve_records_name_the_family():
 
 
 def test_build_model_takes_moe_and_vlm_and_training_refuses_them(capsys):
-    """Both families build, serve on both engines and pass
-    ``check_trainable`` (training refuses only the encdec family:
-    ``tests/test_torch_train_moe.py::test_encdec_training_is_still_refused``);
-    whisper-tiny builds too, and serves on the dense engines alone."""
+    """Both families build and serve on both engines (every family
+    trains: ``tests/test_torch_train_moe.py``, and whisper's
+    ``tests/test_torch_train_encdec.py``); whisper-tiny builds too, and
+    serves on the dense engines alone."""
     for arch in (GRANITE, MOONSHOT, INTERNVL):
         cfg = get_config(arch)
         model = build_model(reduced(cfg), device="cpu")
         assert model.serve_modes == frozenset({"dense", "paged"})
-        check_trainable(cfg, "launch.train")
     whisper = build_model(reduced(get_config("whisper-tiny")), device="cpu")
     assert whisper.serve_modes == frozenset({"dense"})
     launch_serve.main(["--list-configs"])

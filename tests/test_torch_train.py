@@ -122,14 +122,19 @@ def test_flash_plain_matches_pallas_and_ref(dtype, B, H, Kh, Sq, Skv, hd,
     (True, 0, 0.0, 2, 64, 16), (True, 32, 50.0, 1, 64, 16),
     (False, 0, 0.0, 4, 64, 16),
     (True, 24, 30.0, 2, 40, 16),      # ragged last kv block
+    # the cross geometry (whisper's cross-attention: k and v from another
+    # source, Sq != Skv, non-causal), S = (Sq, Skv)
+    pytest.param(False, 0, 0.0, 1, (40, 24), 16, id="cross-Sq40-Skv24"),
+    pytest.param(False, 0, 0.0, 2, (24, 56), 16, id="cross-Sq24-Skv56"),
 ])
 def test_flash_attention_grads_match_jax(causal, window, cap, gqa, S,
                                          kv_block):
     B, Kh, hd = 2, 2, 16
     H = Kh * gqa
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
     rng = np.random.default_rng(1)
     xs = [rng.standard_normal(s).astype(np.float32)
-          for s in ((B, S, H, hd), (B, S, Kh, hd), (B, S, Kh, hd))]
+          for s in ((B, Sq, H, hd), (B, Skv, Kh, hd), (B, Skv, Kh, hd))]
 
     def jf(q, k, v):
         return (jattention.chunked_attention(
@@ -142,7 +147,7 @@ def test_flash_attention_grads_match_jax(causal, window, cap, gqa, S,
                                       kv_block=kv_block)
     _, jlse = jattention._flash_fwd_scan(
         *map(jnp.asarray, xs), jnp.float32(window), jnp.float32(0),
-        jnp.float32(S), causal, cap, kv_block)
+        jnp.float32(Skv), causal, cap, kv_block)
 
     ts = [torch.from_numpy(x).requires_grad_() for x in xs]
     to = chunked_attention(*ts, causal=causal, window=window, logit_cap=cap,

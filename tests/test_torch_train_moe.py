@@ -3,7 +3,7 @@ families against the JAX package, on the CPU: ``moe_block``'s gradients
 with drops, train-mode ``Model.loss`` (cross-entropy plus the router's aux
 loss; a vlm batch with its vision embeddings) and its gradients,
 granite's K-step trajectories against the JAX per-step oracle, and the
-launcher (encdec still refused).
+launcher.
 
 Tolerances: gradients within rtol 3e-4 / atol 3e-5 of ``jax.grad``, the
 loss within rel 1e-5 (``tests/test_torch_train.py``'s bounds); the
@@ -13,7 +13,6 @@ equal to the per-step loop.  What is zero in JAX is exactly zero here: a
 dropped token's gradient into the expert weights, the padded experts'
 gradients.
 """
-import dataclasses
 import functools
 import os
 import subprocess
@@ -41,7 +40,7 @@ from repro.train.trainer import make_train_step as jmake_train_step  # noqa: E40
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.data import DataConfig, Pipeline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.models import UnsupportedFamilyError, build_model, moe  # noqa: E402,E501
+from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         train_state_from_numpy)
 from repro_torch.optim import AdamW, constant  # noqa: E402
@@ -315,16 +314,3 @@ def test_launcher_trains_granite_then_resumes_on_cpu(tmp_path, capsys):
     assert "restored step 4" in out and "done @6" in out
     assert CheckpointManager(str(tmp_path)).all_steps() == [4, 6]
 
-
-def test_encdec_training_is_still_refused():
-    """The launcher refuses whisper-tiny before any weight is made, naming
-    the family and the trained ones; so does ``check_trainable``."""
-    with pytest.raises(UnsupportedFamilyError, match="encdec") as ei:
-        launch_train.main(["--device", "cpu", "--arch", "whisper-tiny",
-                           "--reduced"])
-    assert ei.value.family == "encdec"
-    assert "moe" in str(ei.value) and "vlm" in str(ei.value)
-    cfg = dataclasses.replace(reduced(get_config(GRANITE)), family="encdec")
-    from repro_torch.models.api import check_trainable
-    with pytest.raises(UnsupportedFamilyError, match="not ported yet"):
-        check_trainable(cfg, "repro_torch training")
