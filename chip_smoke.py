@@ -7,7 +7,8 @@
 The second form runs phases 0, 1 and the named kernel phases only (of
 ``decode``, ``sampling``, ``paged``, ``ssd``, ``rglru``, ``flash``,
 ``cachesim``, ``recurrent``, ``serve``, ``resilience``, ``moe``,
-``train_families``, ``attention_paths``, ``encdec``), of this checkout
+``train_families``, ``attention_paths``, ``encdec``, ``sharding``), of
+this checkout
 or of the
 checkout at DIR (an older commit unpacked into a directory ``.gitignore``
 lists), to time two versions on one card in one call: parent, change,
@@ -22,7 +23,7 @@ slice F's and G's serving runs, with the traffic recorded and without;
 verdicts of TS, TG and TM; ``attention_paths`` runs slices A, AP, SD and
 their parity at slice B's model; ``encdec`` runs phase 5i, whisper's
 kernels, slices W, SW, WP, TW and UW and its two launchers, with W's
-and TW's verdicts).
+and TW's verdicts; ``sharding`` runs phase 5j).
 
 Phases, each printed as it runs; any failure exits non-zero and prints no
 result line:
@@ -285,6 +286,22 @@ result line:
      UW, slice U's parity contracts for reduced whisper with frames (4,
      200, D) beside 256 tokens; and ``launch.train --arch whisper-tiny
      --steps 8 --verdicts`` (64 flash launches, a verdict line);
+  5j. sharding (``--only sharding``): slice SH, ``launch.train
+     --reduced --steps 8 --steps-per-sync 4`` with ``--strategy tp`` and
+     with ``--strategy fsdp`` (the ``devices=1 mesh={'data': 1, 'model':
+     1} (model_parallelism=1)`` line, 32 flash launches each, no process
+     group left open); the launcher's mesh, rules and sharder (every
+     train-state spec empty on the 1x1 mesh) around slice U's 4 per-step
+     ``make_train_step`` steps on the flash kernel, losses and grad norms
+     equal to the same steps without a mesh bit for bit (deterministic
+     algorithms); ``compressed_psum_ef`` (sum and mean) over a one-rank
+     NCCL group equal to the stacked form bit for bit; then the dry run at
+     full width on a fake process group (``launch/dryrun.py``,
+     ``meta`` tensors, nothing on the card): llama3-8b ``train_4k``,
+     ``prefill_32k`` and ``decode_32k`` on 16x16 and ``train_4k`` on
+     2x16x16, each record's terms finite, its dominant term, model flops
+     over counted flops, collectives and trace seconds printed, and
+     ``analyze_dryrun_dir`` over the four records (finite verdicts);
   6. slice C, the simulator at full scale: ``simulate_ladder`` over the
      16-rung iso-area ladder (0.5-64 MB with 3 MB, 1:1 scale, 16 ways),
      4 zipf traces of 2**22 accesses over a 256 MB footprint; exactly 1
@@ -329,8 +346,8 @@ result line:
   8. one JSON line ``{"kernels": [...]}`` with each kernel's launches on
      its slice's run (A for the dense serve kernels, D for the paged
      kernel, and ``launches_by_slice`` with the kernels' launches on
-     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM, TV, W, SW, WP
-     and TW, F's
+     slices A, D, AP, SD, M, N, V, MP, T, TC, TS, TG, TM, TV, W, SW, WP,
+     TW and SH, F's
      ``Model.prefill`` for the SSD scan, G's serving for the RG-LRU scan,
      T for flash attention, C for the simulator; the two scans also with
      their ``autograd`` forward + backward), error
@@ -4572,6 +4589,186 @@ def phase_encdec_alone(flush) -> list:
     return []
 
 
+# ---------------------------------------------------------------- phase 5j
+
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
+                ("decode_32k", False), ("train_4k", True))
+
+
+def _launcher_strategies(tmp: Path) -> dict:
+    """Slice SH's main path: ``launch.train --reduced`` with each
+    strategy, the launch counts reset just before each run and read just
+    after; returns the sum of both runs' launches."""
+    import contextlib as cl
+    import io
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    total = {}
+    for strategy in ("tp", "fsdp"):
+        out = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(out):
+            rc = launch_train.main([
+                "--reduced", "--steps", "8", "--steps-per-sync", "4",
+                "--strategy", strategy, "--ckpt-dir",
+                str(tmp / f"sh_{strategy}")])
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        text = out.getvalue()
+        print(text, end="")
+        check(rc == 0, f"slice SH: launch.train --strategy {strategy} "
+                       f"returned {rc}")
+        check("devices=1 mesh={'data': 1, 'model': 1} (model_parallelism=1)"
+              in text, f"slice SH --strategy {strategy}: no mesh= line")
+        check(launches["flash_attention"] == 4 * 8,
+              f"slice SH --strategy {strategy}: "
+              f"{launches['flash_attention']} flash launches, want 4 "
+              f"layers x 8 steps")
+        check(not dist.is_initialized(),
+              f"slice SH --strategy {strategy}: a process group left open")
+        print(f"slice SH: launch.train --reduced --strategy {strategy} in "
+              f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _launcher_mesh_seconds(n: int = 3) -> None:
+    """The train launcher's mesh setup on the card, timed ``n`` times: a
+    one-rank NCCL group opened, the 1x1 ladder mesh built and printed, the
+    group destroyed (what each ``launch.train.main`` pays for it)."""
+    import contextlib as cl
+    import io
+    from repro_torch.launch.mesh import launcher_mesh
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(io.StringIO()), launcher_mesh("cuda"):
+            pass
+        times.append(time.perf_counter() - t0)
+    print("launch.train's mesh setup (one-rank NCCL group, 1x1 mesh, "
+          "destroyed): " + ", ".join(f"{t:.3f}" for t in times) + " s")
+
+
+def _meshed_steps_bitwise() -> None:
+    """The launcher's mesh, rules and sharder around slice U's 4 per-step
+    steps on the flash kernel: the losses and grad norms equal the same
+    steps with no mesh, bit for bit (deterministic algorithms)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import launcher_mesh, mesh_context
+    from repro_torch.sharding import activation_sharding
+    from repro_torch.train.trainer import init_state
+    _, model, opt, _, batches = _reduced_train("llama3-8b")
+    state0 = init_state(model, opt,
+                        torch.Generator(device=DEVICE).manual_seed(0))
+    with _deterministic():
+        want, _ = _per_step(model, opt, state0, batches, 4)
+        for strategy in ("tp", "fsdp"):
+            with launcher_mesh("cuda") as (mesh, _):
+                rules = launch_train.state_rules(model, opt, mesh, strategy)
+                with mesh_context(mesh), activation_sharding(mesh, rules):
+                    got, _ = _per_step(model, opt, state0, batches, 4)
+            check(torch.equal(got, want),
+                  f"slice SH --strategy {strategy}: meshed steps != "
+                  f"meshless, {got.tolist()} vs {want.tolist()}")
+    print(f"slice SH: 4 steps on the 1x1 mesh (tp, fsdp) == meshless bit "
+          f"for bit, losses {want[:, 0].tolist()}")
+
+
+def _nccl_psum() -> None:
+    """``compressed_psum_ef`` over a one-rank NCCL group == the stacked
+    form of one shard, bit for bit, sum and mean."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import one_device_group
+    from repro_torch.optim import compress as tc
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    tree = {"a": torch.randn(1, 4096, 33, generator=g, device=DEVICE) * 3,
+            "b": torch.randn(1, 1000, generator=g,
+                             device=DEVICE).to(torch.bfloat16)}
+    with one_device_group("cuda"):
+        check(dist.get_backend() == "nccl", "slice SH: not an NCCL group")
+        for mean in (False, True):
+            want, werr = tc.compressed_psum_ef(tree, mean=mean)
+            got, err = tc.compressed_psum_ef(
+                {k: v[0].clone() for k, v in tree.items()}, mean=mean,
+                group=dist.group.WORLD)
+            for k in tree:
+                check(torch.equal(got[k], want[k])
+                      and torch.equal(err[k], werr[k][0]),
+                      f"slice SH: NCCL compressed_psum_ef {k} (mean "
+                      f"{mean}) != the stacked form")
+    print("slice SH: compressed_psum_ef over one NCCL rank == stacked, "
+          "bit for bit (sum, mean; f32 and bf16)")
+
+
+def phase_dryrun(tmp: Path) -> None:
+    """The dry run at full width (``DRYRUN_CELLS``) on a fake group, then
+    ``analyze_dryrun_dir`` over its records."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.core.crosslayer import analyze_dryrun_dir
+    from repro_torch.launch import dryrun as dr
+    out = tmp / "dryrun"
+    t0 = time.perf_counter()
+    for shape, multi_pod in DRYRUN_CELLS:
+        rec = dr.run_cell("llama3-8b", shape, multi_pod=multi_pod,
+                          results_dir=out, verbose=False)
+        roof = rec["roofline"]
+        check(all(math.isfinite(roof[k]) for k in (
+            "flops_per_device", "bytes_per_device", "collective_bytes",
+            "compute_s", "memory_s", "collective_s"))
+            and roof["flops_per_device"] > 0 and not dist.is_initialized(),
+            f"dry run {shape} {rec['mesh']}: {roof}")
+        if rec["kind"] == "train":
+            check(roof["collective_counts"].get("all-gather", 0) > 0
+                  and roof["collective_bytes"] > 0,
+                  f"dry run {shape} {rec['mesh']}: no collectives")
+        print(f"dry run llama3-8b {shape} {rec['mesh']}: compute "
+              f"{roof['compute_s'] * 1e3:.2f} ms memory "
+              f"{roof['memory_s'] * 1e3:.2f} ms collective "
+              f"{roof['collective_s'] * 1e3:.2f} ms (modeled, TPU tier) "
+              f"dominant={roof['dominant']} MF/count="
+              f"{rec['model_flops_ratio']:.4f} collectives "
+              f"{json.dumps(roof['collective_counts'])} replicated "
+              f"{json.dumps(rec['replicated'])} args/dev "
+              f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB trace "
+              f"{rec['trace_s']:.1f} s", flush=True)
+    for v in analyze_dryrun_dir(str(out), device=DEVICE):
+        check(all(math.isfinite(x) and x > 0 for r in (v.energy_ratio,
+                                                       v.edp_ratio)
+                  for x in r.values()), f"dry run verdict {v.shape}")
+        print(f"  {v.arch} {v.shape} {v.mesh}: energy vs SRAM STT "
+              f"{v.energy_ratio['STT']:.3f} / SOT {v.energy_ratio['SOT']:.3f}"
+              f"   EDP STT {v.edp_ratio['STT']:.3f} / SOT "
+              f"{v.edp_ratio['SOT']:.3f}")
+    print(f"dry run: {len(DRYRUN_CELLS)} cells in "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+
+
+def phase_sharding(tmp: Path) -> dict:
+    """Phase 5j: slice SH, the one-rank NCCL combine and the dry run;
+    returns SH's launches."""
+    t0 = time.perf_counter()
+    _launcher_mesh_seconds()
+    launches = _launcher_strategies(tmp)
+    _meshed_steps_bitwise()
+    _nccl_psum()
+    torch.cuda.empty_cache()
+    phase_dryrun(tmp)
+    print(f"phase 5j: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_sharding_alone(flush) -> list:
+    """Phase 5j alone (``--only sharding``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_sharding(Path(tmp))
+    print(f"sharding launches {json.dumps(launches)}")
+    return []
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -5153,7 +5350,8 @@ KERNEL_PHASES = {"decode": "phase_decode_attention",
                  "attention_paths": "phase_attention_paths_alone",
                  "moe": "phase_moe_alone",
                  "train_families": "phase_train_families_alone",
-                 "encdec": "phase_encdec_alone"}
+                 "encdec": "phase_encdec_alone",
+                 "sharding": "phase_sharding_alone"}
 
 
 def kernel_phases(names, tree) -> None:
@@ -5281,6 +5479,10 @@ def main() -> None:
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEVICE)
     launches_w, timed_w = phase_encdec(scratch.zero_, records)
     stamp("phase 5i: whisper's kernels, slices W, SW, WP, launcher")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_sh = phase_sharding(Path(tmp))
+    torch.cuda.empty_cache()
+    stamp("phase 5j: slice SH, the dry run")
     launches_c, rows = phase_slice_c(ns_per_update, scratch.zero_)
     del scratch
     kernels += rows
@@ -5303,7 +5505,7 @@ def main() -> None:
             "M": [launches_m["dense"], launches_m["paged"]],
             "N": [launches_n], "V": [launches_v],
             "MP": list(launches_mp.values()), "T": [launches_t],
-            "TC": [launches_tc],
+            "TC": [launches_tc], "SH": [launches_sh],
             **{s: [n] for s, n in launches_train.items()},
             **{s: [n] for s, n in launches_w.items()}}
     for k in kernels:

@@ -2,7 +2,12 @@
 
 A CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor
 launches the CUDA kernel (built at first use) or raises; any other device
-raises.  There is no fallback from the kernel to the plain version.
+raises, except a ``meta`` tensor inside ``plain_on_meta`` (the dry run's
+shape trace, ``launch/dryrun.py``), which holds no data for a kernel to
+read: flash attention takes its plain version for the shapes, the scans
+return outputs of their shapes without walking their steps.  There is no fallback
+from the kernel to the plain version.  On DTensors the flash kernel and
+the scans run per device on the local shards (``sharding/local.py``).
 
 ``launches`` counts, per kernel, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else, so a run
@@ -22,8 +27,9 @@ op as any plain code is.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -37,6 +43,7 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import sampling as _sm
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.launch.graph_analysis import kernel as _boundary
+from repro_torch.sharding.local import is_dtensor, per_device
 
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0, "fused_sample": 0,
@@ -45,9 +52,25 @@ launches: Dict[str, int] = {"decode_attention": 0,
                             "flash_attention": 0}
 
 
+_PLAIN_ON_META = False
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def plain_on_meta() -> Iterator[None]:
+    """For the body, a wrapper given ``meta`` tensors runs its plain
+    version (the dry run's shape trace: no data for a kernel to read);
+    elsewhere a ``meta`` tensor raises."""
+    global _PLAIN_ON_META
+    prev, _PLAIN_ON_META = _PLAIN_ON_META, True
+    try:
+        yield
+    finally:
+        _PLAIN_ON_META = prev
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -58,11 +81,17 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         raise ValueError(
             f"tensors on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (dev.type == "meta" and _PLAIN_ON_META):
         return False
     if dev.type == "cuda":
         return True
     raise ValueError(f"no kernel for device {dev}")
+
+
+# the scans' operand layouts for ``per_device``: (batch dim, channel dim,
+# roles summed over)
+_B_C2, _B_C1, _B, _C0 = (0, 2, ()), (0, 1, ()), (0, None, ()), (None, 0, ())
+_C0_SUM_B, _B_SUM_C = (None, 0, ("batch",)), (0, None, ("chan",))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -248,17 +277,37 @@ def cache_sim_ladder(traces, *, num_sets: Sequence[int], ways: int,
     return out
 
 
+def _scan_on_meta(x, y_dtype, state: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A scan's outputs on ``meta`` (the dry run's shape trace, whose
+    count is the kernel's declared traffic): y of x's shape in
+    ``y_dtype`` and the f32 final state of shape ``state``, without
+    walking the plain version's steps over tensors that hold no values."""
+    return (torch.empty(x.shape, dtype=y_dtype, device="meta"),
+            torch.empty(tuple(state), dtype=torch.float32, device="meta"))
+
+
 def ssd_scan(x, dt, dtA, Bm, Cm, *, chunk: int,
              s0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD chunked scan in the model's layout: x (b,S,H,P); dt,
     dtA (b,S,H); Bm, Cm (b,S,N), one float dtype; ``chunk`` divides S; s0
     (b,H,P,N) f32 or None (zero start).  Returns (y like x, final state
-    (b,H,P,N) f32)."""
+    (b,H,P,N) f32).  On DTensors, per device on the local shards (batch
+    and heads kept, the sequence whole)."""
+    if is_dtensor(x):
+        return per_device(
+            lambda *a: ssd_scan(*a[:5], chunk=chunk, s0=a[5]),
+            (x, dt, dtA, Bm, Cm, s0),
+            (_B_C2, _B_C2, _B_C2, _B, _B, _B_C1), (_B_C2, _B_C1))
     with _boundary("ssd_scan",
                    lambda: _ssd.traffic(x, dt, dtA, Bm, Cm, chunk, s0)):
         if not _on_cuda(*(t for t in (x, dt, dtA, Bm, Cm, s0)
                           if t is not None)):
+            if x.device.type == "meta":
+                _ssd.check_chunk(x.shape[1], chunk)
+                b, _, H, P = x.shape
+                return _scan_on_meta(x, x.dtype, (b, H, P, Bm.shape[-1]))
             return _ssd.ssd_scan_plain(x, dt, dtA, Bm, Cm, chunk=chunk,
                                        s0=s0)
         _ssd.check_args(x, dt, dtA, Bm, Cm, chunk, s0)
@@ -297,8 +346,18 @@ class SSDScan(torch.autograd.Function):
     def backward(ctx, dy, ds):
         x, dt, dtA, Bm, Cm, s0 = ctx.saved_tensors
         with record_function("ssd_backward"):
-            *grads, ds0 = _ssd.ssd_scan_backward(x, dt, dtA, Bm, Cm,
-                                                 ctx.chunk, s0, dy, ds)
+            if is_dtensor(x):       # per device, as the forward
+                n = 6 if s0 is not None else 5
+                *grads, ds0 = per_device(
+                    lambda *a: _ssd.ssd_scan_backward(
+                        *a[:5], ctx.chunk, *a[5:])[:n],
+                    (x, dt, dtA, Bm, Cm, s0, dy, ds),
+                    (_B_C2,) * 3 + (_B, _B, _B_C1, _B_C2, _B_C1),
+                    (_B_C2,) * 3 + (_B_SUM_C,) * 2 + (_B_C1,) * (n - 5)
+                ) + ((None,) if s0 is None else ())
+            else:
+                *grads, ds0 = _ssd.ssd_scan_backward(x, dt, dtA, Bm, Cm,
+                                                     ctx.chunk, s0, dy, ds)
         return (*grads, None, ds0)
 
 
@@ -314,9 +373,16 @@ def rglru_scan(a, b, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B,S,R) f32;
     h0 (B,R) f32 or None (zero start).  Returns (y (B,S,R) f32, h_final
-    (B,R) f32)."""
+    (B,R) f32).  On DTensors, per device on the local shards (batch and
+    channels kept, the sequence whole)."""
+    if is_dtensor(a):
+        return per_device(lambda *t: rglru_scan(*t), (a, b, h0),
+                                (_B_C2, _B_C2, _B_C1), (_B_C2, _B_C1))
     with _boundary("rglru_scan", lambda: _rg.traffic(a, b, h0)):
         if not _on_cuda(*(t for t in (a, b, h0) if t is not None)):
+            if a.device.type == "meta":
+                return _scan_on_meta(a, torch.float32,
+                                     (a.shape[0], a.shape[2]))
             return _rg.rglru_scan_plain(a, b, h0)
         _rg.check_args(a, b, h0)
         fn = _build.function("rglru_scan", "rglru_scan", _rg.ARGTYPES)
@@ -331,10 +397,18 @@ def rglru_gated_scan(x, r, i, lam, h0: Optional[torch.Tensor] = None
     (R,) of one float dtype; h0 (B,R) f32 or None (zero start).  ``a =
     exp(-8 softplus(lam) r)``, ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t
     x_t``, in f32.  Returns (y (B,S,R) in x's dtype, h_final (B,R) f32);
-    counted under ``rglru_scan``."""
+    counted under ``rglru_scan``.  On DTensors, per device on the local
+    shards, as ``rglru_scan``."""
+    if is_dtensor(x):
+        return per_device(lambda *t: rglru_gated_scan(*t),
+                                (x, r, i, lam, h0),
+                                (_B_C2, _B_C2, _B_C2, _C0, _B_C1),
+                                (_B_C2, _B_C1))
     with _boundary("rglru_scan",
                    lambda: _rg.gated_traffic(x, r, i, lam, h0)):
         if not _on_cuda(*(t for t in (x, r, i, lam, h0) if t is not None)):
+            if x.device.type == "meta":
+                return _scan_on_meta(x, x.dtype, (x.shape[0], x.shape[2]))
             return _rg.rglru_gated_scan_plain(x, r, i, lam, h0)
         _rg.check_gated_args(x, r, i, lam, h0)
         fn = _build.function("rglru_scan", "rglru_gated_scan",
@@ -361,5 +435,14 @@ class RGLRUGatedScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         with record_function("rglru_backward"):
-            return _rg.rglru_gated_scan_backward(
-                rglru_scan, *ctx.saved_tensors, dy, dh)
+            x, r, i, lam, h0 = ctx.saved_tensors
+            if not is_dtensor(x):
+                return _rg.rglru_gated_scan_backward(
+                    rglru_scan, x, r, i, lam, h0, dy, dh)
+            n = 5 if h0 is not None else 4   # per device, as the forward
+            return per_device(
+                lambda *a: _rg.rglru_gated_scan_backward(
+                    rglru_scan, *a)[:n], (x, r, i, lam, h0, dy, dh),
+                (_B_C2,) * 3 + (_C0, _B_C1, _B_C2, _B_C1),
+                (_B_C2,) * 3 + (_C0_SUM_B,) + (_B_C1,) * (n - 4)
+            ) + ((None,) if h0 is None else ())

@@ -33,6 +33,35 @@ The rules follow the walker's, op for op:
   result), ``scatter_add_`` / ``index_add_`` (the whole operand in and
   out, the indices and the updates, as XLA's scatter) and ``cumsum``.
 
+Collectives (``CollectiveStats``, the counterpart of the JAX package's
+``parse_collectives``): each ``_c10d_functional`` collective that reaches
+the counter (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_reduce``, ``all_to_all_single``, their in-place, ``_out`` and
+coalesced forms, ``_dtensor.shard_dim_alltoall``, and the eager
+``c10d`` base ops of ``torch.distributed``) adds its count, payload and
+ring-model link bytes by JAX's factors, op for op: all-gather and
+all-to-all the output x (n-1)/n, all-reduce the output x 2(n-1)/n,
+reduce-scatter the output x n x (n-1)/n, a permute (an
+``all_to_all_single`` that sends the whole tensor to one peer) the
+output x 1, with n the group size; and, as the walker does, 2 x its
+output bytes to ``bytes``.  ``wait_tensor`` and
+``_wrap_tensor_autograd`` count nothing.
+
+Per device (``OpCounter(per_shard=True)``, the dry run's): an op on
+DTensors reaches a dispatch mode with the DTensors' global shapes.  The
+per-shard counter declines those (returns ``NotImplemented``, as torch's
+``CommDebugMode`` does), so DTensor runs first and the counter sees
+what it desugars into: the collectives of each redistribution and the op
+on the local shards, i.e. the work of one device, as the JAX walker
+counts one device's partitioned program.  Ops on ``FakeTensor``s
+(DTensor's shape propagation) count nothing, and under this counter
+neither does an op with no ``meta`` tensor (the dry run keeps every shard
+on ``meta``; DTensor's redistribution planner computes shard offsets with
+small host tensors when its cache misses): a collective counts wherever
+it runs.  A kernel runs per device on the local shards
+(``sharding/local.py``), so its declared traffic is one device's, as on
+one card.
+
 Autograd runs the backward on a worker thread on the card; the mode
 reaches it with the rest of the thread-local state that autograd carries
 to its workers, so a train window's backward is counted on the card as on
@@ -56,6 +85,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -63,7 +93,9 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode,
                                           _get_current_dispatch_mode_stack,
                                           _pop_mode_temporarily)
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
+
+from repro_torch.launch.roofline import CollectiveStats
 
 aten = torch.ops.aten
 
@@ -71,6 +103,72 @@ _PRODUCTS = frozenset((aten.mm, aten.addmm, aten.bmm, aten.baddbmm))
 _FREE = frozenset((aten._unsafe_view, aten.empty, aten.empty_strided,
                    aten.empty_like, aten.new_empty, aten.new_empty_strided))
 _HOST_COPIES = frozenset((aten._to_copy, aten.copy_))
+
+
+_COLL_FREE = frozenset(("wait_tensor", "_wrap_tensor_autograd"))
+# (namespace, op) -> the JAX walker's op name
+_COLLECTIVES = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "all_gather_into_tensor_out"): "all-gather",
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "reduce_scatter_tensor_out"): "reduce-scatter",
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"):
+        "reduce-scatter",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_reduce_"): "all-reduce",
+    ("_c10d_functional", "all_reduce_coalesced"): "all-reduce",
+    ("_c10d_functional", "all_reduce_coalesced_"): "all-reduce",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+    ("c10d", "allreduce_"): "all-reduce",
+    ("c10d", "_allgather_base_"): "all-gather",
+    ("c10d", "_reduce_scatter_base_"): "reduce-scatter",
+    ("c10d", "alltoall_base_"): "all-to-all",
+}
+
+
+def _group_size(group) -> int:
+    """The size of a collective's group, given as a process group (or its
+    script object) or a group name."""
+    if hasattr(group, "size"):
+        return int(group.size())
+    from torch.distributed import distributed_c10d as c10d
+    return int(c10d._resolve_process_group(group).size())
+
+
+def _collective(func, args, kwargs, out
+                ) -> Optional[Tuple[str, int, float]]:
+    """(JAX op name, group size n, output bytes) of a collective, None for
+    any other op.  ``output bytes`` is the LHS the HLO line would show:
+    the gathered tensor of an all-gather, the shard of a reduce-scatter,
+    the result of an all-reduce or all-to-all."""
+    ns = func.namespace
+    name = func.overloadpacket.__name__
+    op = _COLLECTIVES.get((ns, name))
+    if op is None:
+        return None
+    if ns == "c10d":
+        # allreduce_(tensors, group, ...); the others (output, input,
+        # group, ...)
+        n = _group_size(args[1] if name == "allreduce_" else args[2])
+        outputs = args[0]
+        if name == "alltoall_base_" and sum(1 for x in args[4] if x) == 1:
+            op = "collective-permute"
+    else:
+        if name.startswith(("all_gather", "reduce_scatter")):
+            n = int(args[1] if name.startswith("all_gather") else args[2])
+        elif name == "all_to_all_single":
+            n = _group_size(args[3])
+            if sum(1 for x in args[2] if x) == 1:
+                op = "collective-permute"   # the whole tensor to one peer
+        else:
+            n = _group_size(args[-1] if name != "shard_dim_alltoall"
+                            else args[3])
+        outputs = kwargs.get("out", out)
+    nbytes = float(tensor_bytes(*[t for t in tree_leaves(outputs)
+                                  if isinstance(t, torch.Tensor)]))
+    return op, n, nbytes
 
 
 def tensor_bytes(*tensors: Optional[torch.Tensor]) -> int:
@@ -131,12 +229,14 @@ def _cost(func, args, kwargs, out) -> Tuple[float, float]:
 @dataclasses.dataclass
 class OpStats:
     """What one counted region ran: total flops and bytes, both by op
-    name, and the kernel calls by kernel."""
+    name, the kernel calls by kernel, and the collectives."""
     flops: float = 0.0
     bytes: float = 0.0
     flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     bytes_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
+    collectives: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
 
     def add(self, name: str, flops: float, nbytes: float) -> None:
         self.flops += flops
@@ -154,25 +254,157 @@ class OpStats:
                              (self.kernel_calls, other.kernel_calls)):
             for name, v in theirs.items():
                 mine[name] = mine.get(name, 0) + times * v
+        self.collectives.merge(other.collectives, times)
+
+
+def _subclass_types():
+    """(DTensor, FakeTensor) classes, imported when a counter is made."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    return DTensor, FakeTensor
+
+
+_REFUSALS = re.compile(r"does not have a sharding strategy|Sharding "
+                       r"propagation failed|redistribute from .* not "
+                       r"supported")
+
+
+def _unplaceable(err: RuntimeError) -> bool:
+    """True for DTensor's refusal to place an op: no sharding strategy
+    (a ``NotImplementedError``), its sharding propagation failed (a view
+    that would split a sharded dim unevenly, a strategy that cannot take
+    the inputs' placements), or the strategy it chose needs a
+    redistribution it does not implement (a shard to a partial sum).  Any
+    other error is the program's."""
+    return _REFUSALS.search(str(err)) is not None
 
 
 class OpCounter(TorchDispatchMode):
     """Count the ops run inside ``with OpCounter() as c:`` into
-    ``c.stats`` (see the module docstring).  What runs is unchanged."""
+    ``c.stats`` (see the module docstring).  What runs is unchanged.
+    ``per_shard`` counts the work of one device of a DTensor program."""
 
-    def __init__(self):
+    def __init__(self, per_shard: bool = False):
         super().__init__()
         self.stats = OpStats()
+        self.per_shard = per_shard
+        self.replicated: Dict[str, int] = {}
         self._paused = 0
+        self._desugaring = 0
+        self._dtensor, self._fake = _subclass_types()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.per_shard and any(issubclass(t, self._dtensor)
+                                  for t in types):
+            if self._desugaring:
+                return NotImplemented
+            return self._desugar(func, args, kwargs)
         out = func(*args, **kwargs)
-        if not self._paused:
-            flops, nbytes = _cost(func, args, kwargs, out)
-            if flops or nbytes:
-                self.stats.add(func.overloadpacket.__name__, flops, nbytes)
+        if self._paused or any(issubclass(t, self._fake) for t in types):
+            return out
+        coll = _collective(func, args, kwargs, out)
+        if coll is not None:
+            op, n, out_bytes = coll
+            self.stats.collectives.add(op, n, out_bytes)
+            self.stats.add(func.overloadpacket.__name__, 0.0,
+                           2.0 * out_bytes)
+            return out
+        if func.overloadpacket.__name__ in _COLL_FREE:
+            return out
+        if self.per_shard and not any(
+                isinstance(t, torch.Tensor) and t.device.type == "meta"
+                for t in tree_leaves((args, kwargs, out))):
+            return out        # DTensor's own bookkeeping on host tensors
+        flops, nbytes = _cost(func, args, kwargs, out)
+        if flops or nbytes:
+            self.stats.add(func.overloadpacket.__name__, flops, nbytes)
         return out
+
+
+    def _desugar(self, func, args, kwargs):
+        """Run a DTensor op with this counter back on the stack, declining
+        the op itself (``NotImplemented``), so that DTensor runs it and the
+        counter sees its redistributions' collectives and the op on the
+        local shards.  An op DTensor cannot place (no strategy, or a view
+        that would split a sharded dim unevenly) runs on its inputs
+        replicated over the innermost mesh dims, one more at a time until
+        it runs, and with no strategy at all on the replicated tensors'
+        local copies (``_on_replicas``): the gathers are counted, as GSPMD
+        pays for an op it cannot partition, and ``replicated`` counts the
+        op by name.  Only DTensor's refusals are retried
+        (``_unplaceable``); any other error raises."""
+        ndim = max(t.device_mesh.ndim for t in tree_leaves((args, kwargs))
+                   if isinstance(t, self._dtensor))
+
+        def replicated_from(keep):
+            return lambda: func(
+                *tree_map(lambda t: self._replicated(t, keep), args),
+                **tree_map(lambda t: self._replicated(t, keep), kwargs))
+
+        attempts = ([lambda: func(*args, **kwargs)]
+                    + [replicated_from(k) for k in range(ndim - 1, -1, -1)]
+                    + [lambda: self._on_replicas(func, args, kwargs)])
+        self._desugaring += 1
+        first = None
+        try:
+            with self:
+                for i, attempt in enumerate(attempts):
+                    outer, self.stats = self.stats, OpStats()
+                    try:
+                        out = attempt()
+                    except RuntimeError as err:
+                        self.stats = outer   # a failed attempt counts nothing
+                        if not _unplaceable(err):
+                            raise
+                        first = first or err
+                        continue
+                    body, self.stats = self.stats, outer
+                    outer.merge(body)
+                    if i:
+                        name = func.overloadpacket.__name__
+                        self.replicated[name] = \
+                            self.replicated.get(name, 0) + 1
+                    return out
+                raise first
+        finally:
+            self._desugaring -= 1
+
+    def _on_replicas(self, func, args, kwargs):
+        """An op DTensor has no strategy for at all: run it on the whole
+        (replicated) tensors' local copies, as plain tensors, and return
+        its outputs as replicated DTensors.  An in-place op writes the
+        copy, not its DTensor operand: the trace reads shapes, not
+        values."""
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = next(t.device_mesh for t in tree_leaves((args, kwargs))
+                    if isinstance(t, self._dtensor))
+
+        def local(t):
+            if not isinstance(t, self._dtensor):
+                return t
+            return self._replicated(t, 0).to_local()
+
+        out = func(*tree_map(local, args), **tree_map(local, kwargs))
+        return tree_map(
+            lambda t: DTensor.from_local(t, mesh,
+                                         [Replicate()] * mesh.ndim,
+                                         run_check=False)
+            if isinstance(t, torch.Tensor) else t, out)
+
+    def _replicated(self, t, keep: int):
+        """A DTensor ``t`` with mesh dims ``keep`` and beyond replicated;
+        anything else as it is."""
+        from torch.distributed.tensor import Replicate
+        if not isinstance(t, self._dtensor):
+            return t
+        want = list(t.placements)
+        for m in range(keep, len(want)):
+            if not want[m].is_replicate():
+                want[m] = Replicate()
+        if want == list(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, want)
 
 
 def active_counter() -> Optional[OpCounter]:
@@ -205,7 +437,9 @@ def kernel(name: str, traffic: Callable[[], Tuple[float, float]]
     """The boundary of one kernel call: under an active ``OpCounter``, add
     ``traffic()`` = (declared flops, surface bytes) and one call of
     ``name``, and count nothing inside; otherwise (no counter, or its
-    count paused) nothing."""
+    count paused) nothing.  Under a per-shard counter the kernel runs on
+    one device's local shards (``sharding/local.py``), so ``traffic()``
+    reads local shapes."""
     counter = active_counter()
     if counter is None or counter._paused:
         yield
@@ -248,3 +482,4 @@ def loop(n: int) -> Callable[[], contextlib.AbstractContextManager]:
                 yield
 
     return iteration
+

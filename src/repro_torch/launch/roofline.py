@@ -5,16 +5,19 @@
     memory_term     = bytes_per_device / HBM_BW
     collective_term = link_bytes_per_device / ICI_BW
 
-The JAX package takes flops and bytes from the compiled program's HLO;
-the port counts them from its own op graph (``launch/graph_analysis.py``)
-and ``Roofline.from_stats`` turns the count into these terms.  One device
-moves no collective bytes.  ``dtype_bytes`` is also the sizing convention
+The JAX package takes flops, bytes and collectives from the compiled
+program's HLO; the port counts them from its own op graph
+(``launch/graph_analysis.py``: an ``OpStats`` and its ``CollectiveStats``,
+the counterpart of ``parse_collectives``, by the same ring-model factors)
+and ``analyze`` / ``Roofline.from_stats`` turn the count into these
+terms.  One device moves no collective bytes.  ``dtype_bytes`` is also the sizing convention
 of the traffic engine's ``LayerStack`` lowering (``core/traffic.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 # The modeled TPU tier's inputs (a v5e-class chip, per chip), the same as
 # the JAX package's, so that the port's NVM verdicts compare with its:
@@ -44,6 +47,50 @@ def dtype_bytes(dtype: str) -> int:
     return _DTYPE_BYTES[key]
 
 
+def _ring(op: str, n: int, out_bytes: float) -> Tuple[float, float]:
+    """(payload, link bytes) of one collective by the JAX package's
+    ring-model factors (``repro/launch/roofline.py:112-130``)."""
+    if op == "all-reduce":
+        payload, factor = out_bytes, 2.0 * (n - 1) / max(n, 1)
+    elif op == "all-gather":
+        payload, factor = out_bytes, (n - 1) / max(n, 1)
+    elif op == "reduce-scatter":
+        payload, factor = out_bytes * n, (n - 1) / max(n, 1)
+    elif op == "all-to-all":
+        payload, factor = out_bytes, (n - 1) / max(n, 1)
+    else:                                  # collective-permute
+        payload, factor = out_bytes, 1.0
+    return payload, payload * factor
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """The collectives of a counted region, by JAX op name (the fields of
+    ``repro.launch.roofline.CollectiveStats``)."""
+    op_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    op_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=dict)         # ring-model per-device link bytes
+    raw_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=dict)         # payload bytes (no ring factor)
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.op_bytes.values())
+
+    def add(self, op: str, n: int, out_bytes: float, times: int = 1) -> None:
+        payload, link = _ring(op, n, out_bytes)
+        self.op_counts[op] = self.op_counts.get(op, 0) + times
+        self.op_bytes[op] = self.op_bytes.get(op, 0.0) + times * link
+        self.raw_bytes[op] = self.raw_bytes.get(op, 0.0) + times * payload
+
+    def merge(self, other: "CollectiveStats", times: int = 1) -> None:
+        for mine, theirs in ((self.op_counts, other.op_counts),
+                             (self.op_bytes, other.op_bytes),
+                             (self.raw_bytes, other.raw_bytes)):
+            for name, v in theirs.items():
+                mine[name] = mine.get(name, 0) + times * v
+
+
 @dataclasses.dataclass
 class Roofline:
     flops_per_device: float
@@ -52,16 +99,23 @@ class Roofline:
     bytes_by_op: Optional[Dict[str, float]] = None
     flops_by_op: Optional[Dict[str, float]] = None
     kernel_calls: Optional[Dict[str, int]] = None
+    collectives: Optional[Dict[str, float]] = None
+    collective_counts: Optional[Dict[str, int]] = None
 
     @classmethod
     def from_stats(cls, stats) -> "Roofline":
-        """Terms of a ``graph_analysis.OpStats`` count on one device: the
-        part ``analyze(compiled)`` plays in the JAX package."""
+        """Terms of a ``graph_analysis.OpStats`` count on one device, with
+        its collectives: the part ``analyze(compiled)`` plays in the JAX
+        package."""
+        coll = stats.collectives
         return cls(flops_per_device=stats.flops,
                    bytes_per_device=stats.bytes,
+                   collective_bytes=coll.total_bytes,
                    bytes_by_op=dict(stats.bytes_by_op),
                    flops_by_op=dict(stats.flops_by_op),
-                   kernel_calls=dict(stats.kernel_calls))
+                   kernel_calls=dict(stats.kernel_calls),
+                   collectives=dict(coll.op_bytes),
+                   collective_counts=dict(coll.op_counts))
 
     @property
     def compute_s(self) -> float:
@@ -109,11 +163,31 @@ class Roofline:
             "bytes_by_op": self.bytes_by_op,
             "flops_by_op": self.flops_by_op,
             "kernel_calls": self.kernel_calls,
+            "collectives": self.collectives,
+            "collective_counts": self.collective_counts,
             "compute_s": self.compute_s,
             "memory_s": self.memory_s,
             "collective_s": self.collective_s,
             "dominant": self.dominant,
         }
+
+
+@contextlib.contextmanager
+def parse_collectives() -> Iterator[CollectiveStats]:
+    """The collectives the body runs, counted as they reach the
+    dispatcher (those of DTensor redistributions too): the counterpart of
+    the JAX package's ``parse_collectives`` of a program's HLO.  Yields
+    the ``CollectiveStats`` that fills as the body runs."""
+    from repro_torch.launch.graph_analysis import OpCounter
+    counter = OpCounter(per_shard=True)
+    with counter:
+        yield counter.stats.collectives
+
+
+def analyze(stats) -> Roofline:
+    """The roofline of one device's counted work, an ``OpStats`` with its
+    ``CollectiveStats`` (the counterpart of ``analyze(compiled)``)."""
+    return Roofline.from_stats(stats)
 
 
 def model_flops(cfg, shape, chips: int) -> float:

@@ -47,7 +47,13 @@ serve through both engines, as the dense one does.  The ssm (mamba2),
 hybrid (recurrentgemma) and encdec (whisper-tiny: each request's prompt
 is also its stub audio frames) families serve through ``Engine`` only:
 ``--paged`` raises ``UnsupportedFamilyError`` for them before any weight
-is made.  The model's ``max_seq`` is ``--max-len``.  ``--verdicts`` (the default) counts the
+is made.  The model's ``max_seq`` is ``--max-len``.  The mesh is the
+one the elastic ladder picks for one device, as in the JAX launcher (1x1,
+printed as ``devices=1 mesh={...}``), with the serving rules
+``default_rules(fsdp=False)``, which shard no weight on one device; as
+nothing on the serve path reads a mesh, no process group is opened and
+the serve tick runs no ``activation_sharding``.  ``--verdicts`` (the
+default) counts the
 engine's traffic and prints its serve-mode NVM verdicts, the SRAM/STT/SOT
 tier energy and EDP ratios of each serve phase (times modeled at the TPU
 tier's constants, not measured); ``--no-verdicts`` counts nothing.
@@ -59,8 +65,10 @@ import time
 import torch
 
 from repro_torch.configs import all_configs, get_config, reduced as reduce_cfg
+from repro_torch.launch.mesh import ladder_mesh_sizes, require_unsharded
 from repro_torch.models import build_model
 from repro_torch.models.api import serve_families
+from repro_torch.sharding import default_rules, tree_specs
 from repro_torch.serve import (FAILED, Engine, PagedEngine, ShedPolicy,
                                Tracer, UnsupportedFamilyError,
                                latency_summary, mixed_requests,
@@ -192,6 +200,10 @@ def main(argv=None):
                                      "PagedEngine",
                                      detail="pages hold positioned KV rows "
                                             "of a decoder")
+    # serving: params over the model axis only
+    require_unsharded(tree_specs(model.param_axes(), model.abstract_params(),
+                                 ladder_mesh_sizes(1),
+                                 default_rules(fsdp=False)), "weights")
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params = model.init(gen)

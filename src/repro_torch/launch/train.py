@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --reduced --steps 8 --steps-per-sync 4
+        --reduced --steps 8 --steps-per-sync 4 [--strategy fsdp]
 
 ``--arch`` takes every family: dense, moe (granite, moonshot), vlm
 (internvl2) and encdec (whisper-tiny), each trained on tokens alone, as
@@ -45,7 +45,17 @@ the compressed all-reduce's arithmetic, each banking its own residual
 (the JAX launcher's data-parallel schedule, on one device).  The state
 is built and restored with ``effective_optimizer``, so a compressed run
 resumes only from a compressed checkpoint with the same shard count.
-There is no ``--strategy``: one device.
+
+The mesh is built as the JAX launcher builds its own: a one-rank process
+group (NCCL on the card, gloo under ``--device cpu``), the mesh the elastic
+ladder picks for its world size (``train/elastic.remesh``: 1x1 here),
+printed as ``devices=1 mesh={'data': 1, 'model': 1} (model_parallelism=1)``,
+and the state's specs from ``default_rules(strategy=--strategy)`` (``tp``,
+the default, or ``fsdp``) under the mesh and its ``activation_sharding``.
+On a mesh of one device every spec is empty, so the model keeps plain
+tensors and the ctypes kernels, and both strategies train the same bits;
+a sharded state (more devices) is the dry run's (``launch/dryrun.py``).
+The group is destroyed when the run ends.
 """
 import argparse
 import dataclasses
@@ -58,12 +68,16 @@ import torch
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data import DataConfig, Pipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (launcher_mesh, mesh_context,
+                                     require_unsharded)
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.sharding import activation_sharding, default_rules, tree_specs
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import StragglerMonitor
-from repro_torch.train.trainer import (effective_optimizer, init_state,
-                                       make_train_step, make_train_window,
+from repro_torch.train.trainer import (abstract_state, effective_optimizer,
+                                       init_state, make_train_step,
+                                       make_train_window, state_axes,
                                        window_boundary_crossed)
 
 DEFAULT_CKPT_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -102,6 +116,8 @@ def main(argv=None):
                                        "(fused mode only)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--strategy", choices=("tp", "fsdp"), default="tp",
+                    help="the sharding rules' strategy (sharding/rules.py)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -120,6 +136,25 @@ def main(argv=None):
     opt = AdamW(lr=warmup_cosine(args.lr, 10, args.steps))
     opt_eff = effective_optimizer(opt, args.compress_grads,
                                   args.compress_shards)
+    with launcher_mesh(device.type) as (mesh, _):
+        rules = state_rules(model, opt_eff, mesh, args.strategy)
+        with mesh_context(mesh), activation_sharding(mesh, rules):
+            return _train(args, device, cfg, model, opt, opt_eff)
+
+
+def state_rules(model, opt_eff, mesh, strategy: str):
+    """The rules of ``strategy`` for ``mesh``, after checking that they
+    shard no leaf of the train state (every spec empty on one device)."""
+    rules = default_rules(fsdp=model.cfg.fsdp,
+                          multi_pod=len(mesh.mesh_dim_names) == 3,
+                          strategy=strategy)
+    specs = tree_specs(state_axes(model, opt_eff),
+                       abstract_state(model, opt_eff), mesh, rules)
+    require_unsharded(specs, f"train state ({strategy})")
+    return rules
+
+
+def _train(args, device, cfg, model, opt, opt_eff):
     dcfg = DataConfig(cfg.vocab_size, args.seq, args.batch)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

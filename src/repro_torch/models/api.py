@@ -22,8 +22,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ATTN_IMPLS
-from repro_torch.models.common import (ParamDefs, Params, cross_entropy,
-                                       materialize, torch_dtype)
+from repro_torch.models.common import (Axes, ParamDefs, Params, abstract,
+                                       axes_of, cross_entropy, materialize,
+                                       torch_dtype)
 
 # encoder frames of the encdec family's decode cells (the encoder runs once
 # at prefill; decode attends its output)
@@ -128,6 +129,14 @@ class Model:
         return materialize(self.param_defs, generator, self.cfg.dtype,
                            self.device)
 
+    def abstract_params(self) -> Params:
+        """``meta`` stand-ins of the weights (the dry run's; nothing is
+        allocated)."""
+        return abstract(self.param_defs, self.cfg.dtype)
+
+    def param_axes(self) -> Axes:
+        return axes_of(self.param_defs)
+
     # ---- cache ----------------------------------------------------------
     def cache_defs(self, batch: int, max_len: int) -> ParamDefs:
         return tf.cache_param_defs(self.cfg, batch, max_len)
@@ -135,6 +144,12 @@ class Model:
     def init_cache(self, batch: int, max_len: int) -> Params:
         return materialize(self.cache_defs(batch, max_len), None,
                            self.cfg.dtype, self.device)
+
+    def abstract_cache(self, batch: int, max_len: int) -> Params:
+        return abstract(self.cache_defs(batch, max_len), self.cfg.dtype)
+
+    def cache_axes(self, batch: int, max_len: int) -> Axes:
+        return axes_of(self.cache_defs(batch, max_len))
 
     # ---- paged cache (serve) --------------------------------------------
     def paged_cache_defs(self, num_pages: int, page_size: int) -> ParamDefs:
@@ -145,6 +160,9 @@ class Model:
     def init_paged_cache(self, num_pages: int, page_size: int) -> Params:
         return materialize(self.paged_cache_defs(num_pages, page_size),
                            None, self.cfg.dtype, self.device)
+
+    def paged_cache_axes(self, num_pages: int, page_size: int) -> Axes:
+        return axes_of(self.paged_cache_defs(num_pages, page_size))
 
     # ---- forward --------------------------------------------------------
     def forward(self, params: Params, batch: Dict[str, torch.Tensor], *,

@@ -29,6 +29,7 @@ from repro_torch.kernels.decode_attention import (NEG_INF,
 from repro_torch.kernels.paged_attention import gather_pages, write_rows
 from repro_torch.models.common import (ParamDef, ParamDefs, Params,
                                        apply_rope, softcap)
+from repro_torch.sharding import local
 
 DECODE_IMPLS = ("plain", "kernel")
 # train, prefill and scalar-position decode: naive (JAX "naive"), the flash
@@ -59,15 +60,16 @@ def _mask_bias(q_pos, k_pos, *, window: int, causal: bool = True,
     """Additive mask bias (0 or NEG_INF). q_pos (Sq,), k_pos (Skv,);
     ``window`` <= 0 means global; keys at or past ``kv_len`` (None: none)
     and keys at negative positions (empty ring slots) are masked."""
+    # not in place: with k_pos a DTensor (the dry run) ok becomes one
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                     device=q_pos.device)
     if causal:
-        ok &= k_pos[None, :] <= q_pos[:, None]
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
     if window > 0:
-        ok &= k_pos[None, :] > q_pos[:, None] - window
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
     if kv_len is not None:
-        ok &= k_pos[None, :] < kv_len
-    ok &= k_pos[None, :] >= 0
+        ok = ok & (k_pos[None, :] < kv_len)
+    ok = ok & (k_pos[None, :] >= 0)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
@@ -117,18 +119,25 @@ class FlashAttention(torch.autograd.Function):
     key's p exactly 0, so its dk and dv rows are 0.  Under ``p_bf16`` p is
     rounded to bf16 before it meets dp and do, as JAX's
     ``_flash_bwd_rule``.  The last block may be short; JAX pads it with
-    masked keys that contribute nothing."""
+    masked keys that contribute nothing.
+
+    On DTensors (the dry run's sharded trace) both run on each device's
+    local shards (``_per_device``), as a kernel runs on a device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, logit_cap: float,
                 kv_block: int, q_offset: int, kv_len: Optional[int],
                 p_bf16: bool):
-        o, lse = kernel_ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, logit_cap=logit_cap,
-            q_offset=q_offset, kv_len=kv_len, p_bf16=p_bf16,
-            return_lse=True)
-        o = o.transpose(1, 2)
+        def call(q, k, v):
+            o, lse = kernel_ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window, logit_cap=logit_cap,
+                q_offset=q_offset, kv_len=kv_len, p_bf16=p_bf16,
+                return_lse=True)
+            return o.transpose(1, 2), lse
+
+        o, lse = (_per_device(call, q, k, v, "fwd")
+                  if local.is_dtensor(q) else call(q, k, v))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.cfg = (causal, window, logit_cap, kv_block, q_offset, kv_len,
                    p_bf16)
@@ -137,42 +146,83 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, logit_cap, kv_block, q_offset, kv_len, p_bf16 = \
-            ctx.cfg
-        B, Sq, H, hd = q.shape
-        Skv, K = k.shape[1], k.shape[2]
-        G = H // K
-        scale = hd ** -0.5
-        qr = q.reshape(B, Sq, K, G, hd).float()
-        dor = do.reshape(B, Sq, K, G, hd).float()
-        delta = torch.sum(dor * o.reshape(B, Sq, K, G, hd).float(), dim=-1)
-        lse = lse.transpose(1, 2).reshape(B, Sq, K, G)
-        q_pos = q_offset + torch.arange(Sq, device=q.device)
-        dq = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32,
-                         device=q.device)
-        dk = torch.empty((B, Skv, K, hd), dtype=torch.float32,
-                         device=q.device)
-        dv = torch.empty_like(dk)
-        for j0 in range(0, Skv, kv_block):
-            j1 = min(j0 + kv_block, Skv)
-            kj, vj = k[:, j0:j1].float(), v[:, j0:j1].float()
-            s_raw = torch.einsum("bskgh,btkh->bskgt", qr * scale, kj)
-            s = softcap(s_raw, logit_cap)
-            bias = _mask_bias(q_pos, torch.arange(j0, j1, device=q.device),
-                              window=window, causal=causal, kv_len=kv_len)
-            p = torch.exp(s + bias[None, :, None, None, :] - lse[..., None])
-            if p_bf16:
-                p = p.to(torch.bfloat16).float()
-            dp = torch.einsum("bskgh,btkh->bskgt", dor, vj)
-            ds = p * (dp - delta[..., None])
-            if logit_cap:
-                t = torch.tanh(s_raw / logit_cap)  # d softcap = 1 - tanh^2
-                ds = ds * (1.0 - t * t)
-            dq += torch.einsum("bskgt,btkh->bskgh", ds, kj) * scale
-            dk[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", ds, qr) * scale
-            dv[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", p, dor)
-        return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype)) + (None,) * 7
+
+        def call(q, k, v, o, lse, do):
+            return _flash_bwd(q, k, v, o, lse, do, *ctx.cfg)
+
+        grads = (_per_device(call, q, k, v, "bwd", o, lse, do)
+                 if local.is_dtensor(q) else call(q, k, v, o, lse, do))
+        return tuple(grads) + (None,) * 7
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, window, logit_cap, kv_block,
+               q_offset, kv_len, p_bf16):
+    """``FlashAttention.backward``'s arithmetic on plain tensors:
+    (dq, dk, dv)."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    qr = q.reshape(B, Sq, K, G, hd).float()
+    dor = do.reshape(B, Sq, K, G, hd).float()
+    delta = torch.sum(dor * o.reshape(B, Sq, K, G, hd).float(), dim=-1)
+    lse = lse.transpose(1, 2).reshape(B, Sq, K, G)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.empty((B, Skv, K, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for j0 in range(0, Skv, kv_block):
+        j1 = min(j0 + kv_block, Skv)
+        kj, vj = k[:, j0:j1].float(), v[:, j0:j1].float()
+        s_raw = torch.einsum("bskgh,btkh->bskgt", qr * scale, kj)
+        s = softcap(s_raw, logit_cap)
+        bias = _mask_bias(q_pos, torch.arange(j0, j1, device=q.device),
+                          window=window, causal=causal, kv_len=kv_len)
+        p = torch.exp(s + bias[None, :, None, None, :] - lse[..., None])
+        if p_bf16:
+            p = p.to(torch.bfloat16).float()
+        dp = torch.einsum("bskgh,btkh->bskgt", dor, vj)
+        ds = p * (dp - delta[..., None])
+        if logit_cap:
+            t = torch.tanh(s_raw / logit_cap)  # d softcap = 1 - tanh^2
+            ds = ds * (1.0 - t * t)
+        dq += torch.einsum("bskgt,btkh->bskgh", ds, kj) * scale
+        dk[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", ds, qr) * scale
+        dv[:, j0:j1] = torch.einsum("bskgt,bskgh->btkh", p, dor)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+_HEADS, _LSE = (0, 2, ()), (0, 1, ())   # (B, S, H, hd) and (B, H, S)
+
+
+def _per_device(fn, q, k, v, kind: str, *more):
+    """``fn`` on each device's local shards of DTensors (the dry run), as
+    a kernel runs on one device (``sharding/local.py``): the batch and
+    head dims keep q's split, every other dim is whole.  k and v are
+    repeated r times a kv head, the fewest that lets the query heads' split
+    also split the kv heads (llama3's 8 over 16: r = 2, each device one kv
+    head for its two query heads; r = 1 where the kv heads divide).
+    ``kind`` "fwd" returns (o, lse), "bwd" (dq, dk, dv) with dk and dv
+    summed back over the r copies as DTensor ops."""
+    B, _, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    split = local.channel_split(q, 2)
+    r = next((r for r in range(1, G + 1)
+              if G % r == 0 and (K * r) % split == 0), G)
+    kr, vr = (t.repeat_interleave(r, dim=2) if r > 1 else t for t in (k, v))
+    if kind == "fwd":
+        return local.per_device(fn, (q, kr, vr), (_HEADS,) * 3,
+                                (_HEADS, _LSE))
+    dq, dk, dv = local.per_device(fn, (q, kr, vr, *more),
+                                  (_HEADS,) * 4 + (_LSE, _HEADS),
+                                  (_HEADS,) * 3)
+    if r > 1:
+        dk = dk.reshape(B, Skv, K, r, hd).sum(3)
+        dv = dv.reshape(B, Skv, K, r, hd).sum(3)
+    return dq, dk, dv
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -2,7 +2,9 @@
 ``repro/models/common.py``).
 
 Parameters live in a FLAT dict keyed by '/'-separated path, in the JAX
-package's layouts; layer stacks carry a leading "layers" dim.
+package's layouts; a parallel dict (``axes_of``) maps each path to its
+logical-axes tuple, which ``repro_torch.sharding`` reads.  Layer stacks
+carry a leading "layers" dim.
 """
 from __future__ import annotations
 
@@ -14,7 +16,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import constrain, local
+
 Params = Dict[str, torch.Tensor]
+Axes = Dict[str, Tuple[Optional[str], ...]]
+
+_LOGITS = ("batch", "seq", "vocab")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
@@ -74,6 +81,18 @@ def materialize(defs: ParamDefs, generator: Optional[torch.Generator],
                             device=generator.device, dtype=torch.float32)
             params[name] = w.mul_(scale).to(device=device, dtype=dt)
     return params
+
+
+def abstract(defs: ParamDefs, dtype: str) -> Params:
+    """Stand-ins of the right shape and dtype on the ``meta`` device, the
+    counterpart of JAX's ``ShapeDtypeStruct``s: nothing is allocated."""
+    return {name: torch.empty(d.shape, dtype=torch_dtype(d.dtype or dtype),
+                              device="meta")
+            for name, d in defs.items()}
+
+
+def axes_of(defs: ParamDefs) -> Axes:
+    return {name: d.axes for name, d in defs.items()}
 
 
 def stacked(defs: ParamDefs, n: int, prefix: str) -> ParamDefs:
@@ -190,5 +209,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     the port keeps both)."""
     logits = softcap(logits.float(), final_cap)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if local.is_dtensor(logits):
+        # the gold logit as a masked sum over the vocabulary (every other
+        # term exactly 0): on vocab-sharded DTensors (the dry run) it stays
+        # sharded and sums across the shards, as GSPMD partitions a gather
+        # along a sharded dim, where a gather would replicate the logits
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = constrain(vocab == labels.long()[..., None], _LOGITS)
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)

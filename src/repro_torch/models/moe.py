@@ -39,6 +39,12 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, ParamDefs, Params, activation
+from repro_torch.sharding import constrain
+
+# the logical axes of the (Ep, B*C, D) expert buffers: JAX's are (B, Ep, C,
+# D) with ("batch", "experts", "capacity", "embed_act"); here the batch and
+# capacity dims are one, which takes the batch's mesh axis
+_BUF = ("experts", "batch", "embed_act")
 
 
 def padded_experts(cfg: ModelConfig) -> int:
@@ -89,7 +95,7 @@ def aux_loss(cfg: ModelConfig, probs: torch.Tensor,
     B, S, E = probs.shape
     K = cfg.top_k
     me = probs.mean(dim=(0, 1))
-    counts = torch.zeros(E, dtype=torch.float32, device=probs.device)
+    counts = probs.new_zeros(E)       # made like probs: a DTensor under one
     counts.index_add_(0, expert_idx.reshape(-1),
                       torch.ones(B * S * K, dtype=torch.float32,
                                  device=probs.device))
@@ -127,8 +133,7 @@ def dispatch(cfg: ModelConfig, expert_idx: torch.Tensor,
                        Ep * B * C)
     # token b*S + s of assignment (b, s*K + k)
     tok = torch.arange(B * S * K, device=dev).view(B, S * K) // K
-    tokmap = torch.full((Ep * B * C + 1,), B * S, dtype=torch.int64,
-                        device=dev)
+    tokmap = slot.new_full((Ep * B * C + 1,), B * S)
     tokmap.scatter_(0, slot.reshape(-1), tok.reshape(-1))  # drops collide
     if _tallies:
         _tallies[-1].append(((~keep).sum(), keep.numel()))
@@ -152,7 +157,8 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         aux = aux_loss(cfg, probs, expert_idx) if with_aux else None
         d = dispatch(cfg, expert_idx, C)
         buf = _gather_slots(cfg, x, d, C)
-    out = _experts(cfg, p, buf)
+    buf = constrain(buf, _BUF)
+    out = constrain(_experts(cfg, p, buf), _BUF)
     with record_function("moe_dispatch"):
         return _combine(cfg, out, gates, d, C).to(x.dtype), aux
 
@@ -202,8 +208,7 @@ class _PickSlots(torch.autograd.Function):
         slot, keep = ctx.saved_tensors
         B, SK = slot.shape
         n = B * SK
-        owner = torch.full((ctx.rows + 1,), n, dtype=torch.int64,
-                           device=g.device)
+        owner = slot.new_full((ctx.rows + 1,), n)
         owner.scatter_(0, torch.where(keep, slot, ctx.rows).reshape(-1),
                        torch.arange(n, device=g.device))
         g_pad = torch.cat([g.reshape(n, -1), g.new_zeros((1, g.shape[-1]))])
@@ -225,6 +230,7 @@ def _experts(cfg: ModelConfig, p: Params, buf: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.mlp_act)
     up = torch.bmm(buf, p["w_up"])
     h = act(torch.bmm(buf, p["w_gate"])) * up if cfg.gated_mlp else act(up)
+    h = constrain(h, ("experts", "batch", "expert_ffn"))
     return torch.bmm(h, p["w_down"])
 
 

@@ -22,6 +22,11 @@ The JAX package scans the stacked layers with ``jax.lax.scan``; here a
 Python loop walks views of the same stacked tensors (dense, ssm) or the
 unrolled ``layer_{i}`` tensors (hybrid), or the unrolled ``enc_{i}`` and
 ``dec_{i}`` tensors (encdec).
+
+The residual stream passes ``constrain(x, _ACT)`` where the JAX models
+call it (layer entry, after each residual add, the embedding and the
+final norm, the logits): the identity unless the dry run or a launcher
+has an ``activation_sharding`` active and ``x`` is a DTensor.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ from repro_torch.models.common import (ParamDef, ParamDefs, Params,
                                        apply_rope, layer_norm, rms_norm,
                                        rope_tables, sinusoidal_positions,
                                        softcap, stacked, subtree, torch_dtype)
+from repro_torch.sharding import constrain
+
+_ACT = ("batch", "seq", "embed_act")  # canonical activation sharding
 
 
 def _prefix(pre: str, defs: ParamDefs) -> ParamDefs:
@@ -216,24 +224,25 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x, *, rope_cs, window,
     """Dense, moe, vlm or ssm layer body. Returns (x, new_cache, aux): aux
     is the MoE router's load-balancing loss when ``with_aux`` and the
     layer has a router, else None."""
+    x = constrain(x, _ACT)
     if cfg.family == "ssm":
         h, new_state = ssm_mod.ssm_block(
             cfg, subtree(p, "ssm"), rms_norm(x, p["ln1/g"]), state=cache,
             impl=impl)
-        return x + h, new_state, None
+        return constrain(x + h, _ACT), new_state, None
     h, new_cache = attn_mod.attention_block(
         cfg, subtree(p, "attn"), rms_norm(x, p["ln1/g"]),
         rope_cs=rope_cs, window=window, cache=cache,
         cache_pos=cache_pos, return_kv=return_kv, impl=impl,
         page_table=page_table, kv_write_mask=kv_write_mask)
-    x = x + h
+    x = constrain(x + h, _ACT)
     z = rms_norm(x, p["ln2/g"])
     if cfg.is_moe:
         m, aux = moe_mod.moe_block(cfg, subtree(p, "moe"), z,
                                    with_aux=with_aux)
     else:
         m, aux = mlp_mod.mlp_block(cfg, subtree(p, "mlp"), z), None
-    return x + m, new_cache, aux
+    return constrain(x + m, _ACT), new_cache, aux
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens,
@@ -247,17 +256,18 @@ def _embed(cfg: ModelConfig, params: Params, tokens,
             raise ValueError(f"{nv} vision embeddings for {x.shape[1]} "
                              f"positions")
         x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
-    return x
+    return constrain(x, _ACT)
 
 
 def _unembed(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
     """Final norm + output projection; returns f32 logits (after the
     optional final softcap)."""
-    x = rms_norm(x, params["final_ln/g"])
+    x = constrain(rms_norm(x, params["final_ln/g"]), _ACT)
     if cfg.tie_embeddings:
         logits = x @ params["emb/tok"].T
     else:
         logits = x @ params["emb/out"]
+    logits = constrain(logits, ("batch", "seq", "vocab"))
     return softcap(logits.float(), cfg.final_softcap)
 
 
@@ -589,9 +599,9 @@ def hybrid_forward(
                 rings = _ring_fold(kv["k"], kv["v"], W)
             for n, t in zip(("attn/k", "attn/v", "attn/pos"), rings):
                 new[n].append(t)
-        x = x + h
-        x = x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
-                                  rms_norm(x, lp["ln2/g"]))
+        x = constrain(x + h, _ACT)
+        x = constrain(x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
+                                            rms_norm(x, lp["ln2/g"])), _ACT)
     return (_unembed(cfg, params, _pick(x, logits_at)),
             {n: torch.stack(ts) for n, ts in new.items() if ts})
 
@@ -608,9 +618,9 @@ def _hybrid_train_layer(cfg: ModelConfig, lp: Params, x, kind: str, rope_cs,
                                         rope_cs=rope_cs,
                                         window=cfg.local_window,
                                         impl=attn_impl)
-    x = x + h
-    return x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
-                                 rms_norm(x, lp["ln2/g"]))
+    x = constrain(x + h, _ACT)
+    return constrain(x + mlp_mod.mlp_block(cfg, subtree(lp, "mlp"),
+                                           rms_norm(x, lp["ln2/g"])), _ACT)
 
 
 # ---------------------------------------------------------------------------
@@ -628,14 +638,15 @@ def _encdec_layer(cfg: ModelConfig, p: Params, x, *, causal: bool,
         cfg, subtree(p, "attn"), layer_norm(x, p["ln1/g"], p["ln1/b"]),
         rope_cs=None, causal=causal, window=0, cache=cache,
         cache_pos=cache_pos, return_kv=return_kv, impl=impl)
-    x = x + h
+    x = constrain(x + h, _ACT)
     if enc_out is not None:
         h, _ = attn_mod.attention_block(
             cfg, subtree(p, "xattn"), layer_norm(x, p["lnx/g"], p["lnx/b"]),
             rope_cs=None, kv_source=enc_out, impl=impl)
-        x = x + h
-    return x + mlp_mod.mlp_block(cfg, subtree(p, "mlp"),
-                                 layer_norm(x, p["ln2/g"], p["ln2/b"])), kv
+        x = constrain(x + h, _ACT)
+    return constrain(x + mlp_mod.mlp_block(
+        cfg, subtree(p, "mlp"), layer_norm(x, p["ln2/g"], p["ln2/b"])),
+        _ACT), kv
 
 
 def _encdec_train_layer(cfg: ModelConfig, p: Params, x, enc_out,
@@ -659,8 +670,8 @@ def encoder_forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     ``_maybe_remat(..., "train")``."""
     B, Se, D = frames.shape
     dt = torch_dtype(cfg.dtype)
-    x = frames.to(dt) + sinusoidal_positions(Se, D, frames.device).to(
-        dt)[None]
+    x = constrain(frames.to(dt) + sinusoidal_positions(
+        Se, D, frames.device).to(dt)[None], _ACT)
     for i in range(cfg.enc_layers):
         lp = subtree(params, f"enc_{i}")
         if train:
@@ -734,7 +745,8 @@ def encdec_forward(
     else:
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
                          f"'decode')")
-    x = params["emb/tok"][tokens].to(torch_dtype(cfg.dtype)) + pos_emb
+    x = constrain(params["emb/tok"][tokens].to(torch_dtype(cfg.dtype))
+                  + pos_emb, _ACT)
     if train:
         for i in range(cfg.dec_layers):
             x = _remat(cfg, _encdec_train_layer, cfg,

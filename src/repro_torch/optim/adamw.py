@@ -2,7 +2,9 @@
 counterpart of ``repro/optim/adamw.py``, in its operation order).
 
 State is ``{"m", "v", "count", "master"}``: m, v and master are dicts keyed
-like the parameters, f32; count is a 0-d int32 tensor.  ``update`` works IN
+like the parameters, f32; count is a 0-d int32 tensor.  The state carries
+the parameters' logical axes (``state_axes``), so FSDP sharding extends to
+m, v and master.  ``update`` works IN
 PLACE on the parameters and the state (the JAX version returns new trees):
 at llama3-8b's width the state is several times the weights, and a second
 copy would not fit on one card.  Every quantity stays a device tensor (the
@@ -42,6 +44,27 @@ class AdamW:
             # separately in place
             state["master"] = {n: p.to(torch.float32, copy=True)
                                for n, p in params.items()}
+        return state
+
+    def abstract_state(self, params: Tensors) -> Dict:
+        """``init``'s structure as ``meta`` stand-ins (nothing allocated):
+        f32 m, v (and master) like each parameter, an int32 0-d count."""
+        def f32(p):
+            return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+        state = {"m": {n: f32(p) for n, p in params.items()},
+                 "v": {n: f32(p) for n, p in params.items()},
+                 "count": torch.empty((), dtype=torch.int32, device="meta")}
+        if self.master_weights:
+            state["master"] = {n: f32(p) for n, p in params.items()}
+        return state
+
+    def state_axes(self, param_axes: Dict) -> Dict:
+        """The state's logical axes: the moments (and master) carry their
+        parameter's, so FSDP sharding extends to them."""
+        state = {"m": param_axes, "v": param_axes, "count": ()}
+        if self.master_weights:
+            state["master"] = param_axes
         return state
 
     @torch.no_grad()

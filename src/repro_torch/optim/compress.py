@@ -13,7 +13,10 @@ stacked on a leading ``(shards,)`` axis).  Here that axis is the leading
 axis of the stacked tensors themselves: the shared scale is the max over
 every shard, the payload is summed over axis 0 in int32, and ``mean=True``
 divides by the shard count.  The combined value is returned once (JAX's
-vmap returns it replicated on every shard's row).
+vmap returns it replicated on every shard's row).  Given ``group=`` (a
+``torch.distributed`` process group) the data axis is the group's ranks
+instead: each holds its own shard with no leading axis, the scale is an
+``all_reduce(MAX)`` and the payload an int32 ``all_reduce(SUM)``.
 
 ``CompressedOptimizer`` wraps the port's ``AdamW``; its state is
 ``{"inner": <AdamW state>, "err": <f32 error buffers>}`` (per-shard
@@ -30,6 +33,7 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.optim.adamw import AdamW
@@ -59,10 +63,13 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
-def _scale(x: torch.Tensor) -> torch.Tensor:
-    """``max|x| / 127 + 1e-12`` in x's dtype, as a 0-d tensor."""
+def _scale(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``max|x| / 127 + 1e-12`` in x's dtype, as a 0-d tensor; with
+    ``group`` the max is over every rank's ``x`` (``all_reduce(MAX)``)."""
     lo, hi = torch.aminmax(x)
     amax = torch.maximum(-lo, hi)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     return amax / _full(amax, 127.0) + 1e-12
 
 
@@ -108,23 +115,46 @@ def _combine_(e: torch.Tensor, mean: bool) -> torch.Tensor:
     return out
 
 
-def compressed_psum(tree, *, mean: bool = False):
+def _combine_group_(e: torch.Tensor, mean: bool, group) -> torch.Tensor:
+    """``_combine_`` over the ranks of ``group``, each holding its own
+    shard ``e`` (no leading axis): the shared scale is an
+    ``all_reduce(MAX)`` of the per-rank max-abs, the payload an int32
+    ``all_reduce(SUM)``, and ``mean`` divides by the group's size as a
+    0-d tensor.  Leaves this rank's residual in ``e``."""
+    scale = _scale(e, group)
+    q = _payload(e, scale)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    e.sub_(q.mul_(scale))
+    out = total.to(torch.float32).mul_(scale)
+    if mean:
+        out.div_(_full(out, dist.get_world_size(group)))
+    return out
+
+
+def compressed_psum(tree, *, mean: bool = False, group=None):
     """The int8-payload sum (``mean=True``: mean) over the leading shard
     axis of every leaf of ``tree``; each leaf comes back in its dtype
-    without the shard axis.  A true sum, as ``jax.lax.psum``."""
-    return compressed_psum_ef(tree, mean=mean)[0]
+    without the shard axis.  A true sum, as ``jax.lax.psum``.  With
+    ``group`` (a ``torch.distributed`` process group) the sum is over its
+    ranks instead, each holding its own shard with no leading axis."""
+    return compressed_psum_ef(tree, mean=mean, group=group)[0]
 
 
-def compressed_psum_ef(tree, *, mean: bool = False):
+def compressed_psum_ef(tree, *, mean: bool = False, group=None):
     """``compressed_psum`` that also returns each shard's residual.
 
     Returns ``(combined, err)``: ``combined`` as ``compressed_psum`` gives
     it, ``err`` each shard's f32 quantization residual ``x -
-    dequant(quant(x))`` (leading shard axis kept), which error-feedback
-    data parallelism banks per worker before the reduce."""
+    dequant(quant(x))`` (leading shard axis kept; with ``group``, this
+    rank's), which error-feedback data parallelism banks per worker
+    before the reduce.  Over a group the result is the stacked form's bit
+    for bit: the same scale, an exact integer sum, the same products."""
     def one(x):
         xf = x.to(torch.float32, copy=True)
-        return _combine_(xf, mean).to(x.dtype), xf
+        comb = (_combine_(xf, mean) if group is None
+                else _combine_group_(xf, mean, group))
+        return comb.to(x.dtype), xf
 
     return _unzip(_tree_map(one, tree))
 
@@ -174,6 +204,25 @@ class CompressedOptimizer:
                 "err": {n: torch.zeros(self._err_shape(p),
                                        dtype=torch.float32, device=p.device)
                         for n, p in params.items()}}
+
+    def abstract_state(self, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+        """``init``'s structure as ``meta`` stand-ins."""
+        return {"inner": self.inner.abstract_state(params),
+                "err": {n: torch.empty(self._err_shape(p),
+                                       dtype=torch.float32, device="meta")
+                        for n, p in params.items()}}
+
+    def state_axes(self, param_axes: Dict) -> Dict[str, Any]:
+        """The inner state's axes; the error buffers carry their
+        parameter's, behind a leading per-shard ``"batch"`` axis (on the
+        data axis of a real mesh) when ``shards > 1``."""
+        err_axes = param_axes
+        if self.shards > 1:
+            err_axes = {n: ("batch",) + tuple(a)
+                        for n, a in param_axes.items()}
+        return {"inner": self.inner.state_axes(param_axes),
+                "err": err_axes}
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict,

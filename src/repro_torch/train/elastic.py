@@ -1,16 +1,51 @@
-"""Straggler mitigation (the framework-free ``StragglerMonitor`` of
-``repro/train/elastic.py``, copied).  The elastic mesh half of that module
-(``choose_mesh``, ``remesh``, ``plan_recovery``) comes with the sharding
-slice of the port.
+"""Elastic scaling and straggler mitigation (torch counterpart of
+``repro/train/elastic.py``).
 
-An EMA step-time monitor per host: a host whose step time exceeds
-``threshold`` x the fleet median for ``patience`` consecutive steps is
-reported for eviction.
+Elastic scaling: when the healthy-device count changes (node failure,
+capacity add), pick the best mesh from a preference ladder
+(``choose_mesh``), rebuild shardings from the SAME logical-axis rules
+(``sharding/rules.py``) and restore the latest checkpoint onto the new
+mesh.  Nothing about the model or step function changes: that is the
+point of rule-based sharding.  ``remesh`` builds the chosen mesh on the
+current default process group (``launch/mesh.py``), so the group's world
+size must be the device count.
+
+Straggler mitigation: an EMA step-time monitor per host; a host whose step
+time exceeds ``threshold`` x the fleet median for ``patience`` consecutive
+steps is reported for eviction, which triggers the elastic path above.
 """
 from __future__ import annotations
 
+import dataclasses
 import statistics
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
+
+from repro_torch.launch.mesh import make_mesh_for
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshChoice:
+    devices: int
+    model_parallelism: int
+    pods: int
+
+
+def choose_mesh(num_devices: int,
+                preferences: Sequence[Tuple[int, int]] = ((16, 2), (16, 1),
+                                                          (8, 1), (4, 1),
+                                                          (2, 1), (1, 1))
+                ) -> MeshChoice:
+    """Largest viable (model_parallelism, pods) config for device count."""
+    for model, pods in preferences:
+        if num_devices % (model * pods) == 0 and num_devices >= model * pods:
+            return MeshChoice(num_devices, model, pods)
+    return MeshChoice(num_devices, 1, 1)
+
+
+def remesh(num_devices: int):
+    c = choose_mesh(num_devices)
+    return make_mesh_for(c.devices, model_parallelism=c.model_parallelism,
+                         pods=c.pods)
 
 
 class StragglerMonitor:
@@ -49,3 +84,20 @@ class StragglerMonitor:
                 out.append(h)
                 self._strikes[h] = 0
         return out
+
+
+@dataclasses.dataclass
+class ElasticEvent:
+    kind: str            # "failure" | "straggler" | "scale_up"
+    hosts: List[int]
+    new_device_count: int
+
+
+def plan_recovery(event: ElasticEvent):
+    """Return (mesh_choice, action) for an elastic event.  The runner then:
+    1) quiesces, 2) builds the new mesh, 3) restores the latest checkpoint
+    with shardings derived from the same rules on the new mesh, 4) resumes
+    the data pipeline at the checkpointed step."""
+    choice = choose_mesh(event.new_device_count)
+    return choice, ("evict+remesh" if event.kind != "scale_up"
+                    else "quiesce+remesh")

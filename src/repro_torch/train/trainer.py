@@ -51,6 +51,7 @@ from repro_torch.models.api import Model
 from repro_torch.models.common import Params
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.compress import wrap_optimizer
+from repro_torch.sharding import constrain
 
 TrainState = Dict[str, Any]  # {"params", "opt", "step"}
 
@@ -84,6 +85,20 @@ def init_state(model: Model, opt,
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=model.device)}
+
+
+def abstract_state(model: Model, opt) -> TrainState:
+    """``init_state``'s structure as ``meta`` stand-ins (the dry run's;
+    nothing is allocated)."""
+    params = model.abstract_params()
+    return {"params": params, "opt": opt.abstract_state(params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_axes(model: Model, opt) -> TrainState:
+    """The logical axes of every leaf of a train state."""
+    axes = model.param_axes()
+    return {"params": axes, "opt": opt.state_axes(axes), "step": ()}
 
 
 def clone_state(state: TrainState) -> TrainState:
@@ -168,11 +183,23 @@ def make_train_step(model: Model, opt: AdamW, *, microbatches: int = 1,
             del g
         return torch.mean(torch.stack(losses)), stacked
 
+    param_axes = model.param_axes()
+
+    def reshard_grads(grads, lead=()):
+        """Pin every gradient to its parameter's sharding before the
+        optimizer (the identity with no sharder or on plain tensors):
+        otherwise the elementwise update runs on gradients in whatever
+        layout the backward left them."""
+        return {n: constrain(g, lead + tuple(param_axes[n]))
+                for n, g in grads.items()}
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         if compress_shards == 1:
             loss, grads = local_grads(state["params"], batch)
+            grads = reshard_grads(grads)
         else:
             loss, grads = shard_grads(state["params"], batch)
+            grads = reshard_grads(grads, ("batch",))
         metrics = opt_eff.update(grads, state["opt"], state["params"])
         del grads
         state["step"] += 1

@@ -1583,3 +1583,65 @@ def test_encdec_engine_kernels_match_their_plain_twin(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool((out[0, :, 0] >= 0).all())
+
+
+# --- sharding: the one-rank NCCL group and the identity constrain -----------
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_compressed_psum_ef_over_one_nccl_rank_is_the_stacked_form(dev,
+                                                                   mean):
+    """``compressed_psum_ef(group=)`` over a one-rank NCCL group: the
+    combined value and the residual equal the stacked form of the one
+    shard bit for bit (f32 and bf16), and the group is gone after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import one_device_group
+    from repro_torch.optim import compress as tc
+    g = torch.Generator(device=dev).manual_seed(5)
+    tree = {"a": torch.randn(1, 513, 7, generator=g, device=dev) * 3,
+            "b": torch.randn(1, 999, generator=g,
+                             device=dev).to(torch.bfloat16)}
+    with one_device_group("cuda"):
+        assert dist.get_backend() == "nccl"
+        want, werr = tc.compressed_psum_ef(tree, mean=mean)
+        got, err = tc.compressed_psum_ef(
+            {k: v[0].clone() for k, v in tree.items()}, mean=mean,
+            group=dist.group.WORLD)
+    assert not dist.is_initialized()
+    for k in tree:
+        assert torch.equal(got[k], want[k]) and torch.equal(err[k],
+                                                            werr[k][0])
+
+
+def test_constrain_is_the_identity_on_the_card_and_the_decode_tick(dev):
+    """Under a 1x1 NCCL mesh's ``activation_sharding``, ``constrain``
+    returns a CUDA tensor itself, and ``Engine``'s fused decode tick on
+    its kernels serves the same tokens as with no sharder."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import launcher_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, mixed_requests, run_staggered, \
+        staggered_groups
+    from repro_torch.sharding import activation_sharding, constrain, \
+        default_rules
+    cfg = reduced(get_config("llama3-8b"), dtype="float32")
+    model = build_model(cfg, max_seq=64, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def serve():
+        eng = Engine(model, params, slots=4, max_len=64, ticks_per_sync=4,
+                     device=dev)
+        reqs = mixed_requests(8, seed=2, vocab=cfg.vocab_size,
+                              prompt_lens=(2, 16), max_new=(2, 8))
+        return run_staggered(eng, staggered_groups(reqs, 4)), eng
+
+    want, _ = serve()
+    x = torch.ones(2, 8, 4, device=dev)
+    with launcher_mesh("cuda") as (mesh, _):
+        with activation_sharding(mesh, default_rules()):
+            assert constrain(x, ("batch", "seq", "embed_act")) is x
+            before = ops.launches["decode_attention"]
+            got, eng = serve()
+    assert got == want
+    assert ops.launches["decode_attention"] - before == \
+        cfg.num_layers * eng.counts["decode_ticks"]
